@@ -1,0 +1,191 @@
+"""Resumable streams of `MiniBatch`es (`repro/batching/stream.py:50-251`).
+
+`BatchStream` owns the per-epoch root ordering (via a `BatchPolicy`), the
+batch builder, and an explicit `Cursor(epoch, pos)`.
+
+Determinism contract: everything is derived from `(seed, epoch, pos)` —
+the numpy epoch order from `default_rng((seed, epoch))` (equal to the
+reference's), and one `torch.Generator` on the stream's device per
+(batch, hop), seeded with a 64-bit pure function of
+`(seed, epoch, pos, hop, salt)` (`cursor_generator`). A stream restored at
+a cursor therefore rebuilds the same batch bit for bit. The generators are
+the device's own (Philox on CUDA, MT19937 on the CPU), so a CUDA stream
+and a CPU stream with the same seed draw different uniforms; the reference's
+threefry draws are not reproduced (the parity tests inject them instead).
+
+The feature cache (`cache=`) and the async pipeline (`prefetch=`) are not
+ported yet. CUDA work is queued asynchronously by PyTorch, so the build of
+the next batch already overlaps the device's current step.
+"""
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Iterator, Optional
+
+import numpy as np
+import torch
+
+from repro_torch import sampling
+from repro_torch.batching.order import make_batches
+from repro_torch.batching.policy import BatchPolicy, as_policy
+from repro_torch.core import minibatch as mb
+from repro_torch.devices import DeviceLike, resolve_device
+from repro_torch.graphs.csr import DeviceGraph, Graph
+
+# stream salts: independent generator families over the same cursor
+SALT_SAMPLE = 0         # per-(batch, hop) neighbor-sampling uniforms
+SALT_DROPOUT = 1        # per-(batch, layer) dropout masks
+SALT_EVAL = 2           # per-(chunk, hop) evaluation sampling
+
+
+def cursor_seed(seed: int, epoch: int, pos: int, hop: int,
+                salt: int) -> int:
+    """A 63-bit generator seed that is a pure function of its arguments
+    (numpy's SeedSequence hash of the tuple)."""
+    words = np.random.SeedSequence(
+        (seed, epoch, pos, hop, salt)).generate_state(2, np.uint32)
+    return ((int(words[0]) << 32) | int(words[1])) & ((1 << 63) - 1)
+
+
+def cursor_generator(device, seed: int, epoch: int, pos: int, hop: int,
+                     salt: int) -> torch.Generator:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(cursor_seed(seed, epoch, pos, hop, salt))
+    return gen
+
+
+@dataclass
+class Cursor:
+    """Stream position: epoch number + batch index within the epoch."""
+    epoch: int = 0
+    pos: int = 0
+
+    def state(self) -> dict:
+        return {"epoch": self.epoch, "pos": self.pos}
+
+    @staticmethod
+    def from_state(d) -> "Cursor":
+        return Cursor(int(d["epoch"]), int(d["pos"]))
+
+
+def _device_inputs(graph: Graph, device: torch.device,
+                   device_graph: Optional[DeviceGraph],
+                   labels: Optional[torch.Tensor]):
+    g = device_graph or DeviceGraph.from_graph(graph, device)
+    if g.device != device:
+        raise ValueError(f"device_graph lives on {g.device}, not {device}")
+    labels = labels if labels is not None else \
+        torch.as_tensor(graph.labels, dtype=torch.int32).to(device)
+    return g, labels
+
+
+class BatchStream:
+    """Policy-driven, cursor-resumable stream of `MiniBatch`es."""
+
+    def __init__(self, graph: Graph, policy, batch_size: int, fanouts,
+                 caps, *, seed: int = 0, cursor: Optional[Cursor] = None,
+                 drop_last: bool = False, sampler=None,
+                 device_graph: Optional[DeviceGraph] = None,
+                 labels: Optional[torch.Tensor] = None,
+                 device: DeviceLike = None):
+        self.device = resolve_device(device)
+        self.graph = graph
+        self.policy: BatchPolicy = as_policy(policy)
+        self.batch_size = batch_size
+        self.fanouts = tuple(fanouts)
+        self.caps = tuple(caps)
+        self.seed = seed
+        self.cursor = cursor or Cursor()
+        self.drop_last = drop_last
+        # sampler=None binds the policy's own sampler_spec()
+        self.sampler = sampling.resolve(
+            sampler, lambda: sampling.for_policy(self.policy))
+        self.g, self.labels = _device_inputs(graph, self.device,
+                                             device_graph, labels)
+        self._order_cache = (-1, None)        # (epoch, (n_batches, B) roots)
+
+    # -- deterministic derivations ------------------------------------------
+    def root_batches(self, epoch: int) -> np.ndarray:
+        """Root-id batches for `epoch` (cached for the current epoch)."""
+        if self._order_cache[0] != epoch:
+            rng = np.random.default_rng((self.seed, epoch))
+            order = self.policy.epoch_order(
+                self.graph.train_ids, self.graph.communities, rng)
+            self._order_cache = (epoch, make_batches(
+                order, self.batch_size, self.drop_last))
+        return self._order_cache[1]
+
+    def num_batches(self, epoch: int = None) -> int:
+        n = len(self.graph.train_ids)
+        return n // self.batch_size if self.drop_last \
+            else -(-n // self.batch_size)
+
+    def build(self, roots: np.ndarray, epoch: int, pos: int) -> mb.MiniBatch:
+        """The static-shape batch for these roots at cursor (epoch, pos)."""
+        def draw(hop, M, fanout):
+            gen = cursor_generator(self.device, self.seed, epoch, pos, hop,
+                                   SALT_SAMPLE)
+            return self.sampler.draw(gen, M, fanout)
+
+        r = torch.as_tensor(np.asarray(roots), dtype=torch.int32)
+        return mb._build_batch_impl(
+            self.g, r.to(self.device), self.labels, self.fanouts, self.caps,
+            self.sampler, draw)
+
+    # -- iteration -----------------------------------------------------------
+    def epoch(self) -> Iterator[mb.MiniBatch]:
+        """Yield the REMAINDER of the current epoch (all of it when the
+        cursor sits at pos 0), then advance the cursor to the next epoch.
+        After each yield the cursor already points at the next batch."""
+        nb = self.num_batches(self.cursor.epoch)
+        if nb and self.cursor.pos >= nb:
+            # a consumer stopped exactly on the epoch boundary: normalize
+            self.cursor.epoch += 1
+            self.cursor.pos = 0
+            nb = self.num_batches(self.cursor.epoch)
+        if nb == 0:
+            raise ValueError(
+                f"epoch {self.cursor.epoch} has no batches "
+                f"({len(self.graph.train_ids)} train ids, batch_size="
+                f"{self.batch_size}, drop_last={self.drop_last})")
+        e = self.cursor.epoch
+        while self.cursor.epoch == e and self.cursor.pos < nb:
+            pos = self.cursor.pos
+            batch = self.build(self.root_batches(e)[pos], e, pos)
+            self.cursor.pos += 1
+            yield batch
+        if self.cursor.epoch == e:            # exhausted, not broken out of
+            self.cursor.epoch += 1
+            self.cursor.pos = 0
+
+    def __iter__(self) -> Iterator[mb.MiniBatch]:
+        while True:
+            yield from self.epoch()
+
+
+def eval_batches(graph: Graph, ids: np.ndarray, batch_size: int, fanouts,
+                 caps, p: float = 0.5, *, seed: int = 0, sampler=None,
+                 device_graph: Optional[DeviceGraph] = None,
+                 labels: Optional[torch.Tensor] = None,
+                 device: DeviceLike = None) -> Iterator[mb.MiniBatch]:
+    """Deterministic sequential batches over `ids` (padded with -1).
+    Generators derive from (seed, chunk index, hop) only, so evaluation
+    never perturbs training state. `sampler=None` keeps the biased
+    two-phase draw at `p` (the uniform-eval contract)."""
+    dev = resolve_device(device)
+    g, labels = _device_inputs(graph, dev, device_graph, labels)
+    fanouts, caps = tuple(fanouts), tuple(caps)
+    sampler = sampling.resolve(
+        sampler, lambda: sampling.make_sampler("biased", p=float(p)))
+    for j, i in enumerate(range(0, len(ids), batch_size)):
+        pad = np.full(batch_size, -1, np.int64)
+        chunk = ids[i:i + batch_size]
+        pad[:len(chunk)] = chunk
+
+        def draw(hop, M, fanout, j=j):
+            gen = cursor_generator(dev, seed, 0, j, hop, SALT_EVAL)
+            return sampler.draw(gen, M, fanout)
+
+        roots = torch.as_tensor(pad, dtype=torch.int32).to(dev)
+        yield mb._build_batch_impl(g, roots, labels, fanouts, caps, sampler,
+                                   draw)
