@@ -3,26 +3,37 @@
 
     python3 chip_smoke.py            # from the repository root
 
-It drives the port's main path — COMM-RAND GraphSAGE training through
-`GNNTrainer` — at the paper's full model width on a Reddit-shaped graph,
-and holds every hand-written kernel of that path against its plain PyTorch
-version on the card. Phases (any failure fails the run, exit code != 0):
+It drives the port's main path — COMM-RAND training through `GNNTrainer`
+of GraphSAGE, GCN and GAT — at the paper's full model width on a
+Reddit-shaped graph, and holds every hand-written kernel of that path
+against its plain PyTorch version on the card. Phases (any failure fails
+the run, exit code != 0):
 
   1. device   torch / CUDA versions, the card, its power limit; TF32 off
   2. build    nvcc builds the kernels from `src/repro_torch/csrc` (timed)
-  3. kernels  each kernel at the main path's shapes, taken from a real
-              batch: max error against the plain version, bit-determinism
-              of bwd_dx, and ms (CUDA events around 10 back-to-back calls,
-              median of 5) beside the plain
+  3. kernels  every kernel of each model's train step at that step's
+              shapes, taken from a real batch: GraphSAGE's (fwd, bwd_dx;
+              GCN's are the same) and GAT's head-folded ones (fwd, bwd_dx,
+              bwd_dw, with softmax weights): max error against the plain
+              version,
+              bit-determinism over two launches, and ms (CUDA events
+              around 10 back-to-back calls, median of 5) beside the plain
               version, one equivalent PyTorch call where there is one, and
               the bound (compulsory bytes at 3.35 TB/s, flops at 67
               TFLOP/s float32)
-  4. train    20 `train_steps` + one `evaluate` of 3 validation batches on
-              the reddit-602 graph; the kernels' launch counters are zeroed
-              just before and read just after, and must equal 3 per step +
-              3 per eval batch (forward) and 2 per step (backward dx)
-  5. card vs CPU  5 guarded steps on the tiny graph, same parameters and
-              batches on the card and on the CPU, agree within rtol 1e-4
+  4. train    GraphSAGE (20 steps), GCN and GAT (10 steps each), each
+              followed by one `evaluate` of 3 validation batches, on the
+              reddit-602 graph with the same policy, caps and batches; the
+              kernels' launch counters are zeroed just before each model's
+              run and read just after, and must equal 3 per step + 3 per
+              eval batch (forward), 2 per step (bwd_dx; 3 for GAT, whose
+              layer 0 differentiates its projection) and 3 per step for
+              GAT's bwd_dw (0 for the others); then 3 more steps of each
+              model under torch.profiler: CUDA kernels by device time per
+              step and the device's idle share of an unprofiled step
+  5. card vs CPU  5 guarded steps of GraphSAGE and of GAT on the tiny
+              graph, same parameters and batches on the card and on the
+              CPU, agree within rtol 1e-4
 
 It prints the `{"kernels": [...]}` line before the last, and as the last
 line `{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
@@ -42,11 +53,15 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
-STEPS, EVAL_BATCHES, CPU_STEPS = 20, 3, 5
+EVAL_BATCHES, CPU_STEPS = 3, 5
+# the configs trained at full width (repro_torch.configs.CONFIGS), their
+# steps, and the bwd_dx / bwd_dw launches each step makes
+MODELS = {"graphsage": (20, 2, 0), "gcn": (10, 2, 0), "gat": (10, 3, 3)}
 DEVICE = "cuda"
 REPLACES = {
     "gather_agg_fwd": "src/repro/kernels/gather_agg/kernel.py:56",
     "gather_agg_bwd_dx": "src/repro/kernels/gather_agg/kernel.py:101",
+    "gather_agg_bwd_dw": "src/repro/kernels/gather_agg/kernel.py:151",
 }
 SOURCE = "src/repro_torch/csrc/gather_agg.cu"
 
@@ -140,7 +155,8 @@ def main_path_layers(torch, trainer, batch):
     """The (x, idx, w) each SAGE layer hands `gather_agg` in a train step,
     from a real batch: layer 0 gathers from the global feature matrix
     through composed ids; layers 1 and 2 from hidden activations (random
-    values of the real width, from a seeded generator)."""
+    values of the real width, from a seeded generator). GCN's calls have
+    the same shapes, with degree-normalised weights."""
     gen = torch.Generator(device=trainer.device).manual_seed(0)
     layers = []
     x = trainer.feats
@@ -159,7 +175,43 @@ def main_path_layers(torch, trainer, batch):
         g = torch.randn((idx.shape[0], x.shape[1]), generator=gen,
                         device=trainer.device)
         layers.append({"layer": i, "x": x, "idx": idx.contiguous(),
-                       "w": w.contiguous(), "g": g, "needs_dx": i > 0})
+                       "w": w.contiguous(), "g": g, "needs_dx": i > 0,
+                       "needs_dw": False})
+    return layers
+
+
+def gat_layers(torch, trainer, batch, cfg):
+    """The (zf, idx2, alpha) each GAT layer hands `gather_agg` in a train
+    step, from a real batch: row s*H + h of zf is head h of source s
+    (random values of the real width, from a seeded generator),
+    idx2 = src_pos * H + h, and alpha a softmax over the row's unmasked
+    neighbours and its self slot (masked slots exactly 0), as `gat_layer`
+    makes it. g is the cotangent of the (n_dst*H, dh) out; every layer
+    differentiates zf (z = x W, at layer 0 too) and alpha."""
+    gen = torch.Generator(device=trainer.device).manual_seed(1)
+    H = cfg.gat_heads
+    dims = [cfg.in_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1) \
+        + [cfg.num_classes]
+    heads = torch.arange(H, dtype=torch.int32, device=trainer.device)
+    n_src = batch.node_ids.shape[0]
+    layers = []
+    for i, block in enumerate(batch.blocks):
+        dh = max(dims[i + 1] // H, 1)
+        zf = torch.randn((n_src * H, dh), generator=gen,
+                         device=trainer.device)
+        n_dst, r = block.src_pos.shape
+        idx = (block.src_pos[:, None, :] * H + heads[None, :, None])
+        idx = torch.clamp(idx.reshape(n_dst * H, r), 0, n_src * H - 1)
+        e = torch.randn((n_dst, H, r + 1), generator=gen,
+                        device=trainer.device)
+        e[:, :, :r].masked_fill_(~block.edge_mask[:, None, :], -1e30)
+        w = torch.softmax(e, dim=-1)[:, :, :r].reshape(n_dst * H, r)
+        g = torch.randn((n_dst * H, dh), generator=gen,
+                        device=trainer.device)
+        layers.append({"layer": i, "x": zf, "idx": idx.contiguous(),
+                       "w": w.contiguous(), "g": g, "needs_dx": True,
+                       "needs_dw": True})
+        n_src = n_dst
     return layers
 
 
@@ -170,107 +222,161 @@ def _bound_ms(n_bytes: float, flops: float):
                                  "operations")
 
 
-def phase_kernels(torch, layers):
+def check_fwd(torch, L):
     import torch.nn.functional as Fn
 
     from repro_torch.kernels.gather_agg import kernel, ref
-    fwd = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0,
-           "max_abs_err": 0.0, "bound_by": set(), "deterministic": True}
-    bwd = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0, "max_abs_err": 0.0,
-           "bound_by": set(), "deterministic": True}
+    x, idx, w = L["x"], L["idx"], L["w"]
+    n_dst, r = idx.shape
+    F = x.shape[1]
+    # kernel vs plain; sums in another order -> 1e-5
+    out = kernel.gather_agg_fwd(x, idx, w)
+    want = ref.gather_agg_ref(x, idx, w)
+    err = (out - want).abs().max().item()
+    check(torch.isfinite(out).all().item(), "fwd: non-finite")
+    check(torch.allclose(out, want, rtol=1e-5, atol=1e-5),
+          f"fwd max abs err {err}")
+    check(torch.equal(out, kernel.gather_agg_fwd(x, idx, w)),
+          "fwd differs between launches")
+    idx64 = idx.long()
+    lib = Fn.embedding_bag(idx64, x, per_sample_weights=w, mode="sum")
+    lib_err = (lib - want).abs().max().item()
+    rows = torch.unique(idx).numel()
+    b_ms, b_by = _bound_ms(rows * F * 4 + idx.numel() * 8 + n_dst * F * 4,
+                           2.0 * n_dst * r * F)
+    t_l = cuda_ms(torch, lambda: Fn.embedding_bag(
+        idx64, x, per_sample_weights=w, mode="sum"))
+    return {"max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": cuda_ms(torch, lambda: kernel.gather_agg_fwd(x, idx, w)),
+            "plain_ms": cuda_ms(torch, lambda: ref.gather_agg_ref(x, idx, w)),
+            "library_ms": t_l,
+            "note": f"x {x.shape[0]}x{F} idx {n_dst}x{r} rows read {rows}  "
+                    f"(embedding_bag err {lib_err:.3e})"}
+
+
+def check_dx(torch, L):
+    from repro_torch.kernels.gather_agg import kernel, ref
+    idx, w, g = L["idx"], L["w"], L["g"]
+    n_src, F = L["x"].shape
+    n_dst, r = idx.shape
+    # kernel vs plain (index_add_, atomics in another order). A dx row sums
+    # one product per weighted edge into it, so the float32 rounding grows
+    # with the most such edges on one row.
+    dx = kernel.gather_agg_bwd_dx(idx, w, g, n_src)
+    want = ref.gather_agg_bwd_dx_ref(idx, w, g, n_src)
+    err = (dx - want).abs().max().item()
+    terms = int(torch.bincount(idx[w != 0].long()).max())
+    tol = max(1e-5, 1e-7 * terms)
+    check(torch.isfinite(dx).all().item(), "bwd_dx: non-finite")
+    check(torch.allclose(dx, want, rtol=tol, atol=tol),
+          f"bwd_dx max abs err {err} (tol {tol})")
+    check(torch.equal(dx, kernel.gather_agg_bwd_dx(idx, w, g, n_src)),
+          "bwd_dx differs between launches")
+    b_ms, b_by = _bound_ms(n_dst * F * 4 + idx.numel() * 8 + n_src * F * 4,
+                           2.0 * n_dst * r * F)
+    return {"max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": cuda_ms(torch, lambda: kernel.gather_agg_bwd_dx(
+                idx, w, g, n_src)),
+            "plain_ms": cuda_ms(torch, lambda: ref.gather_agg_bwd_dx_ref(
+                idx, w, g, n_src)),
+            "library_ms": None,
+            "note": f"dx {n_src}x{F} edges {n_dst}x{r} (at most {terms} on "
+                    f"a row; tol {tol:.1e}; ms with the sort glue)"}
+
+
+def check_dw(torch, L):
+    """Each dw entry is an F-term dot summed in another order than the
+    plain version's: the two differ by at most
+    2 * F * eps * sum_k |g[i, k] * x[idx[i, j], k]| (`scale` below)."""
+    from repro_torch.kernels.gather_agg import kernel, ref
+    x, idx, g = L["x"], L["idx"], L["g"]
+    n_dst, r = idx.shape
+    F = x.shape[1]
+    eps = torch.finfo(torch.float32).eps
+    dw = kernel.gather_agg_bwd_dw(x, idx, g)
+    want = ref.gather_agg_bwd_dw_ref(x, idx, g)
+    scale = ref.gather_agg_bwd_dw_ref(x.abs(), idx, g.abs())
+    err = (dw - want).abs().max().item()
+    check(torch.isfinite(dw).all().item(), "bwd_dw: non-finite")
+    check(((dw - want).abs() <= 2 * F * eps * scale).all().item(),
+          f"bwd_dw max abs err {err}")
+    check(torch.equal(dw, kernel.gather_agg_bwd_dw(x, idx, g)),
+          "bwd_dw differs between launches")
+    rows = torch.unique(idx).numel()
+    b_ms, b_by = _bound_ms(n_dst * F * 4 + rows * F * 4 + idx.numel() * 8,
+                           2.0 * n_dst * r * F)
+    return {"max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": cuda_ms(torch, lambda: kernel.gather_agg_bwd_dw(x, idx, g)),
+            "plain_ms": cuda_ms(torch, lambda: ref.gather_agg_bwd_dw_ref(
+                x, idx, g)),
+            "library_ms": None,
+            "note": f"zf {x.shape[0]}x{F} idx {n_dst}x{r} rows read {rows}"}
+
+
+CHECKS = (("gather_agg_fwd", check_fwd, None),
+          ("gather_agg_bwd_dx", check_dx, "needs_dx"),
+          ("gather_agg_bwd_dw", check_dw, "needs_dw"))
+
+
+def phase_kernels(torch, path, layers):
+    """Every kernel a model's train step launches, at that step's shapes:
+    max error against the plain version (a check failure ends the run),
+    bit-identical relaunch, ms, plain ms, library ms and bound. Returns
+    {kernel: readings summed over the layers (max_abs_err: the largest)}."""
+    totals = {}
     for L in layers:
-        x, idx, w, g = L["x"], L["idx"], L["w"], L["g"]
-        n_dst, r = idx.shape
-        F = x.shape[1]
-        n_src = x.shape[0]
-        # forward: kernel vs plain; sums in another order -> 1e-5
-        out = kernel.gather_agg_fwd(x, idx, w)
-        want = ref.gather_agg_ref(x, idx, w)
-        err = (out - want).abs().max().item()
-        check(torch.isfinite(out).all().item(), f"fwd layer {L['layer']}")
-        check(torch.allclose(out, want, rtol=1e-5, atol=1e-5),
-              f"fwd layer {L['layer']} max abs err {err}")
-        same = torch.equal(out, kernel.gather_agg_fwd(x, idx, w))
-        check(same, f"fwd layer {L['layer']} differs between launches")
-        idx64 = idx.long()
-        lib = Fn.embedding_bag(idx64, x, per_sample_weights=w, mode="sum")
-        lib_err = (lib - want).abs().max().item()
-        rows = torch.unique(idx).numel()
-        b_ms, b_by = _bound_ms(rows * F * 4 + idx.numel() * 8 +
-                               n_dst * F * 4, 2.0 * n_dst * r * F)
-        t_k = cuda_ms(torch, lambda: kernel.gather_agg_fwd(x, idx, w))
-        t_p = cuda_ms(torch, lambda: ref.gather_agg_ref(x, idx, w))
-        t_l = cuda_ms(torch, lambda: Fn.embedding_bag(
-            idx64, x, per_sample_weights=w, mode="sum"))
-        log(f"[3 kernels] gather_agg_fwd layer {L['layer']}: x {n_src}x{F} "
-            f"idx {n_dst}x{r} rows read {rows}  max_abs_err {err:.3e}  "
-            f"bit-identical relaunch {same}  "
-            f"ms {t_k:.4f}  plain_ms {t_p:.4f}  library_ms {t_l:.4f} "
-            f"(embedding_bag err {lib_err:.3e})  bound_ms {b_ms:.4f} "
-            f"({b_by})")
-        fwd["ms"] += t_k
-        fwd["plain_ms"] += t_p
-        fwd["library_ms"] += t_l
-        fwd["bound_ms"] += b_ms
-        fwd["bound_by"].add(b_by)
-        fwd["max_abs_err"] = max(fwd["max_abs_err"], err)
-        if not L["needs_dx"]:
-            continue
-        # backward dx: kernel vs plain (index_add_, atomics in another
-        # order). A dx row sums one product per weighted edge into it, so
-        # the float32 rounding grows with the most such edges on one row.
-        dx = kernel.gather_agg_bwd_dx(idx, w, g, n_src)
-        dx_want = ref.gather_agg_bwd_dx_ref(idx, w, g, n_src)
-        err = (dx - dx_want).abs().max().item()
-        terms = int(torch.bincount(idx[w != 0].long()).max())
-        tol = max(1e-5, 1e-7 * terms)
-        check(torch.allclose(dx, dx_want, rtol=tol, atol=tol),
-              f"bwd_dx layer {L['layer']} max abs err {err} (tol {tol})")
-        same = torch.equal(dx, kernel.gather_agg_bwd_dx(idx, w, g, n_src))
-        check(same, f"bwd_dx layer {L['layer']} differs between launches")
-        b_ms, b_by = _bound_ms(n_dst * F * 4 + idx.numel() * 8 +
-                               n_src * F * 4, 2.0 * n_dst * r * F)
-        t_k = cuda_ms(torch, lambda: kernel.gather_agg_bwd_dx(idx, w, g,
-                                                              n_src))
-        t_p = cuda_ms(torch, lambda: ref.gather_agg_bwd_dx_ref(idx, w, g,
-                                                               n_src))
-        log(f"[3 kernels] gather_agg_bwd_dx layer {L['layer']}: dx "
-            f"{n_src}x{F} edges {n_dst}x{r} (at most {terms} on a row)  "
-            f"max_abs_err {err:.3e} (tol {tol:.1e})  "
-            f"bit-identical relaunch {same}  ms {t_k:.4f} (sort glue "
-            f"included)  plain_ms {t_p:.4f}  library_ms null (no single "
-            f"PyTorch call computes it)  bound_ms {b_ms:.4f} ({b_by})")
-        bwd["ms"] += t_k
-        bwd["plain_ms"] += t_p
-        bwd["bound_ms"] += b_ms
-        bwd["bound_by"].add(b_by)
-        bwd["max_abs_err"] = max(bwd["max_abs_err"], err)
-    return fwd, bwd
+        for name, fn, key in CHECKS:
+            if key is not None and not L[key]:
+                continue
+            got = fn(torch, L)
+            log(f"[3 kernels] {name} {path} layer {L['layer']}: "
+                f"{got['note']}  max_abs_err {got['max_abs_err']:.3e}  "
+                f"bit-identical relaunch True  ms {got['ms']:.4f}  "
+                f"plain_ms {got['plain_ms']:.4f}  library_ms "
+                + ("null (no single PyTorch call computes it)"
+                   if got["library_ms"] is None
+                   else f"{got['library_ms']:.4f}")
+                + f"  bound_ms {got['bound_ms']:.4f} ({got['bound_by']})")
+            t = totals.setdefault(name, {
+                "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
+                "max_abs_err": 0.0, "bound_by": set(),
+                "library_ms": None if got["library_ms"] is None else 0.0})
+            for k in ("ms", "plain_ms", "bound_ms"):
+                t[k] += got[k]
+            if got["library_ms"] is not None:
+                t["library_ms"] += got["library_ms"]
+            t["max_abs_err"] = max(t["max_abs_err"], got["max_abs_err"])
+            t["bound_by"].add(got["bound_by"])
+    for t in totals.values():
+        t["bound_by"] = "/".join(sorted(t["bound_by"]))
+    return totals
 
 
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
-def phase_train(torch, graph, trainer):
+def phase_train(torch, graph, trainer, name):
     from repro_torch.kernels.gather_agg import kernel
+    steps, dx_per_step, dw_per_step = MODELS[name]
     bs = trainer.tcfg.batch_size
     val = graph.val_ids[:EVAL_BATCHES * bs]
     n_eval = -(-len(val) // bs)
-    # the batch build alone (pure in the cursor, so it disturbs nothing)
-    build_ms = []
-    for pos in range(1, 6):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        trainer.stream.build(trainer.stream.root_batches(0)[pos], 0, pos)
-        torch.cuda.synchronize()
-        build_ms.append((time.perf_counter() - t0) * 1e3)
-    log(f"[4 train] batch build alone: median "
-        f"{statistics.median(build_ms):.2f} ms over 5 batches")
+    if name == "graphsage":
+        # the batch build alone (pure in the cursor: it disturbs nothing)
+        build_ms = []
+        for pos in range(1, 6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.stream.build(trainer.stream.root_batches(0)[pos], 0, pos)
+            torch.cuda.synchronize()
+            build_ms.append((time.perf_counter() - t0) * 1e3)
+        log(f"[4 train] batch build alone: median "
+            f"{statistics.median(build_ms):.2f} ms over 5 batches")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernel.reset_launches()                      # counts start here
     losses, step_ms = [], []
-    for _ in range(STEPS):
+    for _ in range(steps):
         t0 = time.perf_counter()
         losses += trainer.train_steps(1)         # ends in one loss read
         step_ms.append((time.perf_counter() - t0) * 1e3)
@@ -278,30 +384,59 @@ def phase_train(torch, graph, trainer):
     torch.cuda.synchronize()
     launches = dict(kernel.LAUNCHES)             # ... and are read here
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    log(f"[4 train] {STEPS} steps: first loss {losses[0]:.4f}  last loss "
-        f"{losses[-1]:.4f}  median step {statistics.median(step_ms):.2f} ms "
-        f"(first {step_ms[0]:.2f} ms)  eval {n_eval} batches: loss "
-        f"{ev['loss']:.4f} acc {ev['acc']:.4f}  peak memory {peak:.2f} GiB"
-        f"  skipped steps {int(trainer.skips)}  launches {launches}")
-    check(all(map(math.isfinite, losses)), "non-finite training loss")
-    check(losses[-1] < losses[0], "loss did not fall over the steps")
-    check(math.isfinite(ev["loss"]), "non-finite eval loss")
-    want = {"gather_agg_fwd": 3 * STEPS + 3 * n_eval,
-            "gather_agg_bwd_dx": 2 * STEPS}
-    check(launches == want, f"launches {launches} != {want}")
-    return launches
+    skipped = int(trainer.skips)
+    log(f"[4 train] {name}: {steps} steps: first loss {losses[0]:.4f}  "
+        f"last loss {losses[-1]:.4f}  median step "
+        f"{statistics.median(step_ms):.2f} ms (first {step_ms[0]:.2f} ms)  "
+        f"eval {n_eval} batches: loss {ev['loss']:.4f} acc {ev['acc']:.4f}"
+        f"  peak memory {peak:.2f} GiB  skipped steps {skipped}  "
+        f"launches {launches}")
+    check(all(map(math.isfinite, losses)), f"{name}: non-finite loss")
+    check(losses[-1] < losses[0], f"{name}: loss did not fall")
+    check(math.isfinite(ev["loss"]), f"{name}: non-finite eval loss")
+    check(skipped == 0, f"{name}: {skipped} skipped steps")
+    want = {"gather_agg_fwd": 3 * steps + 3 * n_eval,
+            "gather_agg_bwd_dx": dx_per_step * steps,
+            "gather_agg_bwd_dw": dw_per_step * steps}
+    check(launches == want, f"{name}: launches {launches} != {want}")
+    return launches, statistics.median(step_ms)
+
+
+def phase_profile(torch, trainer, name, step_ms: float, steps: int = 3,
+                  top: int = 8):
+    """Where a model's step goes: `steps` more train steps (after the
+    launch counts were read) under torch.profiler; prints the CUDA kernels
+    by device time per step and the device's idle share of a step,
+    1 - kernel ms per step / the unprofiled median step `step_ms` (the
+    profiler's own host overhead stretches its wall time, printed too)."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        trainer.train_steps(steps)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    dev = [(e.key, e.self_device_time_total, e.count)
+           for e in prof.key_averages() if e.self_device_time_total > 0
+           and e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(t for _, t, _ in dev) / steps / 1e3
+    log(f"[4 profile] {name}: {steps} steps, kernels {busy_ms:.2f} ms/step, "
+        f"device idle share {1 - busy_ms / step_ms:.3f} of the unprofiled "
+        f"median step {step_ms:.2f} ms (profiled wall "
+        f"{wall_us / steps / 1e3:.2f} ms/step)")
+    for key, t, n in sorted(dev, key=lambda d: -d[1])[:top]:
+        log(f"[4 profile] {name}: {t / steps / 1e3:8.3f} ms/step  "
+            f"{n / steps:6.1f} calls/step  {key[:110]}")
 
 
 # ---------------------------------------------------------------------------
 # phase 5: card vs CPU on the tiny graph
 # ---------------------------------------------------------------------------
-def phase_card_vs_cpu(torch):
+def phase_card_vs_cpu(torch, g, model):
     from repro_torch.configs import GNNConfig, TrainConfig
-    from repro_torch.core.reorder import prepare
-    from repro_torch.graphs import synthetic
     from repro_torch.train.gnn_loop import GNNTrainer
-    g = prepare(synthetic.load("tiny"), oracle=True)
-    cfg = GNNConfig("tiny", "sage", 2, 32, g.feat_dim, g.num_classes,
+    cfg = GNNConfig("tiny", model, 2, 32, g.feat_dim, g.num_classes,
                     fanout=(5, 5), dropout=0.0)
     tcfg = TrainConfig(batch_size=256)
     cpu = GNNTrainer(g, cfg, tcfg, "comm_rand", seed=0, device="cpu")
@@ -320,8 +455,8 @@ def phase_card_vs_cpu(torch):
         lc, lg = float(lc), float(lg)
         worst = max(worst, abs(lg - lc) / abs(lc))
         check(abs(lg - lc) <= 1e-4 * abs(lc), f"card {lg} vs CPU {lc}")
-    log(f"[5 card vs cpu] {CPU_STEPS} steps on tiny: max relative loss "
-        f"difference {worst:.3e} (limit 1e-4)")
+    log(f"[5 card vs cpu] {model}: {CPU_STEPS} steps on tiny: max "
+        f"relative loss difference {worst:.3e} (limit 1e-4)")
 
 
 def main() -> int:
@@ -345,39 +480,62 @@ def main() -> int:
     phase_build()
 
     from repro_torch.batching import make_policy
-    from repro_torch.configs import CONFIG, TrainConfig
+    from repro_torch.configs import CONFIGS, TrainConfig
     from repro_torch.core.reorder import prepare
-    from repro_torch.graphs.synthetic import generate
+    from repro_torch.graphs import synthetic
     from repro_torch.train.gnn_loop import GNNTrainer
     t0 = time.perf_counter()
-    graph = prepare(generate(reddit_spec()), oracle=True)
+    graph = prepare(synthetic.generate(reddit_spec()), oracle=True)
     t1 = time.perf_counter()
-    trainer = GNNTrainer(graph, CONFIG, TrainConfig(),
-                         make_policy("comm_rand", mix=0.125, p=1.0), seed=0,
-                         device=DEVICE)
+    policy = make_policy("comm_rand", mix=0.125, p=1.0)
+    trainer = GNNTrainer(graph, CONFIGS["graphsage"], TrainConfig(), policy,
+                         seed=0, device=DEVICE)
     log(f"[setup] {graph.name}: {graph.num_nodes} nodes, {graph.num_edges} "
         f"edges, feats {graph.features.shape}  generate+prepare "
         f"{t1 - t0:.1f} s  trainer (caps, upload) "
         f"{time.perf_counter() - t1:.1f} s  caps {trainer.caps}  eval caps "
         f"{trainer.eval_caps}")
 
-    fwd, bwd = phase_kernels(torch, main_path_layers(
-        torch, trainer, typical_batch(trainer)))
-    launches = phase_train(torch, graph, trainer)
-    phase_card_vs_cpu(torch)
+    batch = typical_batch(trainer)
+    readings = {
+        "graphsage": phase_kernels(torch, "graphsage",
+                                   main_path_layers(torch, trainer, batch)),
+        "gat": phase_kernels(torch, "gat", gat_layers(torch, trainer, batch,
+                                                      CONFIGS["gat"]))}
+    del batch
+    # GCN and GAT reuse GraphSAGE's caps: same policy, sampler, batches
+    caps, eval_caps = trainer.caps, trainer.eval_caps
+    runs = {}
+    for name in MODELS:
+        if trainer is None:
+            trainer = GNNTrainer(graph, CONFIGS[name], TrainConfig(), policy,
+                                 caps=caps, eval_caps=eval_caps, seed=0,
+                                 device=DEVICE)
+        runs[name], step_ms = phase_train(torch, graph, trainer, name)
+        phase_profile(torch, trainer, name, step_ms)
+        trainer = None                   # each model's peak memory alone
+        torch.cuda.empty_cache()
+    tiny = prepare(synthetic.load("tiny"), oracle=True)
+    for model in ("sage", "gat"):
+        phase_card_vs_cpu(torch, tiny, model)
 
     kernels = []
-    for name, res, lib in (("gather_agg_fwd", fwd, fwd["library_ms"]),
-                           ("gather_agg_bwd_dx", bwd, None)):
+    for name in REPLACES:
+        by_path = {p: r[name] for p, r in readings.items() if name in r}
+        top = next(iter(by_path))        # graphsage's shapes, else gat's
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": launches[name],
-            "ok": True, "deterministic": res["deterministic"],
-            "max_abs_err": res["max_abs_err"], "ms": res["ms"],
-            "plain_ms": res["plain_ms"], "bound_ms": res["bound_ms"],
-            "bound_by": "/".join(sorted(res["bound_by"])),
-            "library_ms": lib,
-            "shapes": "sum over the layers of one train step"})
+            "replaces": REPLACES[name],
+            "launches": sum(runs[m][name] for m in MODELS),
+            "launches_by_path": {m: runs[m][name] for m in MODELS},
+            "ok": True, "deterministic": True,
+            **{k: by_path[top][k] for k in ("ms", "plain_ms", "bound_ms",
+                                            "bound_by", "library_ms")},
+            "max_abs_err": max(r["max_abs_err"] for r in by_path.values()),
+            "shapes": f"ms, plain_ms, bound_ms, library_ms: sum over the "
+                      f"layers of one {top} train step; max_abs_err: the "
+                      f"largest at every shape checked",
+            "readings_by_path": by_path})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

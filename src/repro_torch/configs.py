@@ -1,5 +1,6 @@
 """GNN and training configs (`repro/configs/base.py:162-212`) and the
-paper's GraphSAGE config (`repro/configs/graphsage.py`).
+paper's model configs: GraphSAGE (`repro/configs/graphsage.py`), and GCN
+and GAT at the same widths (`repro/configs/gcn.py`, `gat.py`).
 
 `GNNConfig` drops the reference's `agg_impl` knob: the port dispatches the
 gather-aggregate by the tensor's device (the hand-written kernel on CUDA,
@@ -8,14 +9,14 @@ trainer's fields; the LM trainer's extras are not ported yet.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Tuple
 
 
 @dataclass(frozen=True)
 class GNNConfig:
     name: str
-    model: str = "sage"              # sage (gcn | gat: not ported yet)
+    model: str = "sage"              # sage | gcn | gat
     num_layers: int = 3
     hidden_dim: int = 256
     in_dim: int = 602
@@ -49,3 +50,9 @@ CONFIG = GNNConfig(
     num_classes=41,
     fanout=(10, 10, 10),
 )
+
+# Paper §6.4 generalisation study: GCN and GAT at the GraphSAGE widths.
+GCN = replace(CONFIG, name="gcn", model="gcn")
+GAT = replace(CONFIG, name="gat", model="gat", gat_heads=4)
+
+CONFIGS = {c.name: c for c in (CONFIG, GCN, GAT)}

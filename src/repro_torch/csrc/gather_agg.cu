@@ -1,5 +1,6 @@
 // Fused gather + per-edge-weighted reduce for the GNN aggregation, and its
-// scatter-add backward for dx. Plain C interface, loaded with ctypes by
+// two backward kernels: the scatter-add for dx and the gather-dot for dw.
+// Plain C interface, loaded with ctypes by
 // repro_torch/kernels/gather_agg/kernel.py; built for sm_90a.
 //
 // gather_agg_fwd replaces the TPU kernel gather_agg_fwd_pallas
@@ -35,7 +36,21 @@
 // reference's sorted order. Masked edges (w = 0) are kept, so a NaN in g
 // propagates as in the reference.
 //
-// Both functions launch on the caller's stream, allocate nothing, and
+// gather_agg_bwd_dw replaces gather_agg_bwd_dw_pallas (kernel.py:151):
+//     dw[i, j] = <g[i, :], x[idx[i, j], :]>
+// the gradient of the per-edge weights, live only when they carry one
+// (GAT's attention weights). It is bound by bytes: it reads g once, each
+// gathered x row, idx, and writes dw, for 2 flops per float of x. Design:
+// one warp per destination row. For each j the lanes stride over the row
+// in the widest aligned vectors, reading g[i] (which stays in L1 from one
+// j to the next) and x[idx[i, j]], sum their products in order, and reduce
+// the 32 partial sums with xor shuffles. Every sum runs in a fixed order
+// (lane-strided, then the shuffle tree), so relaunches are bit-identical,
+// with no atomics. The TPU kernel pads r to 128 lanes for its stores;
+// here the output is (n_dst, r). At F = 10 (GAT's last layer) most lanes
+// idle.
+//
+// All three functions launch on the caller's stream, allocate nothing, and
 // return cudaGetLastError() of the launch.
 
 #include <cuda_runtime.h>
@@ -187,6 +202,40 @@ __global__ void bwd_dx_combine_kernel(const float* __restrict__ partial,
   }
 }
 
+constexpr int kDwWarps = 8;                 // rows (warps) per block
+
+template <int V>
+__global__ void bwd_dw_kernel(const float* __restrict__ x,
+                              const int32_t* __restrict__ idx,
+                              const float* __restrict__ g,
+                              float* __restrict__ dw, int64_t n_dst, int r,
+                              int64_t F) {
+  const int lane = threadIdx.x & 31;
+  const int64_t n_vec = F / V;
+  const int64_t n_warps = static_cast<int64_t>(gridDim.x) * kDwWarps;
+  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kDwWarps +
+                   (threadIdx.x >> 5);
+       i < n_dst; i += n_warps) {            // warp-uniform
+    const float* gi = g + i * F;
+    for (int j = 0; j < r; ++j) {
+      const float* xr =
+          x + static_cast<int64_t>(__ldg(idx + i * r + j)) * F;
+      float acc = 0.0f;
+      for (int64_t c = lane; c < n_vec; c += 32) {
+        float gv[V], xv[V];
+        load_vec<V>(gi + c * V, gv);         // stays in L1 across j
+        load_vec<V>(xr + c * V, xv);
+#pragma unroll
+        for (int q = 0; q < V; ++q) acc = fmaf(gv[q], xv[q], acc);
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        acc += __shfl_xor_sync(0xffffffffu, acc, off);
+      if (lane == 0) dw[i * r + j] = acc;
+    }
+  }
+}
+
 // widest vector whose loads and stores stay aligned for every row
 int vec_width(int64_t F, const void* a, const void* b) {
   const uintptr_t p = reinterpret_cast<uintptr_t>(a) |
@@ -257,5 +306,23 @@ extern "C" int gather_agg_bwd_dx(const float* g, const int32_t* dst_sorted,
     REPRO_BWD_DX(1)
   }
 #undef REPRO_BWD_DX
+  return static_cast<int>(cudaGetLastError());
+}
+
+extern "C" int gather_agg_bwd_dw(const float* x, const int32_t* idx,
+                                 const float* g, float* dw, int64_t n_dst,
+                                 int64_t r, int64_t F, cudaStream_t stream) {
+  if (n_dst == 0 || r == 0) return 0;
+  const int V = vec_width(F, x, g);
+  const dim3 grid(grid_for((n_dst + kDwWarps - 1) / kDwWarps));
+  const dim3 block(32 * kDwWarps);
+  const int ri = static_cast<int>(r);
+  if (V == 4) {
+    bwd_dw_kernel<4><<<grid, block, 0, stream>>>(x, idx, g, dw, n_dst, ri, F);
+  } else if (V == 2) {
+    bwd_dw_kernel<2><<<grid, block, 0, stream>>>(x, idx, g, dw, n_dst, ri, F);
+  } else {
+    bwd_dw_kernel<1><<<grid, block, 0, stream>>>(x, idx, g, dw, n_dst, ri, F);
+  }
   return static_cast<int>(cudaGetLastError());
 }

@@ -17,10 +17,12 @@ from typing import Dict
 import torch
 
 from repro_torch.kernels import build
-from repro_torch.kernels.gather_agg.ref import (gather_agg_bwd_dx_ref,
+from repro_torch.kernels.gather_agg.ref import (gather_agg_bwd_dw_ref,
+                                                gather_agg_bwd_dx_ref,
                                                 gather_agg_ref)
 
-LAUNCHES: Dict[str, int] = {"gather_agg_fwd": 0, "gather_agg_bwd_dx": 0}
+LAUNCHES: Dict[str, int] = {"gather_agg_fwd": 0, "gather_agg_bwd_dx": 0,
+                            "gather_agg_bwd_dw": 0}
 # longest run of edges one block of the backward sums (see csrc/gather_agg.cu)
 BWD_CHUNK = 64
 
@@ -40,6 +42,9 @@ def _lib() -> ctypes.CDLL:
         lib.gather_agg_fwd.restype = ctypes.c_int
         lib.gather_agg_bwd_dx.argtypes = [_P] * 9 + [_I64] * 4 + [_P]
         lib.gather_agg_bwd_dx.restype = ctypes.c_int
+        lib.gather_agg_bwd_dw.argtypes = [_P, _P, _P, _P, _I64, _I64, _I64,
+                                          _P]
+        lib.gather_agg_bwd_dw.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -172,3 +177,33 @@ def gather_agg_bwd_dx(idx: torch.Tensor, w: torch.Tensor, g: torch.Tensor,
     _raise_on(rc, "gather_agg_bwd_dx")
     LAUNCHES["gather_agg_bwd_dx"] += 1
     return dx
+
+
+def gather_agg_bwd_dw(x: torch.Tensor, idx: torch.Tensor,
+                      g: torch.Tensor) -> torch.Tensor:
+    """dw[i, j] = <g[i], x[idx[i, j]]> -> (n_dst, r) float32, each dot
+    summed in a fixed order: deterministic, no atomics. Replaces
+    `gather_agg_bwd_dw_pallas` (without its 128-lane padding of r).
+
+    x: (n_src, F) float32; idx: (n_dst, r) int32 in [0, n_src);
+    g: (n_dst, F) float32."""
+    dev = _device_of(g)
+    if dev.type == "cpu":
+        return gather_agg_bwd_dw_ref(x, idx, g)
+    _check("x", x, torch.float32, 2, dev)
+    _check("idx", idx, torch.int32, 2, dev)
+    _check("g", g, torch.float32, 2, dev)
+    if g.shape != (idx.shape[0], x.shape[1]):
+        raise ValueError(f"shapes x {tuple(x.shape)}, idx "
+                         f"{tuple(idx.shape)}, g {tuple(g.shape)} disagree")
+    n_dst, r = idx.shape
+    dw = torch.empty((n_dst, r), dtype=torch.float32, device=dev)
+    if n_dst == 0 or r == 0:
+        return dw
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _lib().gather_agg_bwd_dw(x.data_ptr(), idx.data_ptr(), g.data_ptr(),
+                                  dw.data_ptr(), n_dst, r, x.shape[1],
+                                  stream)
+    _raise_on(rc, "gather_agg_bwd_dw")
+    LAUNCHES["gather_agg_bwd_dw"] += 1
+    return dw

@@ -4,19 +4,19 @@
 `gather_agg(x, idx, w)` computes `out[i] = sum_j w[i,j] * x[idx[i,j]]`
 without materialising the (n_dst, r, F) gather on CUDA, in either
 direction: the forward is the gather-reduce kernel, the backward the
-deterministic scatter-add kernel for dx (see `kernel.py`). dx is computed
-only when x needs it — layer 0 reads the global feature matrix, whose
-gradient nobody wants. dw (GAT's attention weights) has no CUDA kernel
-yet, so asking for it on CUDA raises; on the CPU the plain version gives
-it.
+deterministic scatter-add kernel for dx and the gather-dot kernel for dw
+(see `kernel.py`). Each gradient is computed only when its input needs
+it: dx not when x is the global feature matrix (SAGE's and GCN's layer
+0), dw only when the weights carry gradient (GAT's attention weights).
+Each kernel wrapper takes its plain version for CPU tensors only.
 """
 from __future__ import annotations
 
 import torch
 
-from repro_torch.kernels.gather_agg.kernel import (gather_agg_bwd_dx,
+from repro_torch.kernels.gather_agg.kernel import (gather_agg_bwd_dw,
+                                                   gather_agg_bwd_dx,
                                                    gather_agg_fwd)
-from repro_torch.kernels.gather_agg.ref import gather_agg_bwd_dw_ref
 
 
 class _GatherAgg(torch.autograd.Function):
@@ -34,11 +34,7 @@ class _GatherAgg(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dx = gather_agg_bwd_dx(idx, w, g, ctx.n_src).to(x.dtype)
         if ctx.needs_input_grad[2]:
-            if g.is_cuda:
-                raise NotImplementedError(
-                    "gather_agg: the dw kernel (gather_agg_bwd_dw_pallas) "
-                    "is not ported to CUDA yet")
-            dw = gather_agg_bwd_dw_ref(x, idx, g).to(w.dtype)
+            dw = gather_agg_bwd_dw(x, idx, g).to(w.dtype)
         return dx, None, dw
 
 

@@ -1,23 +1,27 @@
-"""GraphSAGE on static-shape mini-batch towers
-(`repro/models/gnn/models.py:39-90,150-224`).
+"""GNN model zoo on static-shape mini-batch towers
+(`repro/models/gnn/models.py`): GraphSAGE (the paper's primary model),
+GCN and GAT (paper §6.4).
 
 Every layer consumes a `Block` (dense (n_dst, fanout) source-position
-gather + self position), so aggregation is a per-edge-weighted reduce over
-the fanout axis — the shape of the fused `gather_agg` op. SAGE's masked
-mean is weights `mask / count` over one `gather_agg` call.
+gather + self position), and expresses its aggregation as scalar per-edge
+weights over one `gather_agg` call — SAGE: mask / count; GCN: the folded
+degree normalisers; GAT: the attention alphas, with the heads folded into
+the row axis so that alpha's gradient flows through the dw kernel. The
+(n_dst, fanout, F) gather never materialises on CUDA, forward or backward.
 
 `apply_gnn(..., feats_global=True)` composes layer-0 source positions with
 `batch.node_ids` and gathers input features straight from the global
 (N, F) feature matrix: no (cap_L, F) copy is made, and the per-batch
-feature reads are the paper's Fig-6 working set.
+feature reads are the paper's Fig-6 working set. GAT projects every unique
+source row before it gathers, so it materialises the input level once.
 
 Parameters keep the reference's layout — weights `(din, dout)` for
 `x @ W` — so `params_from_jax` / `params_to_jax` carry them across without
-transposes. GCN and GAT are not ported yet.
+transposes.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -46,10 +50,40 @@ class SageLayer(nn.Module):
         self.b = nn.Parameter(b)
 
 
-class GNN(nn.Module):
-    """The parameters of a GraphSAGE stack; `apply_gnn` is the forward."""
+class GcnLayer(nn.Module):
+    def __init__(self, w: torch.Tensor, b: torch.Tensor):
+        super().__init__()
+        self.w = nn.Parameter(w)
+        self.b = nn.Parameter(b)
 
-    def __init__(self, layers: Sequence[SageLayer]):
+
+class GatLayer(nn.Module):
+    """`w` (din, H*dh), `a_src`/`a_dst` (H, dh), `b` (H*dh,), and `w_out`
+    (H*dh, dout) where H*dh != dout, else None."""
+
+    def __init__(self, w: torch.Tensor, a_src: torch.Tensor,
+                 a_dst: torch.Tensor, b: torch.Tensor,
+                 w_out: Optional[torch.Tensor]):
+        super().__init__()
+        self.w = nn.Parameter(w)
+        self.a_src = nn.Parameter(a_src)
+        self.a_dst = nn.Parameter(a_dst)
+        self.b = nn.Parameter(b)
+        self.w_out = None if w_out is None else nn.Parameter(w_out)
+
+
+Layer = Union[SageLayer, GcnLayer, GatLayer]
+MODELS = ("sage", "gcn", "gat")
+# each layer type's parameters, in the reference's key order
+_KEYS = {SageLayer: ("w_self", "w_neigh", "b"), GcnLayer: ("w", "b"),
+         GatLayer: ("w", "a_src", "a_dst", "b", "w_out")}
+
+
+class GNN(nn.Module):
+    """The parameters of a SAGE, GCN or GAT stack; `apply_gnn` is the
+    forward."""
+
+    def __init__(self, layers: Sequence[Layer]):
         super().__init__()
         self.layers = nn.ModuleList(layers)
 
@@ -59,34 +93,54 @@ def init_gnn(cfg: GNNConfig, gen: torch.Generator,
     """Fresh parameters drawn from the CPU generator `gen` (so a CPU and a
     CUDA model built from one seed start equal), then moved to `device`.
     The draws are the port's own, not the reference's threefry bits."""
-    if cfg.model != "sage":
-        raise ValueError(f"model {cfg.model!r} is not ported yet")
     dims = [cfg.in_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1) \
         + [cfg.num_classes]
-    layers = []
+    layers: List[Layer] = []
     for i in range(cfg.num_layers):
         din, dout = dims[i], dims[i + 1]
-        layers.append(SageLayer(dense_init(gen, (din, dout)),
-                                dense_init(gen, (din, dout)),
-                                torch.zeros((dout,))))
+        if cfg.model == "sage":
+            layers.append(SageLayer(dense_init(gen, (din, dout)),
+                                    dense_init(gen, (din, dout)),
+                                    torch.zeros((dout,))))
+        elif cfg.model == "gcn":
+            layers.append(GcnLayer(dense_init(gen, (din, dout)),
+                                   torch.zeros((dout,))))
+        elif cfg.model == "gat":
+            H = cfg.gat_heads
+            dh = max(dout // H, 1)
+            layers.append(GatLayer(
+                dense_init(gen, (din, H * dh)),
+                dense_init(gen, (H, dh)) * 0.1,
+                dense_init(gen, (H, dh)) * 0.1,
+                torch.zeros((H * dh,)),
+                dense_init(gen, (H * dh, dout)) if H * dh != dout else None))
+        else:
+            raise ValueError(f"unknown model {cfg.model!r}")
     return GNN(layers).to(device)
 
 
 def params_from_jax(tree: Dict, device=None) -> GNN:
-    """The reference's `init_gnn` tree `{"layers": [{"w_self", "w_neigh",
-    "b"}, ...]}` (numpy leaves) -> the port's model, same values."""
+    """The reference's `init_gnn` tree `{"layers": [{...}, ...]}` (numpy
+    leaves; GAT's `w_out` may be None) -> the port's model, same values.
+    Each layer's type follows from its keys."""
     def t(a):
-        return torch.as_tensor(np.array(a, np.float32))
+        return None if a is None else torch.as_tensor(np.array(a, np.float32))
 
-    return GNN([SageLayer(t(p["w_self"]), t(p["w_neigh"]), t(p["b"]))
-                for p in tree["layers"]]).to(device)
+    layers: List[Layer] = []
+    for p in tree["layers"]:
+        cls = SageLayer if "w_self" in p else \
+            GatLayer if "a_src" in p else GcnLayer
+        layers.append(cls(*(t(p.get(k)) for k in _KEYS[cls])))
+    return GNN(layers).to(device)
 
 
 def params_to_jax(model: GNN) -> Dict:
-    """The inverse of `params_from_jax`: numpy leaves in the reference's
-    tree layout."""
-    return {"layers": [{k: getattr(layer, k).detach().cpu().numpy()
-                        for k in ("w_self", "w_neigh", "b")}
+    """The inverse of `params_from_jax`: numpy leaves (None for a missing
+    `w_out`) in the reference's tree layout."""
+    def a(v):
+        return None if v is None else v.detach().cpu().numpy()
+
+    return {"layers": [{k: a(getattr(layer, k)) for k in _KEYS[type(layer)]}
                        for layer in model.layers]}
 
 
@@ -103,7 +157,59 @@ def sage_layer(p: SageLayer, x_tab, src_idx, self_idx, edge_mask):
     return h_self @ p.w_self + h_nbr @ p.w_neigh + p.b
 
 
-def apply_gnn(cfg: GNNConfig, params: GNN, batch: MiniBatch, x, *,
+def gcn_layer(p: GcnLayer, x_tab, src_idx, self_idx, edge_mask,
+              deg_src_edge, deg_dst):
+    """Symmetric-normalised aggregation with self loops (global degrees).
+
+    All normalisers fold into the per-edge weight: mask * rsqrt(deg_src+1)
+    * (deg_dst / sampled_count) * rsqrt(deg_dst+1) — deg_dst/count
+    compensates fanout subsampling."""
+    m = edge_mask.to(torch.float32)
+    cnt = torch.clamp(edge_mask.sum(dim=1, keepdim=True, dtype=torch.int32),
+                      min=1)
+    c_src = torch.rsqrt(deg_src_edge.to(torch.float32) + 1.0)
+    c_dst = torch.rsqrt(deg_dst.to(torch.float32) + 1.0)
+    w = m * c_src * (deg_dst[:, None] / cnt) * c_dst[:, None]
+    agg = gather_agg(x_tab, src_idx, w).to(x_tab.dtype)
+    h_self = x_tab[self_idx] * (c_dst * c_dst)[:, None].to(x_tab.dtype)
+    return (agg + h_self) @ p.w + p.b
+
+
+def gat_layer(p: GatLayer, x_tab, src_idx, self_idx, edge_mask):
+    """The reference's head-folded path (`impl == "pallas"`): row s*H + h
+    of `zf` is head h of source s, so one `gather_agg` call reduces all
+    heads, and alpha's gradient flows through the dw kernel."""
+    H, dh = p.a_src.shape
+    n_dst, r = src_idx.shape
+    z = (x_tab @ p.w).reshape(-1, H, dh)              # (n_src, H, dh)
+    # per-source attention logits: scores are linear in z, so gather the
+    # (n_src, H) scalars instead of (n_dst, r, H, dh) projected rows
+    s_src = (z * p.a_src).sum(dim=-1)
+    z_self = z[self_idx]                              # (n_dst, H, dh)
+    e_src = s_src[src_idx]                            # (n_dst, r, H)
+    e_dst = (z_self * p.a_dst).sum(dim=-1)
+    e_self = (z_self * p.a_src).sum(dim=-1) + e_dst
+    e = nn.functional.leaky_relu(e_src + e_dst[:, None], 0.2)
+    e = torch.where(edge_mask[..., None], e, -1e30)
+    e_all = torch.cat(
+        [e, nn.functional.leaky_relu(e_self, 0.2)[:, None]], dim=1)
+    alpha = torch.softmax(e_all, dim=1)               # (n_dst, r+1, H)
+    a_nbr, a_self = alpha[:, :r], alpha[:, r]
+    zf = z.reshape(-1, dh)
+    heads = torch.arange(H, dtype=src_idx.dtype, device=src_idx.device)
+    idx2 = src_idx[:, None, :] * H + heads[None, :, None]
+    w2 = a_nbr.transpose(1, 2)                        # (n_dst, H, r)
+    out = gather_agg(zf, idx2.reshape(n_dst * H, r),
+                     w2.reshape(n_dst * H, r)).reshape(n_dst, H, dh)
+    out = out + a_self[..., None] * z_self
+    out = out.reshape(n_dst, H * dh) + p.b
+    if p.w_out is not None:
+        out = out @ p.w_out
+    return out
+
+
+def apply_gnn(cfg: GNNConfig, params: GNN, batch: MiniBatch, x,
+              degrees: Optional[torch.Tensor] = None, *,
               train: bool = False,
               dropout_gens: Optional[List[torch.Generator]] = None,
               feats_global: bool = False):
@@ -111,23 +217,46 @@ def apply_gnn(cfg: GNNConfig, params: GNN, batch: MiniBatch, x, *,
 
     x: with feats_global=False, the pre-gathered (cap_L, in_dim) input
     level; with feats_global=True, the FULL (N, in_dim) feature matrix,
-    read by layer 0 through composed `node_ids[src_pos]` indices.
-    `dropout_gens[i]` draws layer i's dropout mask (training only).
+    read by layer 0 through composed `node_ids[src_pos]` indices (GAT
+    materialises the input level from it once). `degrees`: the global
+    (N,) degree array, which GCN needs. `dropout_gens[i]` draws layer i's
+    dropout mask (training only).
     """
-    if cfg.model != "sage":
-        raise ValueError(f"model {cfg.model!r} is not ported yet")
+    if cfg.model not in MODELS:
+        raise ValueError(f"unknown model {cfg.model!r}")
+    if cfg.model == "gcn" and degrees is None:
+        raise ValueError("gcn needs the global degree array (degrees=)")
     if not feats_global:
         x = x * batch.node_mask[:, None].to(x.dtype)
+    elif cfg.model == "gat":
+        # GAT projects every unique source row before gathering (projecting
+        # per edge would multiply the matmul flops by the fanout), so the
+        # input level is materialised once here
+        x = x[torch.clamp(batch.node_ids, max=x.shape[0] - 1)] \
+            * batch.node_mask[:, None].to(x.dtype)
+        feats_global = False
     L = len(batch.blocks)
     for i, block in enumerate(batch.blocks):
+        p = params.layers[i]
         if i == 0 and feats_global:
             gid = torch.clamp(batch.node_ids, max=x.shape[0] - 1)
             src_idx = gid[block.src_pos]
             self_idx = gid[block.self_pos]
         else:
             src_idx, self_idx = block.src_pos, block.self_pos
-        x = sage_layer(params.layers[i], x, src_idx, self_idx,
-                       block.edge_mask)
+        if cfg.model == "sage":
+            x = sage_layer(p, x, src_idx, self_idx, block.edge_mask)
+        elif cfg.model == "gcn":
+            # per-level degrees gathered from the global degree array;
+            # blocks[i] maps level (L-i) -> (L-i-1)
+            n = degrees.shape[0]
+            d_src = degrees[torch.clamp(batch.levels[L - i], max=n - 1)]
+            deg_dst = degrees[torch.clamp(batch.levels[L - i - 1],
+                                          max=n - 1)]
+            x = gcn_layer(p, x, src_idx, self_idx, block.edge_mask,
+                          d_src[block.src_pos], deg_dst)
+        else:
+            x = gat_layer(p, x, src_idx, self_idx, block.edge_mask)
         x = x * block.dst_mask[:, None].to(x.dtype)
         if i < L - 1:
             x = torch.relu(x)

@@ -66,7 +66,8 @@ class TrainResult:
 
 class GNNTrainer:
     """One (graph, model, policy) training run over a `BatchStream`, on
-    `device` — the CUDA device unless the caller passes another."""
+    `device` — the CUDA device unless the caller passes another.
+    `cfg.model` is any of sage, gcn and gat."""
 
     def __init__(self, graph: Graph, cfg: GNNConfig, tcfg: TrainConfig,
                  policy, caps=None, eval_caps=None, seed: int = 0,
@@ -114,8 +115,8 @@ class GNNTrainer:
         Returns the (device) loss and the (device) ok flag."""
         params = list(self.params.parameters())
         logits = apply_gnn(self.cfg, self.params, batch, self.feats,
-                           train=True, dropout_gens=dropout_gens,
-                           feats_global=True)
+                           self.g.degrees, train=True,
+                           dropout_gens=dropout_gens, feats_global=True)
         loss = gnn_softmax_ce(logits, batch.labels,
                               batch.label_mask.to(torch.float32)) * poison
         grads = torch.autograd.grad(loss, params)
@@ -189,7 +190,8 @@ class GNNTrainer:
                 seed=self.seed + 17, device_graph=self.g,
                 labels=self.labels, device=self.device):
             logits = apply_gnn(self.cfg, self.params, batch, self.feats,
-                               train=False, feats_global=True)
+                               self.g.degrees, train=False,
+                               feats_global=True)
             m = batch.label_mask.to(torch.float32)
             n = m.sum()
             tot_l += gnn_softmax_ce(logits, batch.labels, m) * n

@@ -12,8 +12,10 @@ import numpy as np
 import pytest
 import torch
 
+from repro.kernels.gather_agg.kernel import gather_agg_bwd_dw_pallas
 from repro.kernels.gather_agg.ops import gather_agg as gather_agg_j
-from repro_torch.kernels.gather_agg import kernel, ref
+from repro.kernels.gather_agg.ref import gather_agg_ref as gather_agg_ref_j
+from repro_torch.kernels.gather_agg import kernel, ops, ref
 from repro_torch.kernels.gather_agg.ops import gather_agg
 
 IMPLS = ["pallas", "jnp"]
@@ -74,6 +76,49 @@ def test_grads_match_reference_vjp(case, impl):
                                rtol=1e-5, atol=1e-6)
     np.testing.assert_allclose(wt.grad.numpy(), np.asarray(dw_j),
                                rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("impl", ["pallas", "ref"])
+@pytest.mark.parametrize("case", CASES)
+def test_bwd_dw_matches_reference(case, impl):
+    """The dw wrapper on CPU tensors (the plain version the CUDA kernel is
+    held against) equals the reference's `gather_agg_bwd_dw_pallas` in
+    interpret mode, and the weight gradient of its jnp reference. Each
+    entry is one F-term dot product: rtol = 1e-5, atol = 1e-6."""
+    x, idx, w = _case(case, seed=2)
+    idx = np.clip(idx, 0, x.shape[0] - 1)
+    g = np.random.default_rng((4, 11)).normal(
+        size=(idx.shape[0], x.shape[1])).astype(np.float32)
+    if impl == "pallas":
+        want = gather_agg_bwd_dw_pallas(jnp.asarray(x), jnp.asarray(idx),
+                                        jnp.asarray(g), interpret=True)
+    else:
+        want = jax.vjp(lambda b: gather_agg_ref_j(jnp.asarray(x),
+                                                  jnp.asarray(idx), b),
+                       jnp.asarray(w))[1](jnp.asarray(g))[0]
+    got = kernel.gather_agg_bwd_dw(torch.as_tensor(x), torch.as_tensor(idx),
+                                   torch.as_tensor(g)).numpy()
+    assert got.dtype == np.float32 and got.shape == idx.shape
+    np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("w_grad", [False, True])
+def test_dw_computed_only_when_weights_need_grad(w_grad, monkeypatch):
+    """SAGE's and GCN's weights carry no gradient, so their backward never
+    reaches the dw wrapper; GAT's attention weights do."""
+    calls = []
+
+    def counted(*a):
+        calls.append(1)
+        return kernel.gather_agg_bwd_dw(*a)
+
+    monkeypatch.setattr(ops, "gather_agg_bwd_dw", counted)
+    x, idx, w = _case("odd_f10")
+    xt = torch.as_tensor(x).requires_grad_(True)
+    wt = torch.as_tensor(w).requires_grad_(w_grad)
+    gather_agg(xt, torch.as_tensor(idx), wt).sum().backward()
+    assert xt.grad is not None
+    assert len(calls) == int(w_grad) and (wt.grad is not None) == w_grad
 
 
 def test_dx_skipped_when_table_needs_no_grad():

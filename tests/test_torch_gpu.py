@@ -65,6 +65,42 @@ def test_kernels_match_plain_versions(cuda, shape):
         before["gather_agg_bwd_dx"] + 2
 
 
+# (n_src, n_dst, r, F): GAT's folded widths (dh = 10 at the class layer,
+# 64 in the hidden layers) and the reddit feature width, which the lanes
+# stride over in ten float2 steps
+DW_SHAPES = [(40, 300, 10, 10), (64, 500, 10, 64), (50, 60, 10, 602)]
+
+
+@pytest.mark.parametrize("shape", DW_SHAPES)
+def test_dw_kernel_matches_plain_version(cuda, shape):
+    """dw[i, j] = <g[i], x[idx[i, j]]> against its plain version, with
+    repeated indices and the padding pattern of a batch (whole rows on the
+    last, sentinel source row); bit-identical relaunch; one count per
+    launch. Each entry is an F-term dot summed in another order: the two
+    differ by at most 2 * F * eps * sum_k |g[i, k] * x[idx[i, j], k]|."""
+    n_src, n_dst, r, f = shape
+    rng = np.random.default_rng((n_src, f))
+    x = torch.as_tensor(rng.normal(size=(n_src, f)), dtype=torch.float32,
+                        device=cuda)
+    idx_h = rng.integers(0, n_src, (n_dst, r))
+    idx_h[:, :3] = 1                          # repeated rows
+    idx_h[n_dst // 2:] = n_src - 1            # padded destination rows
+    idx = torch.as_tensor(idx_h, dtype=torch.int32, device=cuda)
+    g = torch.as_tensor(rng.normal(size=(n_dst, f)), dtype=torch.float32,
+                        device=cuda)
+    before = kernel.LAUNCHES["gather_agg_bwd_dw"]
+    dw = kernel.gather_agg_bwd_dw(x, idx, g)
+    assert kernel.LAUNCHES["gather_agg_bwd_dw"] == before + 1
+    want = ref.gather_agg_bwd_dw_ref(x, idx, g)
+    scale = ref.gather_agg_bwd_dw_ref(x.abs(), idx, g.abs())
+    bound = 2 * f * torch.finfo(torch.float32).eps * scale
+    assert dw.shape == (n_dst, r) and dw.dtype == torch.float32
+    assert ((dw - want).abs() <= bound).all(), \
+        float(((dw - want).abs() / bound).max())
+    assert torch.equal(dw, kernel.gather_agg_bwd_dw(x, idx, g))
+    assert kernel.LAUNCHES["gather_agg_bwd_dw"] == before + 2
+
+
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     x = torch.zeros((4, 8), device=cuda)
     idx = torch.zeros((2, 3), dtype=torch.int32, device=cuda)
@@ -77,6 +113,22 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         kernel.gather_agg_fwd(x.t(), idx, w)
     with pytest.raises(ValueError):
         kernel.gather_agg_fwd(x, idx, w.cpu())
+    g = torch.zeros((2, 8), device=cuda)
+    before = dict(kernel.LAUNCHES)
+    with pytest.raises(TypeError):
+        kernel.gather_agg_bwd_dw(x.double(), idx, g)
+    with pytest.raises(TypeError):
+        kernel.gather_agg_bwd_dw(x, idx.long(), g)
+    with pytest.raises(ValueError):
+        kernel.gather_agg_bwd_dw(x, idx.reshape(-1), g)
+    with pytest.raises(ValueError):
+        kernel.gather_agg_bwd_dw(x.cpu(), idx, g)
+    with pytest.raises(ValueError):
+        kernel.gather_agg_bwd_dw(torch.zeros((8, 4), device=cuda).t(), idx,
+                                 g)
+    with pytest.raises(ValueError):
+        kernel.gather_agg_bwd_dw(x, idx, torch.zeros((3, 8), device=cuda))
+    assert kernel.LAUNCHES == before
 
 
 def test_card_and_cpu_steps_agree(cuda):
@@ -95,3 +147,27 @@ def test_card_and_cpu_steps_agree(cuda):
         lc, _ = cpu.train_step(b, tcfg.learning_rate)
         lg, _ = gpu.train_step(b.to(cuda), tcfg.learning_rate)
         np.testing.assert_allclose(float(lg), float(lc), rtol=1e-4)
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_gcn_gat_card_and_cpu_steps_agree(cuda, model):
+    """GCN and GAT: five guarded steps on the card and on the CPU from the
+    same parameters on the same batches agree within rtol = 1e-4; on the
+    card GAT's attention gradient goes through the dw kernel (one launch
+    per layer and step), GCN's never does."""
+    g = prepare(synthetic.load("tiny"), oracle=True)
+    cfg = GNNConfig("t", model, 2, 32, g.feat_dim, g.num_classes,
+                    fanout=(5, 5), dropout=0.0)
+    tcfg = TrainConfig(batch_size=256)
+    cpu = GNNTrainer(g, cfg, tcfg, "comm_rand", device="cpu")
+    gpu = GNNTrainer(g, cfg, tcfg, "comm_rand", caps=cpu.caps,
+                     eval_caps=cpu.eval_caps, device=cuda)
+    it = iter(cpu.stream)
+    kernel.reset_launches()
+    for _ in range(5):
+        b = next(it)
+        lc, _ = cpu.train_step(b, tcfg.learning_rate)
+        lg, _ = gpu.train_step(b.to(cuda), tcfg.learning_rate)
+        np.testing.assert_allclose(float(lg), float(lc), rtol=1e-4)
+    assert kernel.LAUNCHES["gather_agg_bwd_dw"] == \
+        (10 if model == "gat" else 0)

@@ -72,5 +72,7 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     w = torch.as_tensor(rng.random((4, 3)), dtype=torch.float32)
     out = kernel.gather_agg_fwd(x, idx, w)
     dx = kernel.gather_agg_bwd_dx(idx, w, out, 9)
-    assert out.shape == (4, 6) and dx.shape == (9, 6)
-    assert kernel.LAUNCHES == {"gather_agg_fwd": 0, "gather_agg_bwd_dx": 0}
+    dw = kernel.gather_agg_bwd_dw(x, idx, out)
+    assert out.shape == (4, 6) and dx.shape == (9, 6) and dw.shape == (4, 3)
+    assert kernel.LAUNCHES == {"gather_agg_fwd": 0, "gather_agg_bwd_dx": 0,
+                               "gather_agg_bwd_dw": 0}
