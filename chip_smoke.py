@@ -4,36 +4,48 @@
     python3 chip_smoke.py            # from the repository root
 
 It drives the port's main path — COMM-RAND training through `GNNTrainer`
-of GraphSAGE, GCN and GAT — at the paper's full model width on a
-Reddit-shaped graph, and holds every hand-written kernel of that path
-against its plain PyTorch version on the card. Phases (any failure fails
-the run, exit code != 0):
+of GraphSAGE, GCN and GAT, and GraphSAGE reading its layer-0 features
+through the device-resident feature cache (paper §6.5) — at the paper's
+full model width on a Reddit-shaped graph, and holds every hand-written
+kernel of that path against its plain PyTorch version on the card. Set-up
+builds one `presampled_freq` cache plan (frac 0.2) for the cached run and
+prints its host time. Phases (any failure fails the run, exit code != 0):
 
   1. device   torch / CUDA versions, the card, its power limit; TF32 off
-  2. build    nvcc builds the kernels from `src/repro_torch/csrc` (timed)
+  2. build    nvcc builds the kernels from `src/repro_torch/csrc`, one
+              nvcc per source, all started together (timed)
   3. kernels  every kernel of each model's train step at that step's
               shapes, taken from a real batch: GraphSAGE's (fwd, bwd_dx;
-              GCN's are the same) and GAT's head-folded ones (fwd, bwd_dx,
-              bwd_dw, with softmax weights): max error against the plain
-              version,
-              bit-determinism over two launches, and ms (CUDA events
-              around 10 back-to-back calls, median of 5) beside the plain
-              version, one equivalent PyTorch call where there is one, and
-              the bound (compulsory bytes at 3.35 TB/s, flops at 67
-              TFLOP/s float32)
-  4. train    GraphSAGE (20 steps), GCN and GAT (10 steps each), each
-              followed by one `evaluate` of 3 validation batches, on the
-              reddit-602 graph with the same policy, caps and batches; the
-              kernels' launch counters are zeroed just before each model's
-              run and read just after, and must equal 3 per step + 3 per
-              eval batch (forward), 2 per step (bwd_dx; 3 for GAT, whose
-              layer 0 differentiates its projection) and 3 per step for
-              GAT's bwd_dw (0 for the others); then 3 more steps of each
-              model under torch.profiler: CUDA kernels by device time per
-              step and the device's idle share of an unprofiled step
-  5. card vs CPU  5 guarded steps of GraphSAGE and of GAT on the tiny
-              graph, same parameters and batches on the card and on the
-              CPU, agree within rtol 1e-4
+              GCN's are the same), GAT's head-folded ones (fwd, bwd_dx,
+              bwd_dw, with softmax weights) and the cached gather at the
+              batch's input level (`node_ids`, the plan above): max error
+              against the plain version (exactly 0 for the cached gather,
+              a copy, whose autograd backward is also held against the
+              plain one), bit-determinism over two launches, and ms (CUDA
+              events around 10 back-to-back calls, median of 5) beside the
+              plain version, one equivalent PyTorch call where there is one
+              (`embedding_bag`, `index_select`), and the bound (compulsory
+              bytes at 3.35 TB/s, flops at 67 TFLOP/s float32)
+  4. train    GraphSAGE (20 steps), cached GraphSAGE (10 steps), GCN and
+              GAT (10 steps each), each followed by one `evaluate` of 3
+              validation batches, on the reddit-602 graph with the same
+              policy, caps and batches; the kernels' launch counters are
+              zeroed just before each run and read just after, and must
+              equal 3 per step + 3 per eval batch (forward), 2 per step
+              (bwd_dx; 3 for GAT, whose layer 0 differentiates its
+              projection), 3 per step for GAT's bwd_dw, and 1 per step and
+              eval batch for the cached gather in the cached run (0 in any
+              other); the cached run's losses must equal the uncached
+              GraphSAGE run's first 10 bit for bit, and its hits + misses
+              the valid input nodes of its batches; then 3 more steps of
+              each run under torch.profiler: CUDA kernels by device time
+              per step and the device's idle share of an unprofiled step;
+              last, a fresh uncached and a fresh cached GraphSAGE trainer
+              take 10 steps in turns on the same batches (the cache's cost
+              per step, without drift between runs)
+  5. card vs CPU  5 guarded steps of GraphSAGE, of cached GraphSAGE and of
+              GAT on the tiny graph, same parameters and batches on the
+              card and on the CPU, agree within rtol 1e-4
 
 It prints the `{"kernels": [...]}` line before the last, and as the last
 line `{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
@@ -54,16 +66,25 @@ ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
 EVAL_BATCHES, CPU_STEPS = 3, 5
-# the configs trained at full width (repro_torch.configs.CONFIGS), their
-# steps, and the bwd_dx / bwd_dw launches each step makes
-MODELS = {"graphsage": (20, 2, 0), "gcn": (10, 2, 0), "gat": (10, 3, 3)}
+CACHE_FRAC = 0.2
+# the runs of the main path: the config trained at full width
+# (repro_torch.configs.CONFIGS), its steps, the bwd_dx / bwd_dw launches
+# each step makes, and whether layer 0 reads through the feature cache
+RUNS = {"graphsage": ("graphsage", 20, 2, 0, False),
+        "graphsage_cached": ("graphsage", 10, 2, 0, True),
+        "gcn": ("gcn", 10, 2, 0, False),
+        "gat": ("gat", 10, 3, 3, False)}
 DEVICE = "cuda"
 REPLACES = {
     "gather_agg_fwd": "src/repro/kernels/gather_agg/kernel.py:56",
     "gather_agg_bwd_dx": "src/repro/kernels/gather_agg/kernel.py:101",
     "gather_agg_bwd_dw": "src/repro/kernels/gather_agg/kernel.py:151",
+    "gather_cached_fwd": "src/repro/kernels/gather_cached/kernel.py:44",
 }
-SOURCE = "src/repro_torch/csrc/gather_agg.cu"
+SOURCES = {"gather_agg_fwd": "src/repro_torch/csrc/gather_agg.cu",
+           "gather_agg_bwd_dx": "src/repro_torch/csrc/gather_agg.cu",
+           "gather_agg_bwd_dw": "src/repro_torch/csrc/gather_agg.cu",
+           "gather_cached_fwd": "src/repro_torch/csrc/gather_cached.cu"}
 
 
 def log(msg: str) -> None:
@@ -313,19 +334,85 @@ def check_dw(torch, L):
             "note": f"zf {x.shape[0]}x{F} idx {n_dst}x{r} rows read {rows}"}
 
 
+def cached_layer(torch, trainer, batch, plan):
+    """What the cached run hands `gather_cached` at layer 0 of a train
+    step: the plan on the card, the global features and the batch's
+    input-level ids (padded with the sentinel N)."""
+    return {"layer": 0, "cache": plan.cache, "x": trainer.feats,
+            "pos": plan.pos, "ids": batch.node_ids.to(torch.int32)}
+
+
+def check_cached(torch, L):
+    """A copy: the kernel must equal the plain version bit for bit and
+    relaunch bit-identically. Its autograd backward (two fanout-1 bwd_dx
+    launches) is held against autograd of the plain version within
+    check_dx's tolerance: a row sums one cotangent per id on it (padding
+    ids all land on the clipped row)."""
+    from repro_torch.featcache import cache_stats, gather_cached
+    from repro_torch.kernels.gather_cached import kernel, ref
+    cache, feats, pos, ids = L["cache"], L["x"], L["pos"], L["ids"]
+    N, F = feats.shape
+    M = ids.shape[0]
+    out = kernel.gather_cached_fwd(cache, feats, pos, ids)
+    want = ref.gather_cached_ref(cache, feats, pos, ids)
+    err = (out - want).abs().max().item()
+    check(torch.equal(out, want), f"gather_cached_fwd max abs err {err}")
+    check(torch.equal(out, kernel.gather_cached_fwd(cache, feats, pos, ids)),
+          "gather_cached_fwd differs between launches")
+    gid = ids.long().clamp(0, N - 1)
+    check(torch.equal(torch.index_select(feats, 0, gid), want),
+          "index_select differs from the plain version")
+    g = torch.randn((M, F), device=feats.device,
+                    generator=torch.Generator(device=feats.device)
+                    .manual_seed(2))
+    grads = []
+    for fn in (lambda c, f: gather_cached(c, f, pos, ids)[0],
+               lambda c, f: ref.gather_cached_ref(c, f, pos, ids)):
+        c = cache.clone().requires_grad_()
+        f = feats.clone().requires_grad_()
+        (fn(c, f) * g).sum().backward()
+        grads.append((c.grad, f.grad))
+        del c, f
+    terms = int(torch.bincount(gid).max())
+    tol = max(1e-5, 1e-7 * terms)
+    bwd_err = max((a - b).abs().max().item() for a, b in zip(*grads))
+    for a, b in zip(*grads):
+        check(torch.allclose(a, b, rtol=tol, atol=tol),
+              f"gather_cached backward max abs err {bwd_err} (tol {tol})")
+    del grads
+    hits, misses = (int(t) for t in cache_stats(pos, ids, N))
+    rows = torch.unique(gid).numel()
+    # each distinct row read once (and its pos entry), each id read and
+    # each output row written once
+    b_ms, b_by = _bound_ms(rows * (F * 4 + 4) + M * 4 + M * F * 4, 0.0)
+    return {"max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+            "ms": cuda_ms(torch, lambda: kernel.gather_cached_fwd(
+                cache, feats, pos, ids)),
+            "plain_ms": cuda_ms(torch, lambda: ref.gather_cached_ref(
+                cache, feats, pos, ids)),
+            "library_ms": cuda_ms(torch, lambda: torch.index_select(
+                feats, 0, gid)),
+            "note": f"cache {cache.shape[0]}x{F} feats {N}x{F} ids {M} "
+                    f"({hits} hits, {misses} misses, {M - hits - misses} "
+                    f"padding; rows read {rows}); backward max abs err "
+                    f"{bwd_err:.3e} (rtol = atol = {tol:.1e}); library: "
+                    f"index_select"}
+
+
 CHECKS = (("gather_agg_fwd", check_fwd, None),
           ("gather_agg_bwd_dx", check_dx, "needs_dx"),
           ("gather_agg_bwd_dw", check_dw, "needs_dw"))
+CACHED_CHECKS = (("gather_cached_fwd", check_cached, None),)
 
 
-def phase_kernels(torch, path, layers):
+def phase_kernels(torch, path, layers, checks=CHECKS):
     """Every kernel a model's train step launches, at that step's shapes:
     max error against the plain version (a check failure ends the run),
     bit-identical relaunch, ms, plain ms, library ms and bound. Returns
     {kernel: readings summed over the layers (max_abs_err: the largest)}."""
     totals = {}
     for L in layers:
-        for name, fn, key in CHECKS:
+        for name, fn, key in checks:
             if key is not None and not L[key]:
                 continue
             got = fn(torch, L)
@@ -355,9 +442,29 @@ def phase_kernels(torch, path, layers):
 # ---------------------------------------------------------------------------
 # phase 4: the main path
 # ---------------------------------------------------------------------------
-def phase_train(torch, graph, trainer, name):
+def epoch_hit_rate(torch, trainer):
+    """The cache plan's hit rate over every batch of epoch 0, from the
+    device counters (`cache_stats`) of the batches the stream builds (pure
+    in the cursor; nothing is trained)."""
+    from repro_torch.featcache import cache_stats
+    stream = trainer.stream
+    roots = stream.root_batches(0)
+    tot = torch.zeros(2, dtype=torch.int64, device=trainer.device)
+    for p in range(len(roots)):
+        ids = stream.build(roots[p], 0, p).node_ids
+        tot += torch.stack(cache_stats(trainer.cache.pos, ids,
+                                       trainer.graph.num_nodes))
+    hits, misses = tot.tolist()
+    return hits, misses, len(roots)
+
+
+def phase_train(torch, graph, trainer, name, reference=None):
+    """One run of the main path. A cached run's losses must equal the
+    uncached run's on the same batches bit for bit (`reference`: that
+    run's losses and step times)."""
     from repro_torch.kernels.gather_agg import kernel
-    steps, dx_per_step, dw_per_step = MODELS[name]
+    from repro_torch.kernels.gather_cached import kernel as cached_kernel
+    _, steps, dx_per_step, dw_per_step, cached = RUNS[name]
     bs = trainer.tcfg.batch_size
     val = graph.val_ids[:EVAL_BATCHES * bs]
     n_eval = -(-len(val) // bs)
@@ -375,6 +482,7 @@ def phase_train(torch, graph, trainer, name):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     kernel.reset_launches()                      # counts start here
+    cached_kernel.reset_launches()
     losses, step_ms = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -382,7 +490,8 @@ def phase_train(torch, graph, trainer, name):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     ev = trainer.evaluate(val)
     torch.cuda.synchronize()
-    launches = dict(kernel.LAUNCHES)             # ... and are read here
+    launches = {**kernel.LAUNCHES,               # ... and are read here
+                **cached_kernel.LAUNCHES}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     skipped = int(trainer.skips)
     log(f"[4 train] {name}: {steps} steps: first loss {losses[0]:.4f}  "
@@ -397,9 +506,63 @@ def phase_train(torch, graph, trainer, name):
     check(skipped == 0, f"{name}: {skipped} skipped steps")
     want = {"gather_agg_fwd": 3 * steps + 3 * n_eval,
             "gather_agg_bwd_dx": dx_per_step * steps,
-            "gather_agg_bwd_dw": dw_per_step * steps}
+            "gather_agg_bwd_dw": dw_per_step * steps,
+            "gather_cached_fwd": steps + n_eval if cached else 0}
     check(launches == want, f"{name}: launches {launches} != {want}")
-    return launches, statistics.median(step_ms)
+    if cached:
+        meter = trainer.cache_meter
+        # the valid input nodes of the run's batches, rebuilt (the build
+        # is pure in the cursor)
+        roots = trainer.stream.root_batches(0)
+        valid = sum(int(trainer.stream.build(roots[p], 0, p).num_unique)
+                    for p in range(steps))
+        log(f"[4 train] {name}: {trainer.cache.describe()}  hit rate "
+            f"{meter.hit_rate:.4f} ({meter.hits} hits, {meter.misses} "
+            f"misses over {valid} valid input nodes of {steps} batches)")
+        check(meter.total == valid,
+              f"{name}: hits + misses {meter.total} != valid ids {valid}")
+        ref_losses, ref_ms = reference
+        ref = torch.tensor(ref_losses[:steps], dtype=torch.float64)
+        check(torch.equal(torch.tensor(losses, dtype=torch.float64), ref),
+              f"{name}: losses {losses} != uncached {ref_losses}")
+        log(f"[4 train] {name}: {steps} losses bit-identical to the "
+            f"uncached run's; median step {statistics.median(step_ms):.2f} "
+            f"ms vs {statistics.median(ref_ms[:steps]):.2f} ms uncached on "
+            f"the same {steps} batches")
+        t0 = time.perf_counter()
+        hits, misses, n = epoch_hit_rate(torch, trainer)
+        log(f"[4 train] {name}: over all {n} batches of epoch 0 (built, not "
+            f"trained): hit rate {hits / max(hits + misses, 1):.4f} "
+            f"({hits} hits, {misses} misses; {time.perf_counter() - t0:.1f}"
+            f" s)")
+    return launches, step_ms, losses
+
+
+def phase_paired(torch, make_trainer, plan, steps: int = 10):
+    """What the cache costs per step, without the drift between runs made
+    minutes apart: a fresh uncached and a fresh cached GraphSAGE trainer
+    step through the same batches in turns (which one goes first
+    alternates), each step ending in its loss read; the losses must agree
+    bit for bit."""
+    pair = (("uncached", make_trainer(None)), ("cached", make_trainer(plan)))
+    ms = {name: [] for name, _ in pair}
+    for k in range(steps):
+        got = {}
+        for name, trainer in (pair if k % 2 == 0 else pair[::-1]):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got[name] = trainer.train_steps(1)
+            ms[name].append((time.perf_counter() - t0) * 1e3)
+        check(got["uncached"] == got["cached"],
+              f"paired step {k}: losses {got} differ")
+    med = {name: statistics.median(v) for name, v in ms.items()}
+    log(f"[4 paired] graphsage vs graphsage_cached, {steps} steps each on "
+        f"the same batches in turns: median step {med['uncached']:.2f} ms "
+        f"uncached, {med['cached']:.2f} ms cached "
+        f"({med['cached'] - med['uncached']:+.2f} ms); losses "
+        f"bit-identical; per step uncached "
+        f"{[round(t, 2) for t in ms['uncached']]} cached "
+        f"{[round(t, 2) for t in ms['cached']]}")
 
 
 def phase_profile(torch, trainer, name, step_ms: float, steps: int = 3,
@@ -433,15 +596,19 @@ def phase_profile(torch, trainer, name, step_ms: float, steps: int = 3,
 # ---------------------------------------------------------------------------
 # phase 5: card vs CPU on the tiny graph
 # ---------------------------------------------------------------------------
-def phase_card_vs_cpu(torch, g, model):
+def phase_card_vs_cpu(torch, g, model, cache=None):
     from repro_torch.configs import GNNConfig, TrainConfig
     from repro_torch.train.gnn_loop import GNNTrainer
     cfg = GNNConfig("tiny", model, 2, 32, g.feat_dim, g.num_classes,
                     fanout=(5, 5), dropout=0.0)
     tcfg = TrainConfig(batch_size=256)
-    cpu = GNNTrainer(g, cfg, tcfg, "comm_rand", seed=0, device="cpu")
+    cpu = GNNTrainer(g, cfg, tcfg, "comm_rand", seed=0, cache=cache,
+                     device="cpu")
     gpu = GNNTrainer(g, cfg, tcfg, "comm_rand", seed=0, caps=cpu.caps,
-                     eval_caps=cpu.eval_caps, device=DEVICE)
+                     eval_caps=cpu.eval_caps, cache=cache, device=DEVICE)
+    if cache is not None:
+        check(torch.equal(cpu.cache.pos, gpu.cache.pos.cpu()),
+              "card and CPU built other cache plans")
     for a, b in zip(cpu.params.parameters(), gpu.params.parameters()):
         check(torch.equal(a, b.cpu()), "card and CPU start from other params")
     # the stream's generators are the device's own, so both steps take the
@@ -455,7 +622,8 @@ def phase_card_vs_cpu(torch, g, model):
         lc, lg = float(lc), float(lg)
         worst = max(worst, abs(lg - lc) / abs(lc))
         check(abs(lg - lc) <= 1e-4 * abs(lc), f"card {lg} vs CPU {lc}")
-    log(f"[5 card vs cpu] {model}: {CPU_STEPS} steps on tiny: max "
+    label = model if cache is None else f"{model} cache={cache}"
+    log(f"[5 card vs cpu] {label}: {CPU_STEPS} steps on tiny: max "
         f"relative loss difference {worst:.3e} (limit 1e-4)")
 
 
@@ -479,6 +647,7 @@ def main() -> int:
     kind = phase_device(torch)
     phase_build()
 
+    from repro_torch import featcache
     from repro_torch.batching import make_policy
     from repro_torch.configs import CONFIGS, TrainConfig
     from repro_torch.core.reorder import prepare
@@ -495,39 +664,62 @@ def main() -> int:
         f"{t1 - t0:.1f} s  trainer (caps, upload) "
         f"{time.perf_counter() - t1:.1f} s  caps {trainer.caps}  eval caps "
         f"{trainer.eval_caps}")
+    # the cache plan of the cached run, built on the host and kept there
+    # until that run, so that no other run's peak memory holds it
+    t0 = time.perf_counter()
+    plan = featcache.build_plan(
+        graph, "presampled_freq", frac=CACHE_FRAC, policy=policy,
+        batch_size=trainer.tcfg.batch_size, fanouts=trainer.fanouts, seed=0,
+        device="cpu")
+    log(f"[setup] cache plan {plan.describe()} ({plan.capacity} of "
+        f"{graph.num_nodes} rows, {plan.cache.numel() * 4 / 1e6:.1f} MB): "
+        f"{time.perf_counter() - t0:.1f} s on the host")
 
     batch = typical_batch(trainer)
     readings = {
         "graphsage": phase_kernels(torch, "graphsage",
                                    main_path_layers(torch, trainer, batch)),
+        "graphsage_cached": phase_kernels(
+            torch, "graphsage_cached",
+            [cached_layer(torch, trainer, batch, plan.to(DEVICE))],
+            CACHED_CHECKS),
         "gat": phase_kernels(torch, "gat", gat_layers(torch, trainer, batch,
                                                       CONFIGS["gat"]))}
     del batch
-    # GCN and GAT reuse GraphSAGE's caps: same policy, sampler, batches
+    # the other runs reuse GraphSAGE's caps: same policy, sampler, batches
     caps, eval_caps = trainer.caps, trainer.eval_caps
-    runs = {}
-    for name in MODELS:
+    runs, losses, step_ms = {}, {}, {}
+    for name, (config, _, _, _, cached) in RUNS.items():
         if trainer is None:
-            trainer = GNNTrainer(graph, CONFIGS[name], TrainConfig(), policy,
-                                 caps=caps, eval_caps=eval_caps, seed=0,
-                                 device=DEVICE)
-        runs[name], step_ms = phase_train(torch, graph, trainer, name)
-        phase_profile(torch, trainer, name, step_ms)
-        trainer = None                   # each model's peak memory alone
+            trainer = GNNTrainer(graph, CONFIGS[config], TrainConfig(),
+                                 policy, caps=caps, eval_caps=eval_caps,
+                                 seed=0, device=DEVICE,
+                                 cache=plan.to(DEVICE) if cached else None)
+        runs[name], step_ms[name], losses[name] = phase_train(
+            torch, graph, trainer, name,
+            (losses.get("graphsage"), step_ms.get("graphsage")))
+        phase_profile(torch, trainer, name,
+                      statistics.median(step_ms[name]))
+        trainer = None                   # each run's peak memory alone
         torch.cuda.empty_cache()
+    phase_paired(torch, lambda cache: GNNTrainer(
+        graph, CONFIGS["graphsage"], TrainConfig(), policy, caps=caps,
+        eval_caps=eval_caps, seed=0, device=DEVICE,
+        cache=None if cache is None else cache.to(DEVICE)), plan)
     tiny = prepare(synthetic.load("tiny"), oracle=True)
-    for model in ("sage", "gat"):
-        phase_card_vs_cpu(torch, tiny, model)
+    for model, cache in (("sage", None), ("sage", "presampled_freq"),
+                         ("gat", None)):
+        phase_card_vs_cpu(torch, tiny, model, cache)
 
     kernels = []
     for name in REPLACES:
         by_path = {p: r[name] for p, r in readings.items() if name in r}
         top = next(iter(by_path))        # graphsage's shapes, else gat's
         kernels.append({
-            "name": name, "route": "cuda", "source": SOURCE,
+            "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": sum(runs[m][name] for m in MODELS),
-            "launches_by_path": {m: runs[m][name] for m in MODELS},
+            "launches": sum(runs[m][name] for m in RUNS),
+            "launches_by_path": {m: runs[m][name] for m in RUNS},
             "ok": True, "deterministic": True,
             **{k: by_path[top][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")},

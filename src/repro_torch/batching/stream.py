@@ -13,9 +13,10 @@ the device's own (Philox on CUDA, MT19937 on the CPU), so a CUDA stream
 and a CPU stream with the same seed draw different uniforms; the reference's
 threefry draws are not reproduced (the parity tests inject them instead).
 
-The feature cache (`cache=`) and the async pipeline (`prefetch=`) are not
-ported yet. CUDA work is queued asynchronously by PyTorch, so the build of
-the next batch already overlaps the device's current step.
+The stream carries the feature cache (`cache=`) its consumers read layer-0
+features through. The async pipeline (`prefetch=`) is not ported yet. CUDA
+work is queued asynchronously by PyTorch, so the build of the next batch
+already overlaps the device's current step.
 """
 from __future__ import annotations
 
@@ -25,7 +26,7 @@ from typing import Iterator, Optional
 import numpy as np
 import torch
 
-from repro_torch import sampling
+from repro_torch import featcache, sampling
 from repro_torch.batching.order import make_batches
 from repro_torch.batching.policy import BatchPolicy, as_policy
 from repro_torch.core import minibatch as mb
@@ -87,7 +88,7 @@ class BatchStream:
                  drop_last: bool = False, sampler=None,
                  device_graph: Optional[DeviceGraph] = None,
                  labels: Optional[torch.Tensor] = None,
-                 device: DeviceLike = None):
+                 cache=None, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.graph = graph
         self.policy: BatchPolicy = as_policy(policy)
@@ -102,6 +103,12 @@ class BatchStream:
             sampler, lambda: sampling.for_policy(self.policy))
         self.g, self.labels = _device_inputs(graph, self.device,
                                              device_graph, labels)
+        # the device feature cache riding with the stream: any
+        # `featcache.as_cache` spec (a plan, or an admission name built
+        # here against this stream's policy and shape, on its device)
+        self.cache = featcache.as_cache(
+            cache, graph, policy=self.policy, batch_size=batch_size,
+            fanouts=self.fanouts, seed=seed, device=self.device)
         self._order_cache = (-1, None)        # (epoch, (n_batches, B) roots)
 
     # -- deterministic derivations ------------------------------------------

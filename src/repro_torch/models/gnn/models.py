@@ -14,6 +14,8 @@ the row axis so that alpha's gradient flows through the dw kernel. The
 (N, F) feature matrix: no (cap_L, F) copy is made, and the per-batch
 feature reads are the paper's Fig-6 working set. GAT projects every unique
 source row before it gathers, so it materialises the input level once.
+With a feature cache (`cache=`), the input level is materialised once per
+batch through the two-level `gather_cached` kernel instead.
 
 Parameters keep the reference's layout — weights `(din, dout)` for
 `x @ W` — so `params_from_jax` / `params_to_jax` carry them across without
@@ -30,6 +32,7 @@ from torch import nn
 from repro_torch.configs import GNNConfig
 from repro_torch.core.minibatch import MiniBatch
 from repro_torch.kernels.gather_agg.ops import gather_agg
+from repro_torch.kernels.gather_cached.ops import gather_cached
 
 
 def dense_init(gen: torch.Generator, shape, in_axis: int = -2,
@@ -212,7 +215,7 @@ def apply_gnn(cfg: GNNConfig, params: GNN, batch: MiniBatch, x,
               degrees: Optional[torch.Tensor] = None, *,
               train: bool = False,
               dropout_gens: Optional[List[torch.Generator]] = None,
-              feats_global: bool = False):
+              feats_global: bool = False, cache=None):
     """Returns logits aligned with batch.roots order.
 
     x: with feats_global=False, the pre-gathered (cap_L, in_dim) input
@@ -221,12 +224,26 @@ def apply_gnn(cfg: GNNConfig, params: GNN, batch: MiniBatch, x,
     materialises the input level from it once). `degrees`: the global
     (N,) degree array, which GCN needs. `dropout_gens[i]` draws layer i's
     dropout mask (training only).
+
+    cache: an optional `repro_torch.featcache.CachePlan` (anything with
+    `.cache` (C, in_dim) rows and `.pos` (N,) map; requires
+    feats_global=True). Layer 0 then reads the input level, assembled once
+    per batch by `gather_cached` from the cache on hit and the global
+    matrix on miss. Cache rows are exact copies, so the outputs equal the
+    uncached path's bit for bit.
     """
     if cfg.model not in MODELS:
         raise ValueError(f"unknown model {cfg.model!r}")
     if cfg.model == "gcn" and degrees is None:
         raise ValueError("gcn needs the global degree array (degrees=)")
-    if not feats_global:
+    if cache is not None:
+        if not feats_global:
+            raise ValueError("cache= requires feats_global=True "
+                             "(x must be the full (N, F) feature matrix)")
+        x = gather_cached(cache.cache, x, cache.pos, batch.node_ids)[0] \
+            * batch.node_mask[:, None].to(x.dtype)
+        feats_global = False
+    elif not feats_global:
         x = x * batch.node_mask[:, None].to(x.dtype)
     elif cfg.model == "gat":
         # GAT projects every unique source row before gathering (projecting

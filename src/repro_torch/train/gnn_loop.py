@@ -14,19 +14,29 @@ of params and optimizer state — no host sync); a device-resident
 consecutive-skip counter (`skips`) counts such steps. The host reads
 losses once per `train_steps` call or epoch, never per step.
 
-Not ported yet: checkpoints and resume, the feature cache, the async
+Feature cache: `cache=` (a `repro_torch.featcache.CachePlan` or a static
+admission name, built here against this trainer's policy, batch size,
+fanouts and seed) routes every layer-0 feature read through the
+device-resident cache (`gather_cached`). Cache rows are exact copies, so
+the loss trajectory is bit-identical with the cache on and off. Each
+batch's (hits, misses) stay on the device until the host read the loop
+makes anyway, and feed `cache_meter`: the paper's §6.5 cache-locality
+claim as a measured hit rate per epoch and per run. Evaluation reads
+through the cache but never feeds the counters.
+
+Not ported yet: checkpoints and resume, dynamic cache admission, the async
 pipeline, guard escalation and rollback, tracing, sharded training.
 """
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass, field
-from typing import Dict, List, Optional
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from repro_torch import sampling
+from repro_torch import featcache, sampling
 from repro_torch.batching import BatchStream, as_policy, make_policy
 from repro_torch.batching.stream import (SALT_DROPOUT, cursor_generator,
                                          eval_batches)
@@ -34,10 +44,12 @@ from repro_torch.configs import GNNConfig, TrainConfig
 from repro_torch.core import minibatch as mb
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.graphs.csr import DeviceGraph, Graph
+from repro_torch.kernels.gather_cached.ops import cache_stats
 from repro_torch.models.gnn.models import apply_gnn, init_gnn
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import EarlyStopping, ReduceLROnPlateau
 from repro_torch.train.losses import accuracy, gnn_softmax_ce
+from repro_torch.train.monitor import HitRateMeter
 
 
 @dataclass
@@ -48,6 +60,7 @@ class EpochMetrics:
     val_acc: float
     epoch_time_s: float
     mean_unique_nodes: float
+    cache_hit_rate: float = 0.0     # measured; 0 = no cache
 
 
 @dataclass
@@ -62,6 +75,8 @@ class TrainResult:
     feature_bytes_per_batch: float
     caps: tuple
     history: List[EpochMetrics] = field(default_factory=list)
+    cache: str = ""                 # cache describe(), "" = uncached
+    cache_hit_rate: float = 0.0     # measured over the whole run
 
 
 class GNNTrainer:
@@ -71,7 +86,8 @@ class GNNTrainer:
 
     def __init__(self, graph: Graph, cfg: GNNConfig, tcfg: TrainConfig,
                  policy, caps=None, eval_caps=None, seed: int = 0,
-                 device: DeviceLike = None):
+                 cache=None, cache_capacity: Optional[int] = None,
+                 cache_frac: float = 0.2, device: DeviceLike = None):
         self.device = resolve_device(device)
         self.graph = graph
         self.cfg = cfg
@@ -99,10 +115,16 @@ class GNNTrainer:
                                self.device)
         self.opt_state = adamw.init(list(self.params.parameters()))
         self.skips = torch.zeros((), dtype=torch.int32, device=self.device)
+        self.cache = featcache.as_cache(
+            cache, graph, capacity=cache_capacity, frac=cache_frac,
+            policy=self.policy, batch_size=tcfg.batch_size,
+            fanouts=self.fanouts, seed=seed, device=self.device)
+        self.cache_meter = HitRateMeter()
+        self._pending_stats: List[torch.Tensor] = []   # (2,) int32 each
         self.stream = BatchStream(
             graph, self.policy, tcfg.batch_size, self.fanouts, self.caps,
             seed=seed, device_graph=self.g, labels=self.labels,
-            device=self.device)
+            cache=self.cache, device=self.device)
         self.global_step = 0
 
     # -- one guarded step ---------------------------------------------------
@@ -116,7 +138,8 @@ class GNNTrainer:
         params = list(self.params.parameters())
         logits = apply_gnn(self.cfg, self.params, batch, self.feats,
                            self.g.degrees, train=True,
-                           dropout_gens=dropout_gens, feats_global=True)
+                           dropout_gens=dropout_gens, feats_global=True,
+                           cache=self.cache)
         loss = gnn_softmax_ce(logits, batch.labels,
                               batch.label_mask.to(torch.float32)) * poison
         grads = torch.autograd.grad(loss, params)
@@ -151,33 +174,58 @@ class GNNTrainer:
 
     def _train_one(self, batch: mb.MiniBatch, lr: float) -> torch.Tensor:
         loss, _ = self.train_step(batch, lr, self._dropout_gens())
+        if self.cache is not None:
+            # the counters stay on the device until `_drain`
+            self._pending_stats.append(torch.stack(cache_stats(
+                self.cache.pos, batch.node_ids, self.graph.num_nodes)))
         self.global_step += 1
         return loss
+
+    def _drain(self, losses: List[torch.Tensor],
+               ints: Sequence[torch.Tensor] = ()):
+        """The one host read after a run of steps (it drains the device):
+        the float32 losses, the 0-d integer metrics `ints` and the pending
+        cache counters in one copy, the integers bit-cast to float32 for
+        it. The counters feed `cache_meter`. Returns the losses and `ints`
+        as numpy arrays."""
+        stats, self._pending_stats = self._pending_stats, []
+        n, k = len(losses), len(ints)
+        parts = [torch.stack(losses)]
+        if k or stats:
+            parts.append(torch.cat([t.reshape(-1).to(torch.int32)
+                                    for t in (*ints, *stats)])
+                         .view(torch.float32))
+        host = torch.cat(parts).cpu().numpy()
+        rest = host[n:].view(np.int32)
+        for hits, misses in rest[k:].reshape(-1, 2):
+            self.cache_meter.observe(hits, misses)
+        return host[:n], rest[:k]
 
     # -- loops --------------------------------------------------------------
     def run_epoch(self, lr: float) -> Dict:
         """Consume the remainder of the stream's current epoch."""
         t0 = time.perf_counter()
+        mark = self.cache_meter.mark()
         losses, uniq = [], []
         for batch in self.stream.epoch():
             losses.append(self._train_one(batch, lr))
             uniq.append(batch.num_unique)
         if not losses:          # resumed exactly on an epoch boundary
             return {"loss": 0.0, "time": time.perf_counter() - t0,
-                    "uniq": 0.0}
-        # the one host read of the epoch (drains the device)
-        loss_h = torch.stack(losses).cpu().numpy()
-        uniq_h = torch.stack(uniq).cpu().numpy()
+                    "uniq": 0.0, "cache_hit": 0.0}
+        loss_h, uniq_h = self._drain(losses, uniq)
+        hit = self.cache_meter.note_epoch(mark)["hit_rate"] \
+            if self.cache is not None else 0.0
         return {"loss": float(np.mean(loss_h)),
                 "time": time.perf_counter() - t0,
-                "uniq": float(np.mean(uniq_h))}
+                "uniq": float(np.mean(uniq_h)), "cache_hit": hit}
 
     def train_steps(self, n: int, lr: Optional[float] = None) -> List[float]:
         """Consume exactly `n` batches (crossing epoch boundaries)."""
         lr = self.tcfg.learning_rate if lr is None else lr
         it = iter(self.stream)
         losses = [self._train_one(next(it), lr) for _ in range(n)]
-        return torch.stack(losses).tolist() if losses else []
+        return self._drain(losses)[0].tolist() if losses else []
 
     @torch.no_grad()
     def evaluate(self, ids: np.ndarray) -> Dict:
@@ -191,7 +239,7 @@ class GNNTrainer:
                 labels=self.labels, device=self.device):
             logits = apply_gnn(self.cfg, self.params, batch, self.feats,
                                self.g.degrees, train=False,
-                               feats_global=True)
+                               feats_global=True, cache=self.cache)
             m = batch.label_mask.to(torch.float32)
             n = m.sum()
             tot_l += gnn_softmax_ce(logits, batch.labels, m) * n
@@ -218,7 +266,8 @@ class GNNTrainer:
             em = self.run_epoch(lr)
             ev = self.evaluate(self.graph.val_ids)
             history.append(EpochMetrics(epoch, em["loss"], ev["loss"],
-                                        ev["acc"], em["time"], em["uniq"]))
+                                        ev["acc"], em["time"], em["uniq"],
+                                        em["cache_hit"]))
             if verbose:
                 print(f"  epoch {epoch:3d} loss={em['loss']:.4f} "
                       f"val={ev['acc']:.4f} t={em['time']:.2f}s "
@@ -249,6 +298,8 @@ class GNNTrainer:
             feature_bytes_per_batch=uniq * self.graph.feat_dim * 4,
             caps=self.caps,
             history=history,
+            cache=self.cache.describe() if self.cache is not None else "",
+            cache_hit_rate=self.cache_meter.hit_rate,
         )
 
 

@@ -11,7 +11,10 @@ import torch
 from repro_torch.configs import GNNConfig, TrainConfig
 from repro_torch.core.reorder import prepare
 from repro_torch.graphs import synthetic
+from repro_torch.featcache import gather_cached
 from repro_torch.kernels.gather_agg import kernel, ref
+from repro_torch.kernels.gather_cached import kernel as cached_kernel
+from repro_torch.kernels.gather_cached.ref import gather_cached_ref
 from repro_torch.train.gnn_loop import GNNTrainer
 
 pytestmark = pytest.mark.gpu
@@ -171,3 +174,105 @@ def test_gcn_gat_card_and_cpu_steps_agree(cuda, model):
         np.testing.assert_allclose(float(lg), float(lc), rtol=1e-4)
     assert kernel.LAUNCHES["gather_agg_bwd_dw"] == \
         (10 if model == "gat" else 0)
+
+
+# (N, C, M, F, kind): the reddit feature width (float2), a multiple of 4
+# (float4), an odd width (float), more ids than rows; every id a hit or a
+# miss
+CACHED_SHAPES = [(50, 12, 40, 24, "random"), (300, 60, 1000, 602, "random"),
+                 (20, 5, 33, 7, "random"), (40, 40, 64, 16, "all_hit"),
+                 (40, 1, 64, 16, "all_miss")]
+
+
+def _cached_case(device, N, C, M, F, kind):
+    rng = np.random.default_rng((N, M, F))
+    feats = rng.normal(size=(N, F)).astype(np.float32)
+    rows = np.arange(N) if kind == "all_hit" else \
+        np.zeros(0, np.int64) if kind == "all_miss" else \
+        np.sort(rng.choice(N, size=C, replace=False))
+    pos = np.full(N, -1, np.int32)
+    pos[rows] = np.arange(len(rows), dtype=np.int32)
+    ids = rng.integers(0, N, M).astype(np.int32)
+    if kind == "random":                      # padding: the sentinel, -1
+        u = rng.random(M)
+        ids[u < 0.15] = N
+        ids[u > 0.92] = -1
+    cache = feats[rows] if len(rows) else feats[:1]
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (cache, feats, pos, ids))
+
+
+@pytest.mark.parametrize("shape", CACHED_SHAPES)
+def test_gather_cached_kernel_matches_plain_version(cuda, shape):
+    """A copy: bit-equal to the plain version, bit-identical relaunch, one
+    count per launch."""
+    cache, feats, pos, ids = _cached_case(cuda, *shape)
+    before = cached_kernel.LAUNCHES["gather_cached_fwd"]
+    out = cached_kernel.gather_cached_fwd(cache, feats, pos, ids)
+    assert torch.equal(out, gather_cached_ref(cache, feats, pos, ids))
+    assert torch.equal(out, cached_kernel.gather_cached_fwd(cache, feats,
+                                                            pos, ids))
+    assert cached_kernel.LAUNCHES["gather_cached_fwd"] == before + 2
+
+
+@pytest.mark.parametrize("shape", CACHED_SHAPES)
+def test_gather_cached_backward_matches_plain_version(cuda, shape):
+    """d_cache and d_feats through the autograd op (the forward kernel and
+    two bwd_dx launches) against autograd of the plain version; a row sums
+    one cotangent per id that lands on it (padding ids all land on the
+    clipped row), so the tolerance is the bwd_dx one."""
+    cache, feats, pos, ids = _cached_case(cuda, *shape)
+    g = torch.randn((ids.shape[0], feats.shape[1]), device=cuda,
+                    generator=torch.Generator(device=cuda).manual_seed(0))
+    grads = []
+    for fn in (lambda c, f: gather_cached(c, f, pos, ids)[0],
+               lambda c, f: gather_cached_ref(c, f, pos, ids)):
+        c = cache.clone().requires_grad_()
+        f = feats.clone().requires_grad_()
+        (fn(c, f) * g).sum().backward()
+        grads.append((c.grad, f.grad))
+    N = feats.shape[0]
+    terms = int(torch.bincount(ids.long().clamp(0, N - 1)).max())
+    tol = max(1e-5, 1e-7 * terms)
+    for got, want in zip(*grads):
+        torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+
+
+def test_gather_cached_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    cache, feats, pos, ids = _cached_case(cuda, 20, 5, 8, 6, "random")
+    before = dict(cached_kernel.LAUNCHES)
+    bad = [(cache.double(), feats, pos, ids, TypeError),
+           (cache, feats, pos.long(), ids, TypeError),
+           (cache, feats, pos, ids.long(), TypeError),
+           (cache, feats.t().contiguous().t(), pos, ids, ValueError),
+           (cache, feats, pos, ids.cpu(), ValueError),
+           (cache[:, :5].contiguous(), feats, pos, ids, ValueError),
+           (cache, feats, pos[:-1].contiguous(), ids, ValueError)]
+    for *args, err in bad:
+        with pytest.raises(err):
+            cached_kernel.gather_cached_fwd(*args)
+    assert cached_kernel.LAUNCHES == before
+
+
+def test_cached_card_and_cpu_steps_agree(cuda):
+    """The cached trainer: five guarded steps on the card and on the CPU,
+    same plan, parameters and batches, agree within rtol = 1e-4; each card
+    step launches the cached gather once."""
+    g = prepare(synthetic.load("tiny"), oracle=True)
+    cfg = GNNConfig("t", "sage", 2, 32, g.feat_dim, g.num_classes,
+                    fanout=(5, 5), dropout=0.0)
+    tcfg = TrainConfig(batch_size=256)
+    cpu = GNNTrainer(g, cfg, tcfg, "comm_rand", device="cpu",
+                     cache="presampled_freq")
+    gpu = GNNTrainer(g, cfg, tcfg, "comm_rand", caps=cpu.caps,
+                     eval_caps=cpu.eval_caps, device=cuda,
+                     cache="presampled_freq")
+    assert torch.equal(gpu.cache.pos.cpu(), cpu.cache.pos)
+    it = iter(cpu.stream)
+    before = cached_kernel.LAUNCHES["gather_cached_fwd"]
+    for _ in range(5):
+        b = next(it)
+        lc, _ = cpu.train_step(b, tcfg.learning_rate)
+        lg, _ = gpu.train_step(b.to(cuda), tcfg.learning_rate)
+        np.testing.assert_allclose(float(lg), float(lc), rtol=1e-4)
+    assert cached_kernel.LAUNCHES["gather_cached_fwd"] == before + 5
