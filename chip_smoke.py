@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py            # from the repository root
 
-It drives the port's main path — COMM-RAND training through `GNNTrainer`
+It drives the port's main paths — COMM-RAND training through `GNNTrainer`
 of GraphSAGE, GCN and GAT, and GraphSAGE reading its layer-0 features
-through the device-resident feature cache (paper §6.5) — at the paper's
-full model width on a Reddit-shaped graph, and holds every hand-written
-kernel of that path against its plain PyTorch version on the card. Set-up
+through the device-resident feature cache (paper §6.5), at the paper's
+full model width on a Reddit-shaped graph; and LM serving (prefill plus
+greedy decode) of gemma3-1b at full width — and holds every hand-written
+kernel of those paths against its plain PyTorch version on the card. Set-up
 builds one `presampled_freq` cache plan (frac 0.2) for the cached run and
 prints its host time. Phases (any failure fails the run, exit code != 0):
 
@@ -46,6 +47,27 @@ prints its host time. Phases (any failure fails the run, exit code != 0):
   5. card vs CPU  5 guarded steps of GraphSAGE, of cached GraphSAGE and of
               GAT on the tiny graph, same parameters and batches on the
               card and on the CPU, agree within rtol 1e-4
+  6. serve    gemma3-1b at full width (26 layers, d_model 1152, 4 query
+              heads over 1 KV head of 256, vocab 262144; random weights
+              from a seeded CPU generator, cast to bf16 on the card):
+              `flash_attention_fwd` at the q, k, v a real prefill hands
+              it at a global layer (5) and a local one (0, window 512),
+              at a ragged length (2047) and in float32 — max error
+              against the plain version (2e-2 bf16, 2e-5 float32),
+              bit-identical relaunch, ms beside the plain version,
+              `scaled_dot_product_attention` (its backend logged) and the
+              bound (compulsory bytes at 3.35 TB/s, unmasked-pair flops at
+              the bf16 tensor-core peak, or float32's); then `generate`
+              with batch 4, prompt 2048 and 32 greedy tokens, its launch
+              counters zeroed just before and read just after: exactly 26
+              per prefill, 0 per decode step, 0 for the gather kernels;
+              prefill and decode ms and tokens/s, KV cache MiB, peak
+              memory, and one prefill and one decode step under
+              torch.profiler (kernels by device time and launches, the
+              flash kernel's share, the idle share); last,
+              reduced gemma3-1b in float32 served on the card and on the
+              CPU: prefill and 8 decode steps' logits within rtol 1e-4,
+              greedy ids equal
 
 It prints the `{"kernels": [...]}` line before the last, and as the last
 line `{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
@@ -65,6 +87,8 @@ ROOT = Path(__file__).resolve().parent
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM device memory (NVIDIA data sheet)
 F32_FLOPS_PER_S = 67e12       # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12     # H100 SXM dense bf16 tensor cores (NVIDIA
+#                               data sheet)
 EVAL_BATCHES, CPU_STEPS = 3, 5
 CACHE_FRAC = 0.2
 # the runs of the main path: the config trained at full width
@@ -74,17 +98,25 @@ RUNS = {"graphsage": ("graphsage", 20, 2, 0, False),
         "graphsage_cached": ("graphsage", 10, 2, 0, True),
         "gcn": ("gcn", 10, 2, 0, False),
         "gat": ("gat", 10, 3, 3, False)}
+# LM serving: the reference's prefill_32k shape (32 x 32768,
+# `src/repro/configs/base.py:146-151`) cut to batch 4 x prompt 2048 to fit
+# this script's time limit, then 32 greedy tokens
+SERVE = "gemma3-1b_serve"
+SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
+SERVE_GLOBAL, SERVE_LOCAL = 5, 0       # layers whose attention is checked
 DEVICE = "cuda"
 REPLACES = {
     "gather_agg_fwd": "src/repro/kernels/gather_agg/kernel.py:56",
     "gather_agg_bwd_dx": "src/repro/kernels/gather_agg/kernel.py:101",
     "gather_agg_bwd_dw": "src/repro/kernels/gather_agg/kernel.py:151",
     "gather_cached_fwd": "src/repro/kernels/gather_cached/kernel.py:44",
+    "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:65",
 }
 SOURCES = {"gather_agg_fwd": "src/repro_torch/csrc/gather_agg.cu",
            "gather_agg_bwd_dx": "src/repro_torch/csrc/gather_agg.cu",
            "gather_agg_bwd_dw": "src/repro_torch/csrc/gather_agg.cu",
-           "gather_cached_fwd": "src/repro_torch/csrc/gather_cached.cu"}
+           "gather_cached_fwd": "src/repro_torch/csrc/gather_cached.cu",
+           "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu"}
 
 
 def log(msg: str) -> None:
@@ -236,9 +268,10 @@ def gat_layers(torch, trainer, batch, cfg):
     return layers
 
 
-def _bound_ms(n_bytes: float, flops: float):
+def _bound_ms(n_bytes: float, flops: float,
+              flops_per_s: float = F32_FLOPS_PER_S):
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -462,6 +495,7 @@ def phase_train(torch, graph, trainer, name, reference=None):
     """One run of the main path. A cached run's losses must equal the
     uncached run's on the same batches bit for bit (`reference`: that
     run's losses and step times)."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.gather_agg import kernel
     from repro_torch.kernels.gather_cached import kernel as cached_kernel
     _, steps, dx_per_step, dw_per_step, cached = RUNS[name]
@@ -483,6 +517,7 @@ def phase_train(torch, graph, trainer, name, reference=None):
     torch.cuda.reset_peak_memory_stats()
     kernel.reset_launches()                      # counts start here
     cached_kernel.reset_launches()
+    flash_kernel.reset_launches()
     losses, step_ms = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -491,7 +526,7 @@ def phase_train(torch, graph, trainer, name, reference=None):
     ev = trainer.evaluate(val)
     torch.cuda.synchronize()
     launches = {**kernel.LAUNCHES,               # ... and are read here
-                **cached_kernel.LAUNCHES}
+                **cached_kernel.LAUNCHES, **flash_kernel.LAUNCHES}
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     skipped = int(trainer.skips)
     log(f"[4 train] {name}: {steps} steps: first loss {losses[0]:.4f}  "
@@ -507,7 +542,8 @@ def phase_train(torch, graph, trainer, name, reference=None):
     want = {"gather_agg_fwd": 3 * steps + 3 * n_eval,
             "gather_agg_bwd_dx": dx_per_step * steps,
             "gather_agg_bwd_dw": dw_per_step * steps,
-            "gather_cached_fwd": steps + n_eval if cached else 0}
+            "gather_cached_fwd": steps + n_eval if cached else 0,
+            "flash_attention_fwd": 0}
     check(launches == want, f"{name}: launches {launches} != {want}")
     if cached:
         meter = trainer.cache_meter
@@ -565,6 +601,23 @@ def phase_paired(torch, make_trainer, plan, steps: int = 10):
         f"{[round(t, 2) for t in ms['cached']]}")
 
 
+def profile_kernels(torch, fn):
+    """(CUDA kernels by self device time as (name, us, calls), wall ms) of
+    one call of `fn` under torch.profiler."""
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    dev = [(e.key, e.self_device_time_total, e.count)
+           for e in prof.key_averages() if e.self_device_time_total > 0
+           and e.device_type == torch.autograd.DeviceType.CUDA]
+    return sorted(dev, key=lambda d: -d[1]), wall_ms
+
+
 def phase_profile(torch, trainer, name, step_ms: float, steps: int = 3,
                   top: int = 8):
     """Where a model's step goes: `steps` more train steps (after the
@@ -572,23 +625,13 @@ def phase_profile(torch, trainer, name, step_ms: float, steps: int = 3,
     by device time per step and the device's idle share of a step,
     1 - kernel ms per step / the unprofiled median step `step_ms` (the
     profiler's own host overhead stretches its wall time, printed too)."""
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        trainer.train_steps(steps)
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    dev = [(e.key, e.self_device_time_total, e.count)
-           for e in prof.key_averages() if e.self_device_time_total > 0
-           and e.device_type == torch.autograd.DeviceType.CUDA]
+    dev, wall_ms = profile_kernels(torch, lambda: trainer.train_steps(steps))
     busy_ms = sum(t for _, t, _ in dev) / steps / 1e3
     log(f"[4 profile] {name}: {steps} steps, kernels {busy_ms:.2f} ms/step, "
         f"device idle share {1 - busy_ms / step_ms:.3f} of the unprofiled "
         f"median step {step_ms:.2f} ms (profiled wall "
-        f"{wall_us / steps / 1e3:.2f} ms/step)")
-    for key, t, n in sorted(dev, key=lambda d: -d[1])[:top]:
+        f"{wall_ms / steps:.2f} ms/step)")
+    for key, t, n in dev[:top]:
         log(f"[4 profile] {name}: {t / steps / 1e3:8.3f} ms/step  "
             f"{n / steps:6.1f} calls/step  {key[:110]}")
 
@@ -625,6 +668,314 @@ def phase_card_vs_cpu(torch, g, model, cache=None):
     label = model if cache is None else f"{model} cache={cache}"
     log(f"[5 card vs cpu] {label}: {CPU_STEPS} steps on tiny: max "
         f"relative loss difference {worst:.3e} (limit 1e-4)")
+
+
+# ---------------------------------------------------------------------------
+# phase 6: LM serving (gemma3-1b prefill + greedy decode)
+# ---------------------------------------------------------------------------
+def serve_model(torch):
+    """Full-width gemma3-1b: float32 weights drawn from a seeded CPU
+    generator onto the card, then cast to the compute dtype (bf16) there
+    once, as `generate` would."""
+    from repro_torch.configs import LM_CONFIGS
+    from repro_torch.models.lm import transformer
+    cfg = LM_CONFIGS["gemma3-1b"]
+    t0 = time.perf_counter()
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              max_seq=SERVE_PROMPT + SERVE_NEW,
+                              device=DEVICE)
+    n = transformer.param_count(params)
+    params = transformer.cast_params(cfg, params, DEVICE)
+    torch.cuda.synchronize()
+    tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
+                           generator=torch.Generator().manual_seed(1))
+    log(f"[6 serve] {cfg.name}: {cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads} over {cfg.num_kv_heads} KV "
+        f"of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}, "
+        f"window {cfg.window}, global layers "
+        f"{[i for i in range(cfg.num_layers) if cfg.is_global_layer(i)]}: "
+        f"{n} params, init + cast {time.perf_counter() - t0:.1f} s")
+    return cfg, params, tokens.to(DEVICE)
+
+
+def capture_attention(torch, cfg, params, tokens, layers):
+    """The (q, k, v, mask keywords) a real prefill hands the flash kernel
+    at `layers`, taken by wrapping the function the transformer calls
+    (this prefill is not a counted run)."""
+    from repro_torch.models.lm import transformer
+    real, calls, seen = transformer.flash_attention, [], {}
+
+    def spy(q, k, v, **kw):
+        if len(calls) in layers:
+            seen[len(calls)] = (q.clone(), k.clone(), v.clone(), kw)
+        calls.append(len(calls))
+        return real(q, k, v, **kw)
+
+    transformer.flash_attention = spy
+    try:
+        with torch.no_grad():
+            transformer.prefill(cfg, params, {"tokens": tokens})
+    finally:
+        transformer.flash_attention = real
+    check(len(calls) == cfg.num_layers,
+          f"prefill made {len(calls)} attention calls")
+    return seen
+
+
+def sdpa_backend(torch, fn) -> str:
+    """The backend `scaled_dot_product_attention` dispatched to: the aten
+    op under it, read from a CPU-side profile of one call."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    ops = sorted({e.key for e in prof.key_averages()
+                  if e.key.startswith("aten::_scaled_dot_product")})
+    return "/".join(ops) or "unknown"
+
+
+def check_flash(torch, label, q, k, v, kw):
+    """flash_attention_fwd against its plain version at one shape: max
+    error (2e-2 bf16, 2e-5 float32, the reference's tolerances), bit-
+    identical relaunch, ms, plain ms, SDPA ms and the bound."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.flash_attention import kernel, ref
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    out = kernel.flash_attention_fwd(q, k, v, **kw)
+    want = ref.attention_ref(q, k, v, **kw)
+    err = (out.float() - want.float()).abs().max().item()
+    tol = 2e-2 if q.dtype == torch.bfloat16 else 2e-5
+    check(bool(torch.isfinite(out).all()), f"flash {label}: non-finite")
+    check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
+          f"flash {label}: max abs err {err} (tol {tol})")
+    check(torch.equal(out, kernel.flash_attention_fwd(q, k, v, **kw)),
+          f"flash {label}: differs between launches")
+    mask = ref._mask(torch.arange(Sq, device=q.device) + kw["q_offset"],
+                     torch.arange(Skv, device=q.device), causal=kw["causal"],
+                     window=kw["window"], is_global=kw["is_global"])
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    if kw["is_global"] and kw["q_offset"] == 0 and Sq == Skv:
+        def sdpa():
+            return Fn.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                                   enable_gqa=True)
+    else:
+        def sdpa():
+            return Fn.scaled_dot_product_attention(qt, kt, vt,
+                                                   attn_mask=mask,
+                                                   enable_gqa=True)
+    lib_err = (sdpa().transpose(1, 2).float() - want.float()).abs().max()
+    backend = sdpa_backend(torch, sdpa)
+    pairs = int(mask.sum())                 # unmasked (q, kv) per head
+    peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else \
+        F32_FLOPS_PER_S
+    b_ms, b_by = _bound_ms(
+        (2 * q.numel() + 2 * k.numel()) * q.element_size(),
+        4.0 * D * pairs * B * H, peak)
+    got = {"max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+           "ms": cuda_ms(torch, lambda: kernel.flash_attention_fwd(
+               q, k, v, **kw)),
+           "plain_ms": cuda_ms(torch, lambda: ref.attention_ref(
+               q, k, v, **kw)),
+           "library_ms": cuda_ms(torch, sdpa)}
+    log(f"[6 kernels] flash_attention_fwd {label}: q {tuple(q.shape)} k "
+        f"{tuple(k.shape)} {str(q.dtype)[6:]} {kw}  unmasked pairs per "
+        f"head {pairs}  max_abs_err {err:.3e} (tol {tol:.0e})  "
+        f"bit-identical relaunch True  ms {got['ms']:.4f}  plain_ms "
+        f"{got['plain_ms']:.4f}  library_ms {got['library_ms']:.4f} "
+        f"(scaled_dot_product_attention via {backend}, err "
+        f"{float(lib_err):.3e})  bound_ms {b_ms:.4f} ({b_by})")
+    return got
+
+
+def phase_flash(torch, cfg, params, tokens):
+    """The kernel at the serving shapes, from a real prefill: the global
+    layer, the local one, a ragged length (2047) at the local layer, and
+    the global layer in float32. Returns the readings of one prefill (4
+    global + 22 local launches: ms, plain, library and bound summed that
+    way) with each shape's readings beside them."""
+    seen = capture_attention(torch, cfg, params, tokens,
+                             (SERVE_GLOBAL, SERVE_LOCAL))
+    qg, kg, vg, kwg = seen[SERVE_GLOBAL]
+    ql, kl, vl, kwl = seen[SERVE_LOCAL]
+    check(kwg["is_global"] and not kwl["is_global"],
+          "the captured layers are not global and local")
+    kwg, kwl = dict(kwg, q_offset=0), dict(kwl, q_offset=0)
+    n = SERVE_PROMPT - 1
+    shapes = {
+        "global": check_flash(torch, "global layer 5", qg, kg, vg, kwg),
+        "local": check_flash(torch, "local layer 0", ql, kl, vl, kwl),
+        "ragged": check_flash(torch, f"local layer 0, S {n}",
+                              ql[:, :n].contiguous(), kl[:, :n].contiguous(),
+                              vl[:, :n].contiguous(), kwl),
+        "float32": check_flash(torch, "global layer 5, float32", qg.float(),
+                               kg.float(), vg.float(), kwg)}
+    n_glob = sum(cfg.is_global_layer(i) for i in range(cfg.num_layers))
+    n_loc = cfg.num_layers - n_glob
+    per_prefill = {k: n_glob * shapes["global"][k] + n_loc *
+                   shapes["local"][k]
+                   for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    return {"flash_attention_fwd": {
+        **per_prefill,
+        "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
+        "bound_by": "/".join(sorted({shapes[k]["bound_by"]
+                                     for k in ("global", "local")})),
+        "shapes": shapes}}
+
+
+def phase_serve(torch, cfg, params, tokens):
+    """The serving path through `generate`: batch 4, prompt 2048, 32
+    greedy tokens. A prefill alone makes exactly one flash launch per
+    layer; `generate` (prefill + 32 decode steps) exactly as many, so its
+    decode steps make none; no gather kernel runs."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.gather_agg import kernel
+    from repro_torch.kernels.gather_cached import kernel as cached_kernel
+    from repro_torch.launch.serve import generate
+    from repro_torch.train.train_step import make_prefill_step
+    mods = (kernel, cached_kernel, flash_kernel)
+
+    def reset():
+        for m in mods:
+            m.reset_launches()
+
+    def read():
+        return {k: n for m in mods for k, n in m.LAUNCHES.items()}
+
+    prefill = make_prefill_step(cfg)
+    torch.cuda.synchronize()
+    reset()
+    logits, _ = prefill(params, {"tokens": tokens})
+    torch.cuda.synchronize()
+    alone = read()
+    check(bool(torch.isfinite(logits).all()), "prefill: non-finite logits")
+    check(tuple(logits.shape) == (SERVE_BATCH, 1, cfg.padded_vocab),
+          f"prefill logits {tuple(logits.shape)}")
+    del logits
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset()                                      # counts start here
+    res = generate(cfg, params, tokens, SERVE_NEW, device=DEVICE)
+    launches = read()                            # ... and are read here
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = {k: 0 for k in launches}
+    want["flash_attention_fwd"] = cfg.num_layers
+    check(alone == want, f"one prefill: launches {alone} != {want}")
+    check(launches == want, f"{SERVE}: launches {launches} != {want} (one "
+          f"prefill and 0 per decode step)")
+    ids = res.ids
+    check(tuple(ids.shape) == (SERVE_BATCH, SERVE_NEW + 1),
+          f"ids {tuple(ids.shape)}")
+    check(bool(((ids >= 0) & (ids < cfg.padded_vocab)).all()),
+          "ids out of the vocabulary")
+    n_pf = SERVE_BATCH * SERVE_PROMPT
+    log(f"[6 serve] {SERVE}: batch {SERVE_BATCH} x prompt {SERVE_PROMPT}, "
+        f"{SERVE_NEW} greedy tokens: prefill {res.prefill_ms:.2f} ms "
+        f"({n_pf / res.prefill_ms * 1e3:.0f} tok/s)  decode "
+        f"{res.decode_ms_per_step:.2f} ms/step "
+        f"({SERVE_BATCH / res.decode_ms_per_step * 1e3:.0f} tok/s)  KV cache "
+        f"{res.cache_bytes / 2 ** 20:.1f} MiB (bf16, length "
+        f"{SERVE_PROMPT + SERVE_NEW})  peak memory {peak:.2f} GiB  launches "
+        f"{launches} (one prefill alone: {alone})  ids seq 0 "
+        f"{ids[0, :8].tolist()}...")
+    return launches, res
+
+
+def phase_serve_profile(torch, cfg, params, tokens, res, top: int = 8):
+    """One more prefill and one more decode step under torch.profiler:
+    CUDA kernels by device time, the flash kernel's share, and the
+    device's idle share of the unprofiled prefill / mean decode step of
+    `res`, 1 - kernel ms / that time."""
+    from repro_torch.models.lm import transformer
+    from repro_torch.train.train_step import make_decode_step
+    from repro_torch.train.train_step import make_prefill_step
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
+    out = {}
+    dev, wall = profile_kernels(
+        torch, lambda: out.update(zip(("logits", "pcache"), prefill(
+            params, {"tokens": tokens}))))
+    busy = sum(t for _, t, _ in dev) / 1e3
+    flash = sum(t for k, t, _ in dev if "flash_fwd_kernel" in k) / 1e3
+    check(flash > 0, "the profiled prefill shows no flash kernel")
+    log(f"[6 profile] {SERVE} prefill: kernels {busy:.2f} ms in "
+        f"{sum(n for _, _, n in dev)} launches, flash kernel {flash:.2f} ms "
+        f"(share {flash / busy:.3f}), device idle share "
+        f"{1 - busy / res.prefill_ms:.3f} of the unprofiled prefill "
+        f"{res.prefill_ms:.2f} ms (profiled wall {wall:.2f} ms)")
+    for key, t, n in dev[:top]:
+        log(f"[6 profile] {SERVE} prefill: {t / 1e3:8.3f} ms  {n:4d} calls  "
+            f"{key[:110]}")
+    cache = transformer.init_cache(cfg, SERVE_BATCH, SERVE_PROMPT + 1,
+                                   torch.bfloat16, DEVICE)
+    for key in ("k", "v"):
+        cache[key][:, :, :SERVE_PROMPT] = out["pcache"][key]
+    del out["pcache"]
+    tok = torch.argmax(out["logits"][:, -1], dim=-1, keepdim=True)
+    dev, wall = profile_kernels(
+        torch, lambda: decode(params, cache, tok, SERVE_PROMPT))
+    busy = sum(t for _, t, _ in dev) / 1e3
+    check(not any("flash_fwd_kernel" in k for k, _, _ in dev),
+          "a decode step launched the flash kernel")
+    log(f"[6 profile] {SERVE} decode step: kernels {busy:.2f} ms in "
+        f"{sum(n for _, _, n in dev)} launches, device idle share "
+        f"{1 - busy / res.decode_ms_per_step:.3f} of the unprofiled mean "
+        f"step {res.decode_ms_per_step:.2f} ms (profiled wall {wall:.2f} "
+        f"ms)")
+    for key, t, n in dev[:top]:
+        log(f"[6 profile] {SERVE} decode: {t / 1e3:8.3f} ms  {n:4d} calls  "
+            f"{key[:110]}")
+
+
+def serve_logits(torch, cfg, params, tokens, steps, device):
+    """Prefill, then `steps` greedy decode steps against a float32 cache:
+    the logits of each token, on `device`."""
+    from repro_torch.models.lm import transformer
+    params = transformer.cast_params(cfg, params, device)
+    tokens = tokens.to(device)
+    with torch.no_grad():
+        logits, pcache = transformer.prefill(cfg, params, {"tokens": tokens})
+        B, P = tokens.shape
+        cache = transformer.init_cache(cfg, B, P + steps, torch.float32,
+                                       device)
+        for key in ("k", "v"):
+            cache[key][:, :, :P] = pcache[key]
+        out = [logits[:, -1]]
+        for t in range(steps):
+            tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+            logits, cache = transformer.decode_step(cfg, params, cache, tok,
+                                                    P + t)
+            out.append(logits[:, -1])
+    return [o.cpu() for o in out]
+
+
+def phase_serve_card_vs_cpu(torch, steps: int = 8):
+    """Reduced gemma3-1b in float32, same parameters and prompts, served on
+    the card (the kernel) and on the CPU (its plain version): the prefill
+    and `steps` decode steps' logits through a float32 cache, and the
+    greedy ids of `generate`, whose bf16 cache rounds keys that differ by
+    a float32 ulp to neighbouring bf16 values now and then."""
+    from repro_torch.configs import LM_CONFIGS
+    from repro_torch.launch.serve import generate
+    from repro_torch.models.lm import transformer
+    cfg = LM_CONFIGS["gemma3-1b"].reduced().scaled(dtype="float32")
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    worst = 0.0
+    for a, b in zip(serve_logits(torch, cfg, params, tokens, steps, DEVICE),
+                    serve_logits(torch, cfg, params, tokens, steps, "cpu")):
+        worst = max(worst, float(((a - b).abs() / (b.abs() + 1e-5)).max()))
+        check(torch.allclose(a, b, rtol=1e-4, atol=1e-5),
+              f"serve card vs CPU: max abs err {(a - b).abs().max()}")
+    cpu = generate(cfg, params, tokens, steps, device="cpu")
+    gpu = generate(cfg, params, tokens, steps, device=DEVICE)
+    check(torch.equal(gpu.ids.cpu(), cpu.ids), "serve card vs CPU: ids")
+    log(f"[6 card vs cpu] {cfg.name} float32: prefill + {steps} decode "
+        f"steps, logits within rtol 1e-4 / atol 1e-5 (max |d| / (|cpu| + "
+        f"1e-5) {worst:.3e}); `generate` greedy ids equal "
+        f"{cpu.ids[0].tolist()}")
 
 
 def main() -> int:
@@ -711,21 +1062,32 @@ def main() -> int:
                          ("gat", None)):
         phase_card_vs_cpu(torch, tiny, model, cache)
 
+    del graph, tiny, plan
+    torch.cuda.empty_cache()
+    cfg, params, tokens = serve_model(torch)
+    readings[SERVE] = phase_flash(torch, cfg, params, tokens)
+    runs[SERVE], res = phase_serve(torch, cfg, params, tokens)
+    phase_serve_profile(torch, cfg, params, tokens, res)
+    del params
+    torch.cuda.empty_cache()
+    phase_serve_card_vs_cpu(torch)
+
     kernels = []
     for name in REPLACES:
         by_path = {p: r[name] for p, r in readings.items() if name in r}
-        top = next(iter(by_path))        # graphsage's shapes, else gat's
+        top = next(iter(by_path))        # graphsage's, gat's or the serve's
+        step = "prefill" if top == SERVE else "train step"
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
-            "launches": sum(runs[m][name] for m in RUNS),
-            "launches_by_path": {m: runs[m][name] for m in RUNS},
+            "launches": sum(r[name] for r in runs.values()),
+            "launches_by_path": {p: r[name] for p, r in runs.items()},
             "ok": True, "deterministic": True,
             **{k: by_path[top][k] for k in ("ms", "plain_ms", "bound_ms",
                                             "bound_by", "library_ms")},
             "max_abs_err": max(r["max_abs_err"] for r in by_path.values()),
             "shapes": f"ms, plain_ms, bound_ms, library_ms: sum over the "
-                      f"layers of one {top} train step; max_abs_err: the "
+                      f"launches of one {top} {step}; max_abs_err: the "
                       f"largest at every shape checked",
             "readings_by_path": by_path})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

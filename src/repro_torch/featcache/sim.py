@@ -28,7 +28,7 @@ import numpy as np
 
 from repro_torch import sampling
 from repro_torch.core import partition
-from repro_torch.core.minibatch import build_batch_np
+from repro_torch.core import minibatch
 
 
 # ---------------------------------------------------------------------------
@@ -249,6 +249,7 @@ def policy_access_stream(graph, policy, batch_size, fanouts, n_batches=16,
     ctx = {}
     out = []
     for b in batches[:n_batches]:
-        _, level = build_batch_np(rng, graph, b, fanouts, sampler, ctx=ctx)
+        _, level = minibatch.build_batch_np(rng, graph, b, fanouts, sampler,
+                                            ctx=ctx)
         out.append(level)
     return out

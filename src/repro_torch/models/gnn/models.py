@@ -33,15 +33,7 @@ from repro_torch.configs import GNNConfig
 from repro_torch.core.minibatch import MiniBatch
 from repro_torch.kernels.gather_agg.ops import gather_agg
 from repro_torch.kernels.gather_cached.ops import gather_cached
-
-
-def dense_init(gen: torch.Generator, shape, in_axis: int = -2,
-               dtype=torch.float32) -> torch.Tensor:
-    """LeCun-normal (`repro/models/lm/common.py:11`), drawn from `gen` on
-    the CPU."""
-    fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
-    return torch.randn(shape, generator=gen, dtype=dtype) \
-        * (1.0 / np.sqrt(fan_in))
+from repro_torch.models.lm.common import dense_init
 
 
 class SageLayer(nn.Module):

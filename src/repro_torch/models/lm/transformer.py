@@ -1,0 +1,294 @@
+"""The LM serving path of the generic transformer
+(`repro/models/lm/transformer.py`), dense family only: `init`, the
+prefill / train forward (`apply`, `prefill`), the KV cache and the decode
+step. MoE, RWKV, hybrid SSM, encoder-decoder, M-RoPE, learned positions
+and vision tokens belong to later slices and raise `NotImplementedError`.
+
+Parameters are a dict tree in the reference's layout: layer parameters
+stacked on a leading L axis (the reference builds them with `jax.vmap`),
+weights `(din, dout)` for `x @ W`, so `params_from_jax` / `params_to_jax`
+carry them across without transposes. They are stored float32, and each
+use casts a weight to the compute dtype as the reference does
+(`.astype(dt)`); `cast_params` does that cast once for serving (same
+values; the norm scales stay float32). The reference's sharding
+constraints (`shd.act_*`) are no-ops off a mesh and are dropped. The
+decode step writes the new key and value into the cache in place.
+"""
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Dict
+
+import numpy as np
+import torch
+
+from repro_torch.configs import ModelConfig
+from repro_torch.devices import DeviceLike, resolve_device
+from repro_torch.models.lm.attention import decode_attention, flash_attention
+from repro_torch.models.lm.common import (activation, apply_rope, dense_init,
+                                          embed_init, norm_apply, norm_init,
+                                          rmsnorm)
+
+Params = Dict[str, Any]
+
+_NOT_PORTED = ("moe", "rwkv", "hybrid", "encoder_decoder", "mrope",
+               "learned_pos", "vision_tokens", "mlp_bias")
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    on = [f for f in _NOT_PORTED if getattr(cfg, f)]
+    if on:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(on)} not ported yet (dense LMs only)")
+
+
+def _dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _tree_map(fn: Callable, tree, path=()):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _layer(layers: Params, i: int) -> Params:
+    """Layer i's parameters: views into the stacked tree."""
+    return _tree_map(lambda _, t: t[i], layers)
+
+
+# ---------------------------------------------------------------------------
+# init and parameter transfer
+# ---------------------------------------------------------------------------
+def init(cfg: ModelConfig, generator: torch.Generator, max_seq: int = 4096,
+         device: DeviceLike = None) -> Params:
+    """A float32 parameter tree drawn from `generator` (a CPU generator),
+    on `device` (the card unless given). `max_seq` sizes learned position
+    tables, which no ported config has."""
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    g = generator
+    L, V, d = cfg.num_layers, cfg.padded_vocab, cfg.d_model
+    qd, kvd, ff = cfg.q_dim, cfg.kv_dim, cfg.d_ff
+
+    def stacked(tree):
+        return _tree_map(lambda _, t: t.expand(L, *t.shape).clone(), tree)
+
+    attn = {"wq": dense_init(g, (L, d, qd)), "wk": dense_init(g, (L, d, kvd)),
+            "wv": dense_init(g, (L, d, kvd)), "wo": dense_init(g, (L, qd, d))}
+    if cfg.qkv_bias:
+        attn.update(stacked({"bq": torch.zeros((qd,)),
+                             "bk": torch.zeros((kvd,)),
+                             "bv": torch.zeros((kvd,))}))
+    if cfg.qk_norm:
+        attn.update(stacked({"qnorm": torch.zeros((cfg.head_dim,)),
+                             "knorm": torch.zeros((cfg.head_dim,))}))
+    mlp = {"wg": dense_init(g, (L, d, ff)), "wu": dense_init(g, (L, d, ff)),
+           "wd": dense_init(g, (L, ff, d))}
+    params: Params = {
+        "embed": embed_init(g, (V, d)),
+        "layers": {"norm1": stacked(norm_init(cfg, d)),
+                   "norm2": stacked(norm_init(cfg, d)),
+                   "attn": attn, "mlp": mlp},
+        "final_norm": norm_init(cfg, d),
+    }
+    if not cfg.tie_embeddings:
+        params["head"] = dense_init(g, (d, V))
+    return _tree_map(lambda _, t: t.to(dev), params)
+
+
+def param_count(params: Params) -> int:
+    total = []
+    _tree_map(lambda _, t: total.append(t.numel()), params)
+    return sum(total)
+
+
+def cast_params(cfg: ModelConfig, params: Params,
+                device: DeviceLike = None) -> Params:
+    """The tree on `device` (the card unless given) with every weight in
+    the compute dtype, as each use in the reference casts it; the norms'
+    leaves (any leaf under a key holding "norm") stay float32. A leaf
+    already so is not copied."""
+    dev = resolve_device(device)
+    dt = _dtype(cfg)
+
+    def f(path, t):
+        keep = any("norm" in k for k in path)
+        return t.to(device=dev, dtype=torch.float32 if keep else dt)
+
+    return _tree_map(f, params)
+
+
+def params_from_jax(tree: Params, device: DeviceLike = None) -> Params:
+    """The reference's `init` tree (numpy leaves; layer leaves stacked on
+    a leading L axis) -> the port's tree of tensors on `device` (the card
+    unless given), same values and dtypes."""
+    dev = resolve_device(device)
+    return _tree_map(lambda _, a: torch.from_numpy(np.array(a)).to(dev), tree)
+
+
+def params_to_jax(params: Params) -> Params:
+    """The inverse of `params_from_jax`: numpy leaves in the reference's
+    layout."""
+    return _tree_map(lambda _, t: t.detach().cpu().numpy(), params)
+
+
+# ---------------------------------------------------------------------------
+# blocks
+# ---------------------------------------------------------------------------
+def _qkv(cfg, p, x):
+    """Project to (B,S,H,hd)/(B,S,KH,hd); q and k normed over the head dim
+    when the config has qk_norm."""
+    B, S, _ = x.shape
+    dt = x.dtype
+    q = x @ p["wq"].to(dt)
+    k = x @ p["wk"].to(dt)
+    v = x @ p["wv"].to(dt)
+    if "bq" in p:
+        q = q + p["bq"].to(dt)
+        k = k + p["bk"].to(dt)
+        v = v + p["bv"].to(dt)
+    q = q.reshape(B, S, cfg.num_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.num_kv_heads, cfg.head_dim)
+    if "qnorm" in p:
+        q = rmsnorm(q, p["qnorm"], cfg.norm_eps)
+        k = rmsnorm(k, p["knorm"], cfg.norm_eps)
+    return q, k, v
+
+
+def _attn_train(cfg, p, x, positions, is_global, *, causal=True):
+    """Returns (pre-wo output (B,S,q_dim), (k, v) as stored in a cache:
+    k after RoPE)."""
+    q, k, v = _qkv(cfg, p, x)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = flash_attention(q, k, v, causal=causal, window=cfg.window,
+                          is_global=is_global)
+    B, S = x.shape[:2]
+    return out.reshape(B, S, cfg.q_dim), (k, v)
+
+
+def _mlp(cfg, p, x):
+    """The gated MLP (whisper's biased one is a later slice)."""
+    dt = x.dtype
+    h = activation(cfg.act)(x @ p["wg"].to(dt)) * (x @ p["wu"].to(dt))
+    return h @ p["wd"].to(dt)
+
+
+def _ffn(cfg, p, x):
+    """Returns (out, aux); dense only (the MoE FFN is a later slice)."""
+    return _mlp(cfg, p["mlp"], x), torch.zeros((), device=x.device)
+
+
+def _layer_train(cfg, p, x, positions, is_global, collect=False):
+    """One dense decoder layer; returns (x, aux, {"k", "v"} or None)."""
+    h = norm_apply(cfg, x, p["norm1"])
+    attn_out, (k, v) = _attn_train(cfg, p["attn"], h, positions, is_global)
+    extras = {"k": k, "v": v} if collect else None
+    x = x + attn_out @ p["attn"]["wo"].to(x.dtype)
+    h2 = norm_apply(cfg, x, p["norm2"])
+    ff, aux = _ffn(cfg, p, h2)
+    return x + ff, aux, extras
+
+
+def _embed_tokens(cfg, params, tokens, dtype):
+    """Rows of the embedding in the compute dtype; gemma's tied embeddings
+    are scaled by sqrt(d_model) computed in float32 and cast to the compute
+    dtype first (34.0 in bf16 at d_model 1152, not 33.94)."""
+    x = params["embed"][tokens].to(dtype)
+    if cfg.tie_embeddings:
+        scale = torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
+                             device=x.device).to(dtype)
+        x = x * scale
+    return x
+
+
+# ---------------------------------------------------------------------------
+# full forward (train / prefill)
+# ---------------------------------------------------------------------------
+def apply(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
+    """Prefill-style forward without remat over `batch["tokens"]` (B, S)
+    at positions 0..S-1. Returns (hidden (B,S,d), aux)."""
+    _check_supported(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _embed_tokens(cfg, params, tokens, _dtype(cfg))
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    aux = torch.zeros((), device=x.device)
+    for i in range(cfg.num_layers):
+        x, a, _ = _layer_train(cfg, _layer(params["layers"], i), x,
+                               positions, cfg.is_global_layer(i))
+        aux = aux + a
+    return norm_apply(cfg, x, params["final_norm"]), aux
+
+
+def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
+    """Inference prefill: the forward pass that also materialises the
+    cache. Returns (last-position logits (B, 1, V), {"k", "v"} each
+    (L, B, S, KH, hd) in the compute dtype)."""
+    _check_supported(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = _embed_tokens(cfg, params, tokens, _dtype(cfg))
+    positions = torch.arange(S, device=x.device).expand(B, S)
+    ks, vs = [], []
+    for i in range(cfg.num_layers):
+        x, _, extras = _layer_train(cfg, _layer(params["layers"], i), x,
+                                    positions, cfg.is_global_layer(i),
+                                    collect=True)
+        ks.append(extras["k"])
+        vs.append(extras["v"])
+    x = norm_apply(cfg, x, params["final_norm"])
+    logits = unembed(cfg, params, x[:, -1:])
+    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+
+
+def unembed(cfg: ModelConfig, params: Params, hidden) -> torch.Tensor:
+    head = params["embed"].T if cfg.tie_embeddings else params["head"]
+    logits = hidden @ head.to(hidden.dtype)
+    if cfg.logit_softcap:
+        logits = torch.tanh(logits / cfg.logit_softcap) * cfg.logit_softcap
+    return logits
+
+
+# ---------------------------------------------------------------------------
+# serving: cache init + decode step
+# ---------------------------------------------------------------------------
+def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int,
+               dtype=torch.bfloat16, device: DeviceLike = None) -> Params:
+    _check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.num_layers, batch_size, seq_len, cfg.num_kv_heads,
+             cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def decode_step(cfg: ModelConfig, params: Params, cache: Params, tokens,
+                pos: int):
+    """One token for the whole batch. tokens: (B, 1); pos: int index.
+    Writes the step's k (after RoPE) and v into `cache` at `pos`, in place.
+
+    Returns (logits (B, 1, V), cache)."""
+    _check_supported(cfg)
+    B = tokens.shape[0]
+    x = _embed_tokens(cfg, params, tokens, _dtype(cfg))
+    positions = torch.full((B, 1), pos, device=x.device)
+    for i in range(cfg.num_layers):
+        p = _layer(params["layers"], i)
+        kc, vc = cache["k"][i], cache["v"][i]
+        h = norm_apply(cfg, x, p["norm1"])
+        q, k, v = _qkv(cfg, p["attn"], h)
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+        kc[:, pos] = k[:, 0].to(kc.dtype)
+        vc[:, pos] = v[:, 0].to(vc.dtype)
+        a = decode_attention(q, kc, vc, pos, window=cfg.window,
+                             is_global=cfg.is_global_layer(i))
+        x = x + a.reshape(B, 1, cfg.q_dim) @ p["attn"]["wo"].to(x.dtype)
+        h2 = norm_apply(cfg, x, p["norm2"])
+        ff, _ = _ffn(cfg, p, h2)
+        x = x + ff
+    x = norm_apply(cfg, x, params["final_norm"])
+    return unembed(cfg, params, x), cache

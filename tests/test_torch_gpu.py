@@ -8,13 +8,17 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import GNNConfig, TrainConfig
+from repro_torch.configs import LM_CONFIGS, GNNConfig, TrainConfig
 from repro_torch.core.reorder import prepare
 from repro_torch.graphs import synthetic
 from repro_torch.featcache import gather_cached
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gather_agg import kernel, ref
 from repro_torch.kernels.gather_cached import kernel as cached_kernel
 from repro_torch.kernels.gather_cached.ref import gather_cached_ref
+from repro_torch.launch.serve import generate
+from repro_torch.models.lm import transformer
 from repro_torch.train.gnn_loop import GNNTrainer
 
 pytestmark = pytest.mark.gpu
@@ -276,3 +280,107 @@ def test_cached_card_and_cpu_steps_agree(cuda):
         lg, _ = gpu.train_step(b.to(cuda), tcfg.learning_rate)
         np.testing.assert_allclose(float(lg), float(lc), rtol=1e-4)
     assert cached_kernel.LAUNCHES["gather_cached_fwd"] == before + 5
+
+
+# (B, Sq, Skv, H, KH, D, causal, window, is_global, q_offset): the reduced
+# and the full head dim (16, 256) and one between, GQA 2:1 and 4:1, global
+# and local layers, ragged lengths (tiles of 64 query rows and of 64 / 32
+# keys), a window that ends inside a tile, non-causal, and queries at an
+# offset into a longer key sequence
+FLASH_CASES = [(2, 40, 40, 4, 2, 16, True, 16, True, 0),
+               (2, 47, 47, 4, 2, 16, True, 16, False, 0),
+               (1, 130, 130, 4, 2, 64, True, 50, False, 0),
+               (1, 300, 300, 4, 1, 256, True, 512, True, 0),
+               (2, 257, 257, 4, 1, 256, True, 100, False, 0),
+               (1, 70, 70, 4, 1, 256, False, 30, False, 0),
+               (1, 33, 97, 4, 1, 256, True, 40, False, 64),
+               (1, 65, 65, 2, 2, 100, False, 1 << 30, True, 0)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_attention_matches_plain_version(cuda, case, dtype):
+    """flash_attention_fwd against its plain version on the card, at the
+    reference's tolerances (2e-5 float32, 2e-2 bfloat16); bit-identical
+    relaunch; one count per launch."""
+    B, Sq, Skv, H, KH, D, causal, window, is_global, q_offset = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng((Sq, Skv, D))
+    q, k, v = (torch.as_tensor(rng.normal(size=(B, s, n, D)), dtype=dt,
+                               device=cuda)
+               for s, n in ((Sq, H), (Skv, KH), (Skv, KH)))
+    kw = dict(causal=causal, window=window, is_global=is_global,
+              q_offset=q_offset)
+    before = flash_kernel.LAUNCHES["flash_attention_fwd"]
+    out = flash_kernel.flash_attention_fwd(q, k, v, **kw)
+    assert out.shape == q.shape and out.dtype == dt
+    tol = 2e-5 if dtype == "float32" else 2e-2
+    torch.testing.assert_close(out.float(),
+                               attention_ref(q, k, v, **kw).float(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(out, flash_kernel.flash_attention_fwd(q, k, v, **kw))
+    assert flash_kernel.LAUNCHES["flash_attention_fwd"] == before + 2
+
+
+def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros((1, 8, 4, 16), device=cuda)
+    k = torch.zeros((1, 8, 2, 16), device=cuda)
+    before = dict(flash_kernel.LAUNCHES)
+    bad = [((q.double(), k.double(), k.double()), {}, TypeError),
+           ((q, k.bfloat16(), k), {}, TypeError),
+           ((q, k, k.cpu()), {}, ValueError),
+           ((q.transpose(1, 2), k, k), {}, ValueError),
+           ((q, torch.zeros((1, 8, 3, 16), device=cuda),
+             torch.zeros((1, 8, 3, 16), device=cuda)), {}, ValueError),
+           ((torch.zeros((1, 8, 4, 300), device=cuda),
+             torch.zeros((1, 8, 2, 300), device=cuda),
+             torch.zeros((1, 8, 2, 300), device=cuda)), {}, ValueError),
+           ((q, k, k), {"q_offset": -1}, ValueError)]
+    for args, kw, err in bad:
+        with pytest.raises(err):
+            flash_kernel.flash_attention_fwd(*args, **kw)
+    assert flash_kernel.LAUNCHES == before
+
+
+def _serve_logits(cfg, params, tokens, steps, device):
+    """Prefill, then `steps` greedy decode steps against a float32 cache:
+    the logits of each token, on `device`."""
+    params = transformer.cast_params(cfg, params, device)
+    tokens = tokens.to(device)
+    with torch.no_grad():
+        logits, pcache = transformer.prefill(cfg, params, {"tokens": tokens})
+        B, P = tokens.shape
+        cache = transformer.init_cache(cfg, B, P + steps, torch.float32,
+                                       device)
+        for key in ("k", "v"):
+            cache[key][:, :, :P] = pcache[key]
+        out = [logits[:, -1]]
+        for t in range(steps):
+            tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+            logits, cache = transformer.decode_step(cfg, params, cache, tok,
+                                                    P + t)
+            out.append(logits[:, -1])
+    return [o.cpu() for o in out]
+
+
+def test_generate_on_the_card_matches_the_cpu(cuda):
+    """Reduced gemma3-1b in float32, same parameters and prompts: the
+    prefill logits and 8 decode steps agree within rtol 1e-4 through a
+    float32 cache, and `generate` gives equal greedy ids (its bf16 cache
+    rounds keys that differ by a float32 ulp to neighbouring bf16 values
+    now and then, so its logits are compared only through the ids); the
+    card's prefill launches the kernel once per layer, its decode steps
+    never."""
+    cfg = LM_CONFIGS["gemma3-1b"].reduced().scaled(dtype="float32")
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    for a, b in zip(_serve_logits(cfg, params, tokens, 8, cuda),
+                    _serve_logits(cfg, params, tokens, 8, "cpu")):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    cpu = generate(cfg, params, tokens, 8, device="cpu")
+    flash_kernel.reset_launches()
+    gpu = generate(cfg, params, tokens, 8, device=cuda)
+    assert flash_kernel.LAUNCHES["flash_attention_fwd"] == cfg.num_layers
+    assert torch.equal(gpu.ids.cpu(), cpu.ids)

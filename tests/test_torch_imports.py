@@ -10,11 +10,13 @@ import pytest
 import torch
 
 from repro_torch.batching import BatchStream
-from repro_torch.configs import GNNConfig, TrainConfig
+from repro_torch.configs import LM_CONFIGS, GNNConfig, TrainConfig
 from repro_torch.core.reorder import prepare
 from repro_torch.graphs import synthetic
 from repro_torch.graphs.csr import DeviceGraph
+from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.gather_agg import kernel
+from repro_torch.launch.serve import generate
 from repro_torch.train.gnn_loop import GNNTrainer
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -40,7 +42,30 @@ def test_port_modules_import_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 20          # every slice module was imported
+    assert n_modules >= 52          # every slice module was imported
+
+
+_EACH_FIRST = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = ["repro_torch"] + [m.name for m in pkgutil.walk_packages(
+    repro_torch.__path__, "repro_torch.")]
+for n in names:
+    for m in [m for m in sys.modules if m.split(".")[0] == "repro_torch"]:
+        del sys.modules[m]
+    importlib.import_module(n)
+print(len(names))
+"""
+
+
+def test_each_port_module_imports_first():
+    """No import cycle depends on which module a caller imports first
+    (`repro_torch.models.gnn.models` alone once failed on one)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _EACH_FIRST], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert int(out.stdout.split()[0]) >= 52
 
 
 @pytest.fixture(scope="module")
@@ -48,7 +73,8 @@ def tiny():
     return prepare(synthetic.load("tiny"), oracle=True)
 
 
-@pytest.mark.parametrize("entry", ["trainer", "stream", "device_graph"])
+@pytest.mark.parametrize("entry", ["trainer", "stream", "device_graph",
+                                   "generate"])
 def test_entry_points_raise_without_a_card(tiny, entry, monkeypatch):
     """No card and no explicit device: raise, never fall back."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -60,6 +86,9 @@ def test_entry_points_raise_without_a_card(tiny, entry, monkeypatch):
                        caps=(768, 1024), eval_caps=(768, 1024))
         elif entry == "stream":
             BatchStream(tiny, "comm_rand", 256, (5, 5), (768, 1024))
+        elif entry == "generate":
+            generate(LM_CONFIGS["gemma3-1b"].reduced(), {},
+                     torch.zeros((1, 4), dtype=torch.long), 1)
         else:
             DeviceGraph.from_graph(tiny)
 
@@ -76,3 +105,14 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     assert out.shape == (4, 6) and dx.shape == (9, 6) and dw.shape == (4, 3)
     assert kernel.LAUNCHES == {"gather_agg_fwd": 0, "gather_agg_bwd_dx": 0,
                                "gather_agg_bwd_dw": 0}
+
+
+def test_flash_cpu_tensors_take_the_plain_path_and_count_no_launch():
+    flash_kernel.reset_launches()
+    rng = np.random.default_rng((0, 2))
+    q, k, v = (torch.as_tensor(rng.normal(size=(1, 9, n, 16)),
+                               dtype=torch.float32) for n in (4, 2, 2))
+    out = flash_kernel.flash_attention_fwd(q, k, v, window=4,
+                                           is_global=False)
+    assert out.shape == q.shape
+    assert flash_kernel.LAUNCHES == {"flash_attention_fwd": 0}
