@@ -7,10 +7,11 @@ It drives the port's main paths — COMM-RAND training through `GNNTrainer`
 of GraphSAGE, GCN and GAT, and GraphSAGE reading its layer-0 features
 through the device-resident feature cache (paper §6.5), at the paper's
 full model width on a Reddit-shaped graph; and LM serving (prefill plus
-greedy decode) of gemma3-1b at full width — and holds every hand-written
-kernel of those paths against its plain PyTorch version on the card. Set-up
-builds one `presampled_freq` cache plan (frac 0.2) for the cached run and
-prints its host time. Phases (any failure fails the run, exit code != 0):
+greedy decode) of gemma3-1b and of the mixture-of-experts qwen2-moe-a2.7b
+at full width — and holds every hand-written kernel of those paths against
+its plain PyTorch version on the card. Set-up builds one `presampled_freq`
+cache plan (frac 0.2) for the cached run and prints its host time. Phases
+(any failure fails the run, exit code != 0):
 
   1. device   torch / CUDA versions, the card, its power limit; TF32 off
   2. build    nvcc builds the kernels from `src/repro_torch/csrc`, one
@@ -48,8 +49,8 @@ prints its host time. Phases (any failure fails the run, exit code != 0):
               GAT on the tiny graph, same parameters and batches on the
               card and on the CPU, agree within rtol 1e-4
   6. serve    gemma3-1b at full width (26 layers, d_model 1152, 4 query
-              heads over 1 KV head of 256, vocab 262144; random weights
-              from a seeded CPU generator, cast to bf16 on the card):
+              heads over 1 KV head of 256, vocab 262144; 999,826,048
+              random parameters drawn as phase 7 draws them):
               `flash_attention_fwd` at the q, k, v a real prefill hands
               it at a global layer (5) and a local one (0, window 512),
               at a ragged length (2047) and in float32 — max error
@@ -57,10 +58,11 @@ prints its host time. Phases (any failure fails the run, exit code != 0):
               bit-identical relaunch, ms beside the plain version,
               `scaled_dot_product_attention` (its backend logged) and the
               bound (compulsory bytes at 3.35 TB/s, unmasked-pair flops at
-              the bf16 tensor-core peak, or float32's); then `generate`
-              with batch 4, prompt 2048 and 32 greedy tokens, its launch
+              the bf16 tensor-core peak, or float32's); then one prefill
+              and one decode step alone, and `generate` with batch 4,
+              prompt 2048 and 32 greedy tokens, each with its launch
               counters zeroed just before and read just after: exactly 26
-              per prefill, 0 per decode step, 0 for the gather kernels;
+              per prefill, 0 per decode step, 0 for the other kernels;
               prefill and decode ms and tokens/s, KV cache MiB, peak
               memory, and one prefill and one decode step under
               torch.profiler (kernels by device time and launches, the
@@ -68,6 +70,25 @@ prints its host time. Phases (any failure fails the run, exit code != 0):
               reduced gemma3-1b in float32 served on the card and on the
               CPU: prefill and 8 decode steps' logits within rtol 1e-4,
               greedy ids equal
+  7. serve    qwen2-moe-a2.7b at full width (24 layers, d_model 2048, 16
+              heads over 16 KV heads of 128 with qkv bias, 60 experts
+              top-4 of d_ff 1408 plus a 5632-wide shared expert, vocab
+              152064; 14,316,308,480 parameters drawn by a seeded
+              generator on the card directly in bf16, norms and router
+              float32): `moe_gmm_fwd` at the x and w a real prefill (C
+              688, two dispatch groups of 344) and a real decode step (C
+              8) hand it at layer 0 (gate, up, down), in float32 at both
+              gates, at a ragged shape (C 344, d 2040, f 1400) and at odd
+              widths — max error within 1e-3 x max |plain| (bf16) or
+              2e-5 x max |plain| (float32), bit-identical relaunch, ms
+              beside the plain version, `torch.bmm` and the bound — and
+              `flash_attention_fwd` at layer 0's q, k, v (D 128, 16 heads
+              over 16); then phase 6's serving run through `generate`:
+              exactly 72 gmm and 24 flash launches per prefill, 72 gmm
+              and 0 flash per decode step, 0 gather; the profile (the
+              gmm and flash kernels' shares); reduced qwen2-moe-a2.7b in
+              float32 on the card and on the CPU within rtol 1e-4, greedy
+              ids equal
 
 It prints the `{"kernels": [...]}` line before the last, and as the last
 line `{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
@@ -104,6 +125,13 @@ RUNS = {"graphsage": ("graphsage", 20, 2, 0, False),
 SERVE = "gemma3-1b_serve"
 SERVE_BATCH, SERVE_PROMPT, SERVE_NEW = 4, 2048, 32
 SERVE_GLOBAL, SERVE_LOCAL = 5, 0       # layers whose attention is checked
+# MoE serving: qwen2-moe-a2.7b at the same batch, prompt and tokens
+MOE = "qwen2-moe-a2.7b"
+MOE_SERVE, MOE_DECODE = f"{MOE}_serve", f"{MOE}_decode"
+SERVE_PARAMS = {"gemma3-1b": 999_826_048, MOE: 14_316_308_480}
+# what one reading of each path sums over
+PER = {**{run: "train step" for run in RUNS}, SERVE: "prefill",
+       MOE_SERVE: "prefill", MOE_DECODE: "decode step"}
 DEVICE = "cuda"
 REPLACES = {
     "gather_agg_fwd": "src/repro/kernels/gather_agg/kernel.py:56",
@@ -111,12 +139,14 @@ REPLACES = {
     "gather_agg_bwd_dw": "src/repro/kernels/gather_agg/kernel.py:151",
     "gather_cached_fwd": "src/repro/kernels/gather_cached/kernel.py:44",
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:65",
+    "moe_gmm_fwd": "src/repro/kernels/moe_gmm/kernel.py:27",
 }
 SOURCES = {"gather_agg_fwd": "src/repro_torch/csrc/gather_agg.cu",
            "gather_agg_bwd_dx": "src/repro_torch/csrc/gather_agg.cu",
            "gather_agg_bwd_dw": "src/repro_torch/csrc/gather_agg.cu",
            "gather_cached_fwd": "src/repro_torch/csrc/gather_cached.cu",
-           "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu"}
+           "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
+           "moe_gmm_fwd": "src/repro_torch/csrc/moe_gmm.cu"}
 
 
 def log(msg: str) -> None:
@@ -126,6 +156,24 @@ def log(msg: str) -> None:
 def check(cond: bool, msg: str) -> None:
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+def kernel_modules():
+    """The wrapper modules of every kernel; each counts its launches."""
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.gather_agg import kernel
+    from repro_torch.kernels.gather_cached import kernel as cached_kernel
+    from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+    return (kernel, cached_kernel, flash_kernel, gmm_kernel)
+
+
+def reset_launches() -> None:
+    for m in kernel_modules():
+        m.reset_launches()
+
+
+def read_launches():
+    return {k: n for m in kernel_modules() for k, n in m.LAUNCHES.items()}
 
 
 def reddit_spec():
@@ -495,9 +543,6 @@ def phase_train(torch, graph, trainer, name, reference=None):
     """One run of the main path. A cached run's losses must equal the
     uncached run's on the same batches bit for bit (`reference`: that
     run's losses and step times)."""
-    from repro_torch.kernels.flash_attention import kernel as flash_kernel
-    from repro_torch.kernels.gather_agg import kernel
-    from repro_torch.kernels.gather_cached import kernel as cached_kernel
     _, steps, dx_per_step, dw_per_step, cached = RUNS[name]
     bs = trainer.tcfg.batch_size
     val = graph.val_ids[:EVAL_BATCHES * bs]
@@ -515,9 +560,7 @@ def phase_train(torch, graph, trainer, name, reference=None):
             f"{statistics.median(build_ms):.2f} ms over 5 batches")
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    kernel.reset_launches()                      # counts start here
-    cached_kernel.reset_launches()
-    flash_kernel.reset_launches()
+    reset_launches()                             # counts start here
     losses, step_ms = [], []
     for _ in range(steps):
         t0 = time.perf_counter()
@@ -525,8 +568,7 @@ def phase_train(torch, graph, trainer, name, reference=None):
         step_ms.append((time.perf_counter() - t0) * 1e3)
     ev = trainer.evaluate(val)
     torch.cuda.synchronize()
-    launches = {**kernel.LAUNCHES,               # ... and are read here
-                **cached_kernel.LAUNCHES, **flash_kernel.LAUNCHES}
+    launches = read_launches()                   # ... and are read here
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     skipped = int(trainer.skips)
     log(f"[4 train] {name}: {steps} steps: first loss {losses[0]:.4f}  "
@@ -543,7 +585,7 @@ def phase_train(torch, graph, trainer, name, reference=None):
             "gather_agg_bwd_dx": dx_per_step * steps,
             "gather_agg_bwd_dw": dw_per_step * steps,
             "gather_cached_fwd": steps + n_eval if cached else 0,
-            "flash_attention_fwd": 0}
+            "flash_attention_fwd": 0, "moe_gmm_fwd": 0}
     check(launches == want, f"{name}: launches {launches} != {want}")
     if cached:
         meter = trainer.cache_meter
@@ -673,28 +715,38 @@ def phase_card_vs_cpu(torch, g, model, cache=None):
 # ---------------------------------------------------------------------------
 # phase 6: LM serving (gemma3-1b prefill + greedy decode)
 # ---------------------------------------------------------------------------
-def serve_model(torch):
-    """Full-width gemma3-1b: float32 weights drawn from a seeded CPU
-    generator onto the card, then cast to the compute dtype (bf16) there
-    once, as `generate` would."""
+def serve_model(torch, arch, tag):
+    """Full-width `arch` as the serve CLI draws it: weights from a seeded
+    generator on the card, directly in the compute dtype (bf16; norms and
+    the MoE router float32), one layer slice at a time. Its parameter
+    count must be `SERVE_PARAMS[arch]`."""
     from repro_torch.configs import LM_CONFIGS
     from repro_torch.models.lm import transformer
-    cfg = LM_CONFIGS["gemma3-1b"]
-    t0 = time.perf_counter()
-    params = transformer.init(cfg, torch.Generator().manual_seed(0),
-                              max_seq=SERVE_PROMPT + SERVE_NEW,
-                              device=DEVICE)
-    n = transformer.param_count(params)
-    params = transformer.cast_params(cfg, params, DEVICE)
+    cfg = LM_CONFIGS[arch]
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = transformer.init(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0),
+        max_seq=SERVE_PROMPT + SERVE_NEW, device=DEVICE,
+        dtype=getattr(torch, cfg.dtype))
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    n = transformer.param_count(params)
+    check(n == SERVE_PARAMS[arch], f"{arch}: {n} params, not "
+          f"{SERVE_PARAMS[arch]}")
     tokens = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_PROMPT),
                            generator=torch.Generator().manual_seed(1))
-    log(f"[6 serve] {cfg.name}: {cfg.num_layers} layers, d_model "
+    ffn = (f"{cfg.num_experts} experts top-{cfg.top_k} of d_ff "
+           f"{cfg.moe_d_ff}, shared expert {cfg.shared_d_ff}" if cfg.moe
+           else f"d_ff {cfg.d_ff}")
+    glob = [i for i in range(cfg.num_layers) if cfg.is_global_layer(i)]
+    log(f"[{tag} serve] {cfg.name}: {cfg.num_layers} layers, d_model "
         f"{cfg.d_model}, heads {cfg.num_heads} over {cfg.num_kv_heads} KV "
-        f"of {cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}, "
-        f"window {cfg.window}, global layers "
-        f"{[i for i in range(cfg.num_layers) if cfg.is_global_layer(i)]}: "
-        f"{n} params, init + cast {time.perf_counter() - t0:.1f} s")
+        f"of {cfg.head_dim}{' (qkv bias)' if cfg.qkv_bias else ''}, {ffn}, "
+        f"vocab {cfg.padded_vocab}, RoPE theta {cfg.rope_theta:g}, window "
+        f"{cfg.window}, global layers {glob if cfg.window else 'all'}: {n} "
+        f"params, init {dt:.1f} s ({cfg.dtype} on the card; "
+        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB)")
     return cfg, params, tokens.to(DEVICE)
 
 
@@ -734,7 +786,7 @@ def sdpa_backend(torch, fn) -> str:
     return "/".join(ops) or "unknown"
 
 
-def check_flash(torch, label, q, k, v, kw):
+def check_flash(torch, label, q, k, v, kw, tag="6"):
     """flash_attention_fwd against its plain version at one shape: max
     error (2e-2 bf16, 2e-5 float32, the reference's tolerances), bit-
     identical relaunch, ms, plain ms, SDPA ms and the bound."""
@@ -779,7 +831,7 @@ def check_flash(torch, label, q, k, v, kw):
            "plain_ms": cuda_ms(torch, lambda: ref.attention_ref(
                q, k, v, **kw)),
            "library_ms": cuda_ms(torch, sdpa)}
-    log(f"[6 kernels] flash_attention_fwd {label}: q {tuple(q.shape)} k "
+    log(f"[{tag} kernels] flash_attention_fwd {label}: q {tuple(q.shape)} k "
         f"{tuple(k.shape)} {str(q.dtype)[6:]} {kw}  unmasked pairs per "
         f"head {pairs}  max_abs_err {err:.3e} (tol {tol:.0e})  "
         f"bit-identical relaunch True  ms {got['ms']:.4f}  plain_ms "
@@ -824,107 +876,133 @@ def phase_flash(torch, cfg, params, tokens):
         "shapes": shapes}}
 
 
-def phase_serve(torch, cfg, params, tokens):
+def step_inputs(torch, cfg, logits, pcache):
+    """One decode step's inputs after a prefill of the serving prompt: a
+    bf16 cache one position longer holding the prefill's keys and values,
+    and each sequence's greedy token."""
+    from repro_torch.models.lm import transformer
+    cache = transformer.init_cache(cfg, SERVE_BATCH, SERVE_PROMPT + 1,
+                                   torch.bfloat16, DEVICE)
+    for key in ("k", "v"):
+        cache[key][:, :, :SERVE_PROMPT] = pcache[key]
+    return cache, torch.argmax(logits[:, -1], dim=-1, keepdim=True)
+
+
+def phase_serve(torch, cfg, params, tokens, run, tag, per_prefill,
+                per_step):
     """The serving path through `generate`: batch 4, prompt 2048, 32
-    greedy tokens. A prefill alone makes exactly one flash launch per
-    layer; `generate` (prefill + 32 decode steps) exactly as many, so its
-    decode steps make none; no gather kernel runs."""
-    from repro_torch.kernels.flash_attention import kernel as flash_kernel
-    from repro_torch.kernels.gather_agg import kernel
-    from repro_torch.kernels.gather_cached import kernel as cached_kernel
+    greedy tokens. `per_prefill` / `per_step` ({kernel: launches}, every
+    other kernel 0) are what one prefill and one decode step must launch:
+    each is read alone first (a prefill, then one decode step on its
+    cache), then over `generate`, its counters zeroed just before and read
+    just after: exactly one prefill's and 32 decode steps' worth."""
     from repro_torch.launch.serve import generate
-    from repro_torch.train.train_step import make_prefill_step
-    mods = (kernel, cached_kernel, flash_kernel)
+    from repro_torch.train.train_step import (make_decode_step,
+                                              make_prefill_step)
 
-    def reset():
-        for m in mods:
-            m.reset_launches()
+    def want(per, n=1):
+        return {k: per.get(k, 0) * n for k in read_launches()}
 
-    def read():
-        return {k: n for m in mods for k, n in m.LAUNCHES.items()}
-
-    prefill = make_prefill_step(cfg)
+    prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
     torch.cuda.synchronize()
-    reset()
-    logits, _ = prefill(params, {"tokens": tokens})
+    reset_launches()
+    logits, pcache = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
-    alone = read()
+    alone = read_launches()
     check(bool(torch.isfinite(logits).all()), "prefill: non-finite logits")
     check(tuple(logits.shape) == (SERVE_BATCH, 1, cfg.padded_vocab),
           f"prefill logits {tuple(logits.shape)}")
-    del logits
+    cache, tok = step_inputs(torch, cfg, logits, pcache)
+    del pcache
+    reset_launches()
+    logits, _ = decode(params, cache, tok, SERVE_PROMPT)
+    torch.cuda.synchronize()
+    step = read_launches()
+    check(bool(torch.isfinite(logits).all()), "decode: non-finite logits")
+    del logits, cache
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    reset()                                      # counts start here
+    reset_launches()                             # counts start here
     res = generate(cfg, params, tokens, SERVE_NEW, device=DEVICE)
-    launches = read()                            # ... and are read here
+    launches = read_launches()                   # ... and are read here
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    want = {k: 0 for k in launches}
-    want["flash_attention_fwd"] = cfg.num_layers
-    check(alone == want, f"one prefill: launches {alone} != {want}")
-    check(launches == want, f"{SERVE}: launches {launches} != {want} (one "
-          f"prefill and 0 per decode step)")
+    check(alone == want(per_prefill),
+          f"one prefill: launches {alone} != {want(per_prefill)}")
+    check(step == want(per_step),
+          f"one decode step: launches {step} != {want(per_step)}")
+    total = {k: n + SERVE_NEW * want(per_step)[k]
+             for k, n in want(per_prefill).items()}
+    check(launches == total, f"{run}: launches {launches} != {total} (one "
+          f"prefill and {SERVE_NEW} decode steps)")
     ids = res.ids
     check(tuple(ids.shape) == (SERVE_BATCH, SERVE_NEW + 1),
           f"ids {tuple(ids.shape)}")
     check(bool(((ids >= 0) & (ids < cfg.padded_vocab)).all()),
           "ids out of the vocabulary")
     n_pf = SERVE_BATCH * SERVE_PROMPT
-    log(f"[6 serve] {SERVE}: batch {SERVE_BATCH} x prompt {SERVE_PROMPT}, "
+    log(f"[{tag} serve] {run}: batch {SERVE_BATCH} x prompt {SERVE_PROMPT}, "
         f"{SERVE_NEW} greedy tokens: prefill {res.prefill_ms:.2f} ms "
         f"({n_pf / res.prefill_ms * 1e3:.0f} tok/s)  decode "
         f"{res.decode_ms_per_step:.2f} ms/step "
         f"({SERVE_BATCH / res.decode_ms_per_step * 1e3:.0f} tok/s)  KV cache "
         f"{res.cache_bytes / 2 ** 20:.1f} MiB (bf16, length "
         f"{SERVE_PROMPT + SERVE_NEW})  peak memory {peak:.2f} GiB  launches "
-        f"{launches} (one prefill alone: {alone})  ids seq 0 "
-        f"{ids[0, :8].tolist()}...")
+        f"{launches} (one prefill alone: {alone}; one decode step alone: "
+        f"{step})  ids seq 0 {ids[0, :8].tolist()}...")
     return launches, res
 
 
-def phase_serve_profile(torch, cfg, params, tokens, res, top: int = 8):
+def phase_serve_profile(torch, cfg, params, tokens, res, run, tag, shares,
+                        step_kernels=(), top: int = 8):
     """One more prefill and one more decode step under torch.profiler:
-    CUDA kernels by device time, the flash kernel's share, and the
-    device's idle share of the unprofiled prefill / mean decode step of
-    `res`, 1 - kernel ms / that time."""
-    from repro_torch.models.lm import transformer
+    CUDA kernels by device time, the share of each hand-written kernel of
+    `shares` ({label: a substring of its CUDA name}; each must show in the
+    prefill), and the device's idle share of the unprofiled prefill / mean
+    decode step of `res`, 1 - kernel ms / that time. The decode step must
+    show each label of `step_kernels` and no flash kernel."""
     from repro_torch.train.train_step import make_decode_step
     from repro_torch.train.train_step import make_prefill_step
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
     out = {}
+
+    def share(dev, busy):
+        got = {label: sum(t for k, t, _ in dev if sub in k) / 1e3
+               for label, sub in shares.items()}
+        return got, ", ".join(f"{label} {ms:.2f} ms (share {ms / busy:.3f})"
+                              for label, ms in got.items())
+
     dev, wall = profile_kernels(
         torch, lambda: out.update(zip(("logits", "pcache"), prefill(
             params, {"tokens": tokens}))))
     busy = sum(t for _, t, _ in dev) / 1e3
-    flash = sum(t for k, t, _ in dev if "flash_fwd_kernel" in k) / 1e3
-    check(flash > 0, "the profiled prefill shows no flash kernel")
-    log(f"[6 profile] {SERVE} prefill: kernels {busy:.2f} ms in "
-        f"{sum(n for _, _, n in dev)} launches, flash kernel {flash:.2f} ms "
-        f"(share {flash / busy:.3f}), device idle share "
+    got, text = share(dev, busy)
+    for label, ms in got.items():
+        check(ms > 0, f"the profiled prefill shows no {label} kernel")
+    log(f"[{tag} profile] {run} prefill: kernels {busy:.2f} ms in "
+        f"{sum(n for _, _, n in dev)} launches, {text}, device idle share "
         f"{1 - busy / res.prefill_ms:.3f} of the unprofiled prefill "
         f"{res.prefill_ms:.2f} ms (profiled wall {wall:.2f} ms)")
     for key, t, n in dev[:top]:
-        log(f"[6 profile] {SERVE} prefill: {t / 1e3:8.3f} ms  {n:4d} calls  "
-            f"{key[:110]}")
-    cache = transformer.init_cache(cfg, SERVE_BATCH, SERVE_PROMPT + 1,
-                                   torch.bfloat16, DEVICE)
-    for key in ("k", "v"):
-        cache[key][:, :, :SERVE_PROMPT] = out["pcache"][key]
-    del out["pcache"]
-    tok = torch.argmax(out["logits"][:, -1], dim=-1, keepdim=True)
+        log(f"[{tag} profile] {run} prefill: {t / 1e3:8.3f} ms  {n:4d} "
+            f"calls  {key[:110]}")
+    cache, tok = step_inputs(torch, cfg, out["logits"], out.pop("pcache"))
     dev, wall = profile_kernels(
         torch, lambda: decode(params, cache, tok, SERVE_PROMPT))
     busy = sum(t for _, t, _ in dev) / 1e3
     check(not any("flash_fwd_kernel" in k for k, _, _ in dev),
           "a decode step launched the flash kernel")
-    log(f"[6 profile] {SERVE} decode step: kernels {busy:.2f} ms in "
-        f"{sum(n for _, _, n in dev)} launches, device idle share "
+    got, text = share(dev, busy)
+    for label in step_kernels:
+        check(got[label] > 0, f"the profiled decode step shows no {label} "
+              f"kernel")
+    log(f"[{tag} profile] {run} decode step: kernels {busy:.2f} ms in "
+        f"{sum(n for _, _, n in dev)} launches, {text}, device idle share "
         f"{1 - busy / res.decode_ms_per_step:.3f} of the unprofiled mean "
         f"step {res.decode_ms_per_step:.2f} ms (profiled wall {wall:.2f} "
         f"ms)")
     for key, t, n in dev[:top]:
-        log(f"[6 profile] {SERVE} decode: {t / 1e3:8.3f} ms  {n:4d} calls  "
-            f"{key[:110]}")
+        log(f"[{tag} profile] {run} decode: {t / 1e3:8.3f} ms  {n:4d} calls"
+            f"  {key[:110]}")
 
 
 def serve_logits(torch, cfg, params, tokens, steps, device):
@@ -949,16 +1027,17 @@ def serve_logits(torch, cfg, params, tokens, steps, device):
     return [o.cpu() for o in out]
 
 
-def phase_serve_card_vs_cpu(torch, steps: int = 8):
-    """Reduced gemma3-1b in float32, same parameters and prompts, served on
-    the card (the kernel) and on the CPU (its plain version): the prefill
-    and `steps` decode steps' logits through a float32 cache, and the
-    greedy ids of `generate`, whose bf16 cache rounds keys that differ by
-    a float32 ulp to neighbouring bf16 values now and then."""
+def phase_serve_card_vs_cpu(torch, arch, tag, steps: int = 8):
+    """The reduced config of `arch` in float32, same parameters and
+    prompts, served on the card (the kernels) and on the CPU (their plain
+    versions): the prefill and `steps` decode steps' logits through a
+    float32 cache, and the greedy ids of `generate`, whose bf16 cache
+    rounds keys that differ by a float32 ulp to neighbouring bf16 values
+    now and then."""
     from repro_torch.configs import LM_CONFIGS
     from repro_torch.launch.serve import generate
     from repro_torch.models.lm import transformer
-    cfg = LM_CONFIGS["gemma3-1b"].reduced().scaled(dtype="float32")
+    cfg = LM_CONFIGS[arch].reduced().scaled(dtype="float32")
     params = transformer.init(cfg, torch.Generator().manual_seed(0),
                               device="cpu")
     tokens = torch.randint(0, cfg.vocab_size, (2, 40),
@@ -972,10 +1051,137 @@ def phase_serve_card_vs_cpu(torch, steps: int = 8):
     cpu = generate(cfg, params, tokens, steps, device="cpu")
     gpu = generate(cfg, params, tokens, steps, device=DEVICE)
     check(torch.equal(gpu.ids.cpu(), cpu.ids), "serve card vs CPU: ids")
-    log(f"[6 card vs cpu] {cfg.name} float32: prefill + {steps} decode "
+    log(f"[{tag} card vs cpu] {cfg.name} float32: prefill + {steps} decode "
         f"steps, logits within rtol 1e-4 / atol 1e-5 (max |d| / (|cpu| + "
         f"1e-5) {worst:.3e}); `generate` greedy ids equal "
         f"{cpu.ids[0].tolist()}")
+
+
+# ---------------------------------------------------------------------------
+# phase 7: MoE serving (qwen2-moe-a2.7b prefill + greedy decode)
+# ---------------------------------------------------------------------------
+def capture_gmm(torch, cfg, params, tokens):
+    """The (x, w) a real prefill and a real decode step (position 2048, on
+    the prefill's cache) hand `moe_gmm` at layer 0 (gate, up, down),
+    taken by wrapping the function the MoE layer calls (these runs are
+    not counted). Each pass must call it 3 times per layer."""
+    from repro_torch.models.lm import moe, transformer
+    real, seen, n = moe.moe_gmm, [], [0]
+
+    def spy(x, w):
+        if n[0] < 3:
+            seen.append((x.clone(), w))
+        n[0] += 1
+        return real(x, w)
+
+    got = {}
+    moe.moe_gmm = spy
+    try:
+        with torch.no_grad():
+            logits, pcache = transformer.prefill(cfg, params,
+                                                 {"tokens": tokens})
+            check(n[0] == 3 * cfg.num_layers, f"prefill: {n[0]} gmm calls")
+            got["prefill"], n[0] = seen[:], 0
+            seen.clear()
+            cache, tok = step_inputs(torch, cfg, logits, pcache)
+            del pcache
+            transformer.decode_step(cfg, params, cache, tok, SERVE_PROMPT)
+            check(n[0] == 3 * cfg.num_layers, f"decode: {n[0]} gmm calls")
+            got["decode"] = seen[:]
+    finally:
+        moe.moe_gmm = real
+    return got
+
+
+def check_gmm(torch, label, x, w):
+    """moe_gmm_fwd against its plain version at one shape: max error within
+    1e-3 * max |plain| (bf16 inputs) or 2e-5 * max |plain| (float32),
+    bit-identical relaunch, ms, plain ms, `torch.bmm` ms (cuBLAS, output
+    in the input dtype) and the bound."""
+    from repro_torch.kernels.moe_gmm import kernel, ref
+    E, C, d = x.shape
+    f = w.shape[2]
+    out = kernel.moe_gmm_fwd(x, w)
+    want = ref.moe_gmm_ref(x, w)
+    err = (out - want).abs().max().item()
+    scale = want.abs().max().item()
+    rel = 1e-3 if x.dtype == torch.bfloat16 else 2e-5
+    check(bool(torch.isfinite(out).all()), f"gmm {label}: non-finite")
+    check(err <= rel * scale, f"gmm {label}: max abs err {err} > {rel} * "
+          f"{scale}")
+    check(torch.equal(out, kernel.moe_gmm_fwd(x, w)),
+          f"gmm {label}: differs between launches")
+    lib_err = (torch.bmm(x, w).float() - want).abs().max().item()
+    peak = BF16_FLOPS_PER_S if x.dtype == torch.bfloat16 else \
+        F32_FLOPS_PER_S
+    b_ms, b_by = _bound_ms(x.numel() * x.element_size()
+                           + w.numel() * w.element_size() + E * C * f * 4,
+                           2.0 * E * C * d * f, peak)
+    got = {"max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+           "ms": cuda_ms(torch, lambda: kernel.moe_gmm_fwd(x, w)),
+           "plain_ms": cuda_ms(torch, lambda: ref.moe_gmm_ref(x, w)),
+           "library_ms": cuda_ms(torch, lambda: torch.bmm(x, w))}
+    log(f"[7 kernels] moe_gmm_fwd {label}: x {tuple(x.shape)} w "
+        f"{tuple(w.shape)} {str(x.dtype)[6:]}  max_abs_err {err:.3e} (tol "
+        f"{rel:.0e} x max |plain| {scale:.3e})  bit-identical relaunch True"
+        f"  ms {got['ms']:.4f}  plain_ms {got['plain_ms']:.4f}  library_ms "
+        f"{got['library_ms']:.4f} (torch.bmm, err {lib_err:.3e})  bound_ms "
+        f"{b_ms:.4f} ({b_by}; {2.0 * E * C * d * f / got['ms'] / 1e9:.1f} "
+        f"TFLOP/s)")
+    return got
+
+
+def phase_moe_kernels(torch, cfg, params, tokens):
+    """moe_gmm_fwd at the x and w a real prefill (C 688: 2 groups of 344)
+    and a real decode step (C 8) hand it at layer 0, gate, up and down; in
+    float32 at the prefill's and the decode step's gate; at a ragged shape
+    (C 344, d 2040, f 1400: no tile divides d or f) and at odd widths (the
+    element-wise load path); then flash_attention_fwd at layer 0's real
+    q, k, v. Returns the readings of one prefill and of one decode step
+    (every layer's launches have layer 0's shapes: ms, plain, library and
+    bound summed over the 3 x 24), each shape's beside them."""
+    got = capture_gmm(torch, cfg, params, tokens)
+    shapes = {}
+    for path, calls in got.items():
+        for name, (x, w) in zip(("gate", "up", "down"), calls):
+            shapes[f"{path} {name}"] = check_gmm(
+                torch, f"{path} layer 0 {name}", x, w)
+    for path in ("prefill", "decode"):
+        x, w = got[path][0]
+        shapes[f"{path} gate float32"] = check_gmm(
+            torch, f"{path} layer 0 gate, float32", x.float(), w.float())
+    x, w = got["prefill"][0]
+    shapes["ragged"] = check_gmm(
+        torch, "ragged, prefill gate cut to C 344, d 2040, f 1400",
+        x[:, :344, :2040].contiguous(), w[:, :2040, :1400].contiguous())
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    shapes["odd widths"] = check_gmm(
+        torch, "odd widths (element-wise loads)",
+        torch.randn((4, 344, 1001), generator=gen, device=DEVICE,
+                    dtype=torch.bfloat16),
+        torch.randn((4, 1001, 703), generator=gen, device=DEVICE,
+                    dtype=torch.bfloat16))
+    del got, x, w
+    readings = {}
+    for path, run in (("prefill", MOE_SERVE), ("decode", MOE_DECODE)):
+        per = [shapes[f"{path} {n}"] for n in ("gate", "up", "down")]
+        readings[run] = {"moe_gmm_fwd": {
+            **{k: cfg.num_layers * sum(r[k] for r in per)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
+            "bound_by": "/".join(sorted({r["bound_by"] for r in per})),
+            "shapes": shapes if path == "prefill" else {
+                k: v for k, v in shapes.items() if k.startswith(path)}}}
+    seen = capture_attention(torch, cfg, params, tokens, (0,))
+    q, k, v, kw = seen[0]
+    fl = check_flash(torch, f"{MOE} layer 0", q, k, v,
+                     dict(kw, q_offset=0), tag="7")
+    readings[MOE_SERVE]["flash_attention_fwd"] = {
+        **{key: cfg.num_layers * fl[key]
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")},
+        "max_abs_err": fl["max_abs_err"], "bound_by": fl["bound_by"],
+        "shapes": {"layer 0": fl}}
+    return readings
 
 
 def main() -> int:
@@ -1064,19 +1270,35 @@ def main() -> int:
 
     del graph, tiny, plan
     torch.cuda.empty_cache()
-    cfg, params, tokens = serve_model(torch)
+    cfg, params, tokens = serve_model(torch, "gemma3-1b", "6")
     readings[SERVE] = phase_flash(torch, cfg, params, tokens)
-    runs[SERVE], res = phase_serve(torch, cfg, params, tokens)
-    phase_serve_profile(torch, cfg, params, tokens, res)
+    runs[SERVE], res = phase_serve(
+        torch, cfg, params, tokens, SERVE, "6",
+        {"flash_attention_fwd": cfg.num_layers}, {})
+    phase_serve_profile(torch, cfg, params, tokens, res, SERVE, "6",
+                        {"flash": "flash_fwd_kernel"})
     del params
     torch.cuda.empty_cache()
-    phase_serve_card_vs_cpu(torch)
+    phase_serve_card_vs_cpu(torch, "gemma3-1b", "6")
+
+    cfg, params, tokens = serve_model(torch, MOE, "7")
+    readings.update(phase_moe_kernels(torch, cfg, params, tokens))
+    runs[MOE_SERVE], res = phase_serve(
+        torch, cfg, params, tokens, MOE_SERVE, "7",
+        {"flash_attention_fwd": cfg.num_layers,
+         "moe_gmm_fwd": 3 * cfg.num_layers},
+        {"moe_gmm_fwd": 3 * cfg.num_layers})
+    phase_serve_profile(torch, cfg, params, tokens, res, MOE_SERVE, "7",
+                        {"flash": "flash_fwd_kernel",
+                         "moe_gmm": "gmm_bf16_kernel"}, ("moe_gmm",))
+    del params
+    torch.cuda.empty_cache()
+    phase_serve_card_vs_cpu(torch, MOE, "7")
 
     kernels = []
     for name in REPLACES:
         by_path = {p: r[name] for p, r in readings.items() if name in r}
-        top = next(iter(by_path))        # graphsage's, gat's or the serve's
-        step = "prefill" if top == SERVE else "train step"
+        top = next(iter(by_path))  # the first run whose readings it has
         kernels.append({
             "name": name, "route": "cuda", "source": SOURCES[name],
             "replaces": REPLACES[name],
@@ -1087,7 +1309,7 @@ def main() -> int:
                                             "bound_by", "library_ms")},
             "max_abs_err": max(r["max_abs_err"] for r in by_path.values()),
             "shapes": f"ms, plain_ms, bound_ms, library_ms: sum over the "
-                      f"launches of one {top} {step}; max_abs_err: the "
+                      f"launches of one {top} {PER[top]}; max_abs_err: the "
                       f"largest at every shape checked",
             "readings_by_path": by_path})
     log(f"[done] {time.perf_counter() - t_start:.1f} s")

@@ -3,7 +3,8 @@ paper's model configs: GraphSAGE (`repro/configs/graphsage.py`), and GCN
 and GAT at the same widths (`repro/configs/gcn.py`, `gat.py`). The LM
 side's `ModelConfig` (`repro/configs/base.py:22-132`, copied whole) and
 the LM configs ported so far (`LM_CONFIGS`: gemma3-1b,
-`repro/configs/gemma3_1b.py`).
+`repro/configs/gemma3_1b.py`; qwen2-moe-a2.7b,
+`repro/configs/qwen2_moe_a27b.py`).
 
 `GNNConfig` drops the reference's `agg_impl` knob: the port dispatches the
 gather-aggregate by the tensor's device (the hand-written kernel on CUDA,
@@ -204,4 +205,27 @@ GEMMA3_1B = ModelConfig(
     act="gelu",
 )
 
-LM_CONFIGS = {c.name: c for c in (GEMMA3_1B,)}
+# qwen2-moe-a2.7b [moe] — 60 routed experts top-4 + shared expert.
+# [hf:Qwen/Qwen1.5-MoE-A2.7B] (`repro/configs/qwen2_moe_a27b.py`)
+QWEN2_MOE_A27B = ModelConfig(
+    name="qwen2-moe-a2.7b",
+    family="moe",
+    num_layers=24,
+    d_model=2048,
+    num_heads=16,
+    num_kv_heads=16,
+    head_dim=128,
+    d_ff=1408,                    # = moe expert ff (per assignment)
+    vocab_size=151936,
+    attention="full",
+    qkv_bias=True,
+    rope_theta=1_000_000.0,
+    moe=True,
+    num_experts=60,
+    top_k=4,
+    moe_d_ff=1408,
+    shared_d_ff=5632,             # "4 shared" = one shared expert of 4x width
+    act="silu",
+)
+
+LM_CONFIGS = {c.name: c for c in (GEMMA3_1B, QWEN2_MOE_A27B)}

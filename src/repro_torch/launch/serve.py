@@ -6,11 +6,17 @@ prefill and per-step decode timings and the cache's size.
         --device cpu                        # reduced widths, on the CPU
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
         --no-reduced --batch 4 --prompt-len 2048 --tokens 32   # the card
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch qwen2-moe-a2.7b --no-reduced --batch 4 --prompt-len 2048
 
 The prefill's attention runs the hand-written flash-attention kernel on
-the card (`repro_torch.kernels.flash_attention`). Unlike the reference's
-CLI, whose `--reduced` cannot be switched off, `--no-reduced` serves the
-config at full width. Parameters are random, drawn from `--seed`.
+the card (`repro_torch.kernels.flash_attention`), and an MoE model's
+expert matmuls the hand-written grouped matmul (`kernels.moe_gmm`), in
+the prefill and in every decode step. Unlike the reference's CLI, whose
+`--reduced` cannot be switched off, `--no-reduced` serves the config at
+full width. Parameters are random, drawn from `--seed` by a generator on
+the serving device, directly in the compute dtype (qwen2-moe-a2.7b's
+float32 tree, 57 GB, would not fit beside its cast).
 """
 from __future__ import annotations
 
@@ -114,8 +120,9 @@ def main(argv=None):
     if args.reduced:
         cfg = cfg.reduced()
     total = args.prompt_len + args.tokens
-    params = transformer.init(cfg, torch.Generator().manual_seed(args.seed),
-                              max_seq=max(total, 64), device=dev)
+    params = transformer.init(
+        cfg, torch.Generator(device=dev).manual_seed(args.seed),
+        max_seq=max(total, 64), device=dev, dtype=getattr(torch, cfg.dtype))
     tokens = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt_len),
                            generator=torch.Generator().manual_seed(1))
     gen = None

@@ -1,7 +1,7 @@
 """Shared LM building blocks (`repro/models/lm/common.py`): norms,
-activations, RoPE, init. Init draws from an explicit CPU `torch.Generator`
-(the numbers differ from JAX's threefry stream; parity tests hand both
-sides the same numpy parameters)."""
+activations, RoPE, init. Init draws from an explicit `torch.Generator`, on
+the generator's own device (the numbers differ from JAX's threefry stream;
+parity tests hand both sides the same numpy parameters)."""
 from __future__ import annotations
 
 import math
@@ -16,15 +16,16 @@ import torch.nn.functional as F
 def dense_init(gen: torch.Generator, shape, in_axis: int = -2,
                dtype=torch.float32) -> torch.Tensor:
     """LeCun-normal in float32 (params are stored float32, computed in the
-    config's dtype), drawn from `gen` on the CPU."""
+    config's dtype), drawn from `gen` on its device."""
     fan_in = shape[in_axis] if len(shape) > 1 else shape[0]
-    return torch.randn(shape, generator=gen, dtype=dtype).mul_(
-        1.0 / math.sqrt(fan_in))
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=gen.device).mul_(1.0 / math.sqrt(fan_in))
 
 
 def embed_init(gen: torch.Generator, shape,
                dtype=torch.float32) -> torch.Tensor:
-    return torch.randn(shape, generator=gen, dtype=dtype).mul_(0.02)
+    return torch.randn(shape, generator=gen, dtype=dtype,
+                       device=gen.device).mul_(0.02)
 
 
 # ---------------------------------------------------------------------------

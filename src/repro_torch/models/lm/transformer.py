@@ -1,8 +1,8 @@
 """The LM serving path of the generic transformer
-(`repro/models/lm/transformer.py`), dense family only: `init`, the
+(`repro/models/lm/transformer.py`), dense and MoE families: `init`, the
 prefill / train forward (`apply`, `prefill`), the KV cache and the decode
-step. MoE, RWKV, hybrid SSM, encoder-decoder, M-RoPE, learned positions
-and vision tokens belong to later slices and raise `NotImplementedError`.
+step. RWKV, hybrid SSM, encoder-decoder, M-RoPE, learned positions and
+vision tokens belong to later slices and raise `NotImplementedError`.
 
 Parameters are a dict tree in the reference's layout: layer parameters
 stacked on a leading L axis (the reference builds them with `jax.vmap`),
@@ -10,9 +10,12 @@ weights `(din, dout)` for `x @ W`, so `params_from_jax` / `params_to_jax`
 carry them across without transposes. They are stored float32, and each
 use casts a weight to the compute dtype as the reference does
 (`.astype(dt)`); `cast_params` does that cast once for serving (same
-values; the norm scales stay float32). The reference's sharding
-constraints (`shd.act_*`) are no-ops off a mesh and are dropped. The
-decode step writes the new key and value into the cache in place.
+values; the norm scales and the MoE router stay float32, as the
+reference keeps them). `init(dtype=)` builds the tree in the compute
+dtype directly, for a model whose float32 tree would not fit. The
+reference's sharding constraints (`shd.act_*`) are no-ops off a mesh and
+are dropped. The decode step writes the new key and value into the cache
+in place.
 """
 from __future__ import annotations
 
@@ -28,18 +31,20 @@ from repro_torch.models.lm.attention import decode_attention, flash_attention
 from repro_torch.models.lm.common import (activation, apply_rope, dense_init,
                                           embed_init, norm_apply, norm_init,
                                           rmsnorm)
+from repro_torch.models.lm.moe import moe_ffn, moe_shapes
 
 Params = Dict[str, Any]
 
-_NOT_PORTED = ("moe", "rwkv", "hybrid", "encoder_decoder", "mrope",
-               "learned_pos", "vision_tokens", "mlp_bias")
+_NOT_PORTED = ("rwkv", "hybrid", "encoder_decoder", "mrope", "learned_pos",
+               "vision_tokens", "mlp_bias")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     on = [f for f in _NOT_PORTED if getattr(cfg, f)]
     if on:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(on)} not ported yet (dense LMs only)")
+            f"{cfg.name}: {', '.join(on)} not ported yet (dense and MoE "
+            f"LMs only)")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -52,6 +57,13 @@ def _tree_map(fn: Callable, tree, path=()):
     return fn(path, tree)
 
 
+def _keeps_float32(path) -> bool:
+    """Leaves the compute dtype never rounds: the norms' (any key holding
+    "norm") and the MoE router, whose product the reference takes in
+    float32 (`repro/models/lm/moe.py:76`)."""
+    return any("norm" in k for k in path) or path[-1] == "router"
+
+
 def _layer(layers: Params, i: int) -> Params:
     """Layer i's parameters: views into the stacked tree."""
     return _tree_map(lambda _, t: t[i], layers)
@@ -61,40 +73,70 @@ def _layer(layers: Params, i: int) -> Params:
 # init and parameter transfer
 # ---------------------------------------------------------------------------
 def init(cfg: ModelConfig, generator: torch.Generator, max_seq: int = 4096,
-         device: DeviceLike = None) -> Params:
-    """A float32 parameter tree drawn from `generator` (a CPU generator),
-    on `device` (the card unless given). `max_seq` sizes learned position
-    tables, which no ported config has."""
+         device: DeviceLike = None, dtype: torch.dtype = None) -> Params:
+    """A parameter tree drawn from `generator` (on the CPU or the card), on
+    `device` (the card unless given). `max_seq` sizes learned position
+    tables, which no ported config has.
+
+    Float32 unless `dtype` is given. With `dtype`, every leaf but the
+    norms and the router (which stay float32, as `cast_params` keeps them)
+    is stored in that dtype. Each stacked layer leaf is drawn one layer
+    slice at a time into its place on `device`: the peak is the tree plus
+    one float32 slice (at qwen2-moe-a2.7b, an expert tensor's 0.69 GB),
+    not a float32 tree beside the cast one."""
     _check_supported(cfg)
     dev = resolve_device(device)
     g = generator
     L, V, d = cfg.num_layers, cfg.padded_vocab, cfg.d_model
     qd, kvd, ff = cfg.q_dim, cfg.kv_dim, cfg.d_ff
 
-    def stacked(tree):
-        return _tree_map(lambda _, t: t.expand(L, *t.shape).clone(), tree)
+    def leaf_dtype(path):
+        keep = dtype is None or _keeps_float32(path)
+        return torch.float32 if keep else dtype
 
-    attn = {"wq": dense_init(g, (L, d, qd)), "wk": dense_init(g, (L, d, kvd)),
-            "wv": dense_init(g, (L, d, kvd)), "wo": dense_init(g, (L, qd, d))}
+    def place(path, t):
+        return t.to(device=dev, dtype=leaf_dtype(path))
+
+    def dense(path, shape):
+        """A stacked (L, ...) LeCun-normal leaf."""
+        out = torch.empty(shape, dtype=leaf_dtype(path), device=dev)
+        for i in range(shape[0]):
+            out[i].copy_(dense_init(g, shape[1:]))
+        return out
+
+    def stacked(path, tree):
+        return _tree_map(lambda p, t: place(path + p, t.expand(
+            L, *t.shape).clone()), tree)
+
+    attn = {k: dense(("attn", k), s) for k, s in (
+        ("wq", (L, d, qd)), ("wk", (L, d, kvd)), ("wv", (L, d, kvd)),
+        ("wo", (L, qd, d)))}
     if cfg.qkv_bias:
-        attn.update(stacked({"bq": torch.zeros((qd,)),
-                             "bk": torch.zeros((kvd,)),
-                             "bv": torch.zeros((kvd,))}))
+        attn.update(stacked(("attn",), {"bq": torch.zeros((qd,)),
+                                        "bk": torch.zeros((kvd,)),
+                                        "bv": torch.zeros((kvd,))}))
     if cfg.qk_norm:
-        attn.update(stacked({"qnorm": torch.zeros((cfg.head_dim,)),
+        attn.update(stacked(("attn",),
+                            {"qnorm": torch.zeros((cfg.head_dim,)),
                              "knorm": torch.zeros((cfg.head_dim,))}))
-    mlp = {"wg": dense_init(g, (L, d, ff)), "wu": dense_init(g, (L, d, ff)),
-           "wd": dense_init(g, (L, ff, d))}
+    layers: Params = {"norm1": stacked(("norm1",), norm_init(cfg, d)),
+                      "norm2": stacked(("norm2",), norm_init(cfg, d)),
+                      "attn": attn}
+    if cfg.moe:
+        layers["moe"] = {k: dense(("moe", k), (L, *s))
+                         for k, s in moe_shapes(cfg).items()}
+    else:
+        layers["mlp"] = {k: dense(("mlp", k), s) for k, s in (
+            ("wg", (L, d, ff)), ("wu", (L, d, ff)), ("wd", (L, ff, d)))}
     params: Params = {
-        "embed": embed_init(g, (V, d)),
-        "layers": {"norm1": stacked(norm_init(cfg, d)),
-                   "norm2": stacked(norm_init(cfg, d)),
-                   "attn": attn, "mlp": mlp},
-        "final_norm": norm_init(cfg, d),
+        "embed": place(("embed",), embed_init(g, (V, d))),
+        "layers": layers,
+        "final_norm": _tree_map(lambda p, t: place(("final_norm",) + p, t),
+                                norm_init(cfg, d)),
     }
     if not cfg.tie_embeddings:
-        params["head"] = dense_init(g, (d, V))
-    return _tree_map(lambda _, t: t.to(dev), params)
+        params["head"] = place(("head",), dense_init(g, (d, V)))
+    return params
 
 
 def param_count(params: Params) -> int:
@@ -107,13 +149,13 @@ def cast_params(cfg: ModelConfig, params: Params,
                 device: DeviceLike = None) -> Params:
     """The tree on `device` (the card unless given) with every weight in
     the compute dtype, as each use in the reference casts it; the norms'
-    leaves (any leaf under a key holding "norm") stay float32. A leaf
-    already so is not copied."""
+    leaves (any leaf under a key holding "norm") and the MoE router stay
+    float32. A leaf already so is not copied."""
     dev = resolve_device(device)
     dt = _dtype(cfg)
 
     def f(path, t):
-        keep = any("norm" in k for k in path)
+        keep = _keeps_float32(path)
         return t.to(device=dev, dtype=torch.float32 if keep else dt)
 
     return _tree_map(f, params)
@@ -177,12 +219,17 @@ def _mlp(cfg, p, x):
 
 
 def _ffn(cfg, p, x):
-    """Returns (out, aux); dense only (the MoE FFN is a later slice)."""
+    """Returns (out, aux): the MoE FFN over the (B * S, d) tokens, or the
+    gated MLP."""
+    if cfg.moe:
+        B, S, d = x.shape
+        y, aux = moe_ffn(x.reshape(B * S, d), p["moe"], cfg)
+        return y.reshape(B, S, d), aux
     return _mlp(cfg, p["mlp"], x), torch.zeros((), device=x.device)
 
 
 def _layer_train(cfg, p, x, positions, is_global, collect=False):
-    """One dense decoder layer; returns (x, aux, {"k", "v"} or None)."""
+    """One decoder layer; returns (x, aux, {"k", "v"} or None)."""
     h = norm_apply(cfg, x, p["norm1"])
     attn_out, (k, v) = _attn_train(cfg, p["attn"], h, positions, is_global)
     extras = {"k": k, "v": v} if collect else None

@@ -17,6 +17,8 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gather_agg import kernel, ref
 from repro_torch.kernels.gather_cached import kernel as cached_kernel
 from repro_torch.kernels.gather_cached.ref import gather_cached_ref
+from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 from repro_torch.launch.serve import generate
 from repro_torch.models.lm import transformer
 from repro_torch.train.gnn_loop import GNNTrainer
@@ -382,5 +384,100 @@ def test_generate_on_the_card_matches_the_cpu(cuda):
     cpu = generate(cfg, params, tokens, 8, device="cpu")
     flash_kernel.reset_launches()
     gpu = generate(cfg, params, tokens, 8, device=cuda)
+    assert flash_kernel.LAUNCHES["flash_attention_fwd"] == cfg.num_layers
+    assert torch.equal(gpu.ids.cpu(), cpu.ids)
+
+
+# (E, C, d, f): the decode (8) and prefill (344 per group, 688 for two)
+# capacities at one expert and at qwen2-moe's 60, narrow widths; d and f
+# that no tile divides (the 16-byte path: d, f multiples of 8; the
+# element path: odd widths); and qwen2-moe-a2.7b's full prefill shape
+GMM_CASES = [(1, 8, 64, 32), (60, 8, 128, 64), (1, 344, 256, 136),
+             (60, 344, 64, 96), (60, 688, 128, 128), (3, 344, 200, 136),
+             (2, 8, 1001, 703), (4, 344, 77, 33), (1, 5, 0, 16),
+             (60, 688, 2048, 1408)]
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GMM_CASES)
+def test_moe_gmm_matches_plain_version(cuda, case, dtype):
+    """moe_gmm_fwd against its plain version (float32 einsum of the same
+    inputs) on the card: max error within 1e-3 * max |plain| for bf16
+    inputs (products exact, float32 sums in another order on the tensor
+    cores), 2e-5 * max |plain| for float32; bit-identical relaunch; one
+    count per launch."""
+    E, C, d, f = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(case)
+    x = torch.as_tensor(rng.normal(size=(E, C, d)), dtype=dt, device=cuda)
+    w = torch.as_tensor(rng.normal(size=(E, d, f)) / np.sqrt(max(d, 1)),
+                        dtype=dt, device=cuda)
+    before = gmm_kernel.LAUNCHES["moe_gmm_fwd"]
+    out = gmm_kernel.moe_gmm_fwd(x, w)
+    assert out.shape == (E, C, f) and out.dtype == torch.float32
+    want = moe_gmm_ref(x, w)
+    tol = (1e-3 if dtype == "bfloat16" else 2e-5) * max(
+        float(want.abs().max()), 1e-30)
+    assert float((out - want).abs().max()) <= tol
+    assert torch.equal(out, gmm_kernel.moe_gmm_fwd(x, w))
+    assert gmm_kernel.LAUNCHES["moe_gmm_fwd"] == before + 2
+
+
+def test_moe_gmm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros((2, 8, 16), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((2, 16, 8), device=cuda, dtype=torch.bfloat16)
+    before = dict(gmm_kernel.LAUNCHES)
+    bad = [((x.double(), w.double()), TypeError),
+           ((x.to(torch.int32), w.to(torch.int32)), TypeError),
+           ((x, w.float()), TypeError),
+           ((x, w.cpu()), ValueError),
+           ((x, torch.zeros((2, 17, 8), device=cuda, dtype=x.dtype)),
+            ValueError),
+           ((x, torch.zeros((3, 16, 8), device=cuda, dtype=x.dtype)),
+            ValueError),
+           ((x[0], w[0]), ValueError),
+           ((x.transpose(1, 2).contiguous().transpose(1, 2), w),
+            ValueError),
+           ((torch.zeros((65536, 1, 1), device=cuda, dtype=x.dtype),
+             torch.zeros((65536, 1, 1), device=cuda, dtype=x.dtype)),
+            ValueError)]
+    for args, err in bad:
+        with pytest.raises(err):
+            gmm_kernel.moe_gmm_fwd(*args)
+    assert gmm_kernel.LAUNCHES == before
+
+
+def test_moe_generate_on_the_card_matches_the_cpu(cuda):
+    """Reduced qwen2-moe-a2.7b in float32, same parameters and prompts:
+    prefill and 8 decode steps' logits within rtol 1e-4 / atol 1e-5
+    through a float32 cache, `generate`'s greedy ids equal; exactly 3
+    moe_gmm_fwd launches per layer in the prefill and in every decode
+    step."""
+    cfg = LM_CONFIGS["qwen2-moe-a2.7b"].reduced().scaled(dtype="float32")
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    on_card = transformer.cast_params(cfg, params, cuda)
+    with torch.no_grad():
+        gmm_kernel.reset_launches()
+        logits, pcache = transformer.prefill(cfg, on_card,
+                                             {"tokens": tokens.to(cuda)})
+        assert gmm_kernel.LAUNCHES["moe_gmm_fwd"] == 3 * cfg.num_layers
+        cache = transformer.init_cache(cfg, 2, 41, torch.float32, cuda)
+        for key in ("k", "v"):
+            cache[key][:, :, :40] = pcache[key]
+        gmm_kernel.reset_launches()
+        transformer.decode_step(cfg, on_card, cache, torch.argmax(
+            logits[:, -1], dim=-1, keepdim=True), 40)
+        assert gmm_kernel.LAUNCHES["moe_gmm_fwd"] == 3 * cfg.num_layers
+    card = _serve_logits(cfg, params, tokens, 8, cuda)
+    for a, b in zip(card, _serve_logits(cfg, params, tokens, 8, "cpu")):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    cpu = generate(cfg, params, tokens, 8, device="cpu")
+    gmm_kernel.reset_launches()
+    flash_kernel.reset_launches()
+    gpu = generate(cfg, params, tokens, 8, device=cuda)
+    assert gmm_kernel.LAUNCHES["moe_gmm_fwd"] == 3 * cfg.num_layers * 9
     assert flash_kernel.LAUNCHES["flash_attention_fwd"] == cfg.num_layers
     assert torch.equal(gpu.ids.cpu(), cpu.ids)

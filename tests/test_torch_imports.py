@@ -42,7 +42,7 @@ def test_port_modules_import_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 52          # every slice module was imported
+    assert n_modules >= 57          # every slice module was imported
 
 
 _EACH_FIRST = r"""
@@ -65,7 +65,7 @@ def test_each_port_module_imports_first():
     out = subprocess.run([sys.executable, "-c", _EACH_FIRST], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 52
+    assert int(out.stdout.split()[0]) >= 57
 
 
 @pytest.fixture(scope="module")

@@ -330,7 +330,7 @@ def test_entry_points_raise_without_a_card(entry, monkeypatch):
             transformer.params_from_jax({"embed": np.zeros((2, 2))})
 
 
-@pytest.mark.parametrize("arch", ["qwen2-moe-a2.7b", "rwkv6-7b",
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b",
                                   "qwen2-vl-72b", "whisper-large-v3"])
 def test_unported_families_raise(arch):
     import dataclasses
