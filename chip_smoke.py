@@ -7,11 +7,12 @@ It drives the port's main paths — COMM-RAND training through `GNNTrainer`
 of GraphSAGE, GCN and GAT, and GraphSAGE reading its layer-0 features
 through the device-resident feature cache (paper §6.5), at the paper's
 full model width on a Reddit-shaped graph; and LM serving (prefill plus
-greedy decode) of gemma3-1b and of the mixture-of-experts qwen2-moe-a2.7b
-at full width — and holds every hand-written kernel of those paths against
-its plain PyTorch version on the card. Set-up builds one `presampled_freq`
-cache plan (frac 0.2) for the cached run and prints its host time. Phases
-(any failure fails the run, exit code != 0):
+greedy decode) of gemma3-1b, of the mixture-of-experts qwen2-moe-a2.7b and
+of the attention-free rwkv6-7b at full width — and holds every
+hand-written kernel of those paths against its plain PyTorch version on
+the card. Set-up builds one `presampled_freq` cache plan (frac 0.2) for
+the cached run and prints its host time. Phases (any failure fails the
+run, exit code != 0):
 
   1. device   torch / CUDA versions, the card, its power limit; TF32 off
   2. build    nvcc builds the kernels from `src/repro_torch/csrc`, one
@@ -89,6 +90,25 @@ cache plan (frac 0.2) for the cached run and prints its host time. Phases
               gmm and flash kernels' shares); reduced qwen2-moe-a2.7b in
               float32 on the card and on the CPU within rtol 1e-4, greedy
               ids equal
+  8. serve    rwkv6-7b at full width (32 layers, d_model 4096, 64 WKV
+              heads of 64, relu² channel mix of d_ff 14336, vocab 65536,
+              untied head; 7,534,546,944 parameters drawn on the card in
+              bf16, the norms, decay LoRA, bonus u and head norm ln_x
+              float32): `wkv6_fwd` at the r, k, v, logw, u a real prefill
+              hands it at layer 0 (T 2048, from zeros), at a ragged T
+              (2047), at T 1 and at T 2048 from the prefill's non-zero
+              final state, and in float32 — max error of the output and
+              of the final state within 2e-5 x max |plain| (bf16 inputs
+              as float32: both sides work in float32 from the same
+              values), bit-identical relaunch, ms beside the plain
+              version and the bound (the causal work only; no PyTorch call
+              computes WKV6: library_ms null); then phase 6's serving run
+              through `generate`: exactly 32 `wkv6_fwd` launches per
+              prefill, 0 per decode step (the recurrence in plain
+              PyTorch), 0 flash, gmm and gather; the state cache's MiB;
+              the profile (the kernel's share); reduced rwkv6-7b in
+              float32 on the card and on the CPU within rtol 1e-4, greedy
+              ids equal
 
 It prints the `{"kernels": [...]}` line before the last, and as the last
 line `{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
@@ -128,10 +148,15 @@ SERVE_GLOBAL, SERVE_LOCAL = 5, 0       # layers whose attention is checked
 # MoE serving: qwen2-moe-a2.7b at the same batch, prompt and tokens
 MOE = "qwen2-moe-a2.7b"
 MOE_SERVE, MOE_DECODE = f"{MOE}_serve", f"{MOE}_decode"
-SERVE_PARAMS = {"gemma3-1b": 999_826_048, MOE: 14_316_308_480}
+# RWKV serving: rwkv6-7b at the same batch, prompt and tokens
+RWKV = "rwkv6-7b"
+RWKV_SERVE = f"{RWKV}_serve"
+SERVE_PARAMS = {"gemma3-1b": 999_826_048, MOE: 14_316_308_480,
+                RWKV: 7_534_546_944}
 # what one reading of each path sums over
 PER = {**{run: "train step" for run in RUNS}, SERVE: "prefill",
-       MOE_SERVE: "prefill", MOE_DECODE: "decode step"}
+       MOE_SERVE: "prefill", MOE_DECODE: "decode step",
+       RWKV_SERVE: "prefill"}
 DEVICE = "cuda"
 REPLACES = {
     "gather_agg_fwd": "src/repro/kernels/gather_agg/kernel.py:56",
@@ -140,13 +165,15 @@ REPLACES = {
     "gather_cached_fwd": "src/repro/kernels/gather_cached/kernel.py:44",
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:65",
     "moe_gmm_fwd": "src/repro/kernels/moe_gmm/kernel.py:27",
+    "wkv6_fwd": "src/repro/kernels/rwkv6_chunk/kernel.py:55",
 }
 SOURCES = {"gather_agg_fwd": "src/repro_torch/csrc/gather_agg.cu",
            "gather_agg_bwd_dx": "src/repro_torch/csrc/gather_agg.cu",
            "gather_agg_bwd_dw": "src/repro_torch/csrc/gather_agg.cu",
            "gather_cached_fwd": "src/repro_torch/csrc/gather_cached.cu",
            "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
-           "moe_gmm_fwd": "src/repro_torch/csrc/moe_gmm.cu"}
+           "moe_gmm_fwd": "src/repro_torch/csrc/moe_gmm.cu",
+           "wkv6_fwd": "src/repro_torch/csrc/wkv6.cu"}
 
 
 def log(msg: str) -> None:
@@ -164,7 +191,8 @@ def kernel_modules():
     from repro_torch.kernels.gather_agg import kernel
     from repro_torch.kernels.gather_cached import kernel as cached_kernel
     from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
-    return (kernel, cached_kernel, flash_kernel, gmm_kernel)
+    from repro_torch.kernels.rwkv6_chunk import kernel as wkv_kernel
+    return (kernel, cached_kernel, flash_kernel, gmm_kernel, wkv_kernel)
 
 
 def reset_launches() -> None:
@@ -585,7 +613,7 @@ def phase_train(torch, graph, trainer, name, reference=None):
             "gather_agg_bwd_dx": dx_per_step * steps,
             "gather_agg_bwd_dw": dw_per_step * steps,
             "gather_cached_fwd": steps + n_eval if cached else 0,
-            "flash_attention_fwd": 0, "moe_gmm_fwd": 0}
+            "flash_attention_fwd": 0, "moe_gmm_fwd": 0, "wkv6_fwd": 0}
     check(launches == want, f"{name}: launches {launches} != {want}")
     if cached:
         meter = trainer.cache_meter
@@ -717,9 +745,9 @@ def phase_card_vs_cpu(torch, g, model, cache=None):
 # ---------------------------------------------------------------------------
 def serve_model(torch, arch, tag):
     """Full-width `arch` as the serve CLI draws it: weights from a seeded
-    generator on the card, directly in the compute dtype (bf16; norms and
-    the MoE router float32), one layer slice at a time. Its parameter
-    count must be `SERVE_PARAMS[arch]`."""
+    generator on the card, directly in the compute dtype (bf16; the
+    leaves the reference uses in float32 stay float32), one layer slice
+    at a time. Its parameter count must be `SERVE_PARAMS[arch]`."""
     from repro_torch.configs import LM_CONFIGS
     from repro_torch.models.lm import transformer
     cfg = LM_CONFIGS[arch]
@@ -740,13 +768,20 @@ def serve_model(torch, arch, tag):
            f"{cfg.moe_d_ff}, shared expert {cfg.shared_d_ff}" if cfg.moe
            else f"d_ff {cfg.d_ff}")
     glob = [i for i in range(cfg.num_layers) if cfg.is_global_layer(i)]
+    mixer = (f"{cfg.num_heads} WKV heads of {cfg.head_dim}, {cfg.act} "
+             f"channel mix of" if cfg.rwkv else
+             f"heads {cfg.num_heads} over {cfg.num_kv_heads} KV of "
+             f"{cfg.head_dim}{' (qkv bias)' if cfg.qkv_bias else ''},")
+    pos = "" if cfg.rwkv else (
+        f", RoPE theta {cfg.rope_theta:g}, window {cfg.window}, global "
+        f"layers {glob if cfg.window else 'all'}")
+    kept = []
+    transformer._tree_map(lambda p, t: kept.append(
+        t.numel() if t.dtype == torch.float32 else 0), params)
     log(f"[{tag} serve] {cfg.name}: {cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, heads {cfg.num_heads} over {cfg.num_kv_heads} KV "
-        f"of {cfg.head_dim}{' (qkv bias)' if cfg.qkv_bias else ''}, {ffn}, "
-        f"vocab {cfg.padded_vocab}, RoPE theta {cfg.rope_theta:g}, window "
-        f"{cfg.window}, global layers {glob if cfg.window else 'all'}: {n} "
-        f"params, init {dt:.1f} s ({cfg.dtype} on the card; "
-        f"{torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB)")
+        f"{cfg.d_model}, {mixer} {ffn}, vocab {cfg.padded_vocab}{pos}: {n} "
+        f"params ({sum(kept)} float32), init {dt:.1f} s ({cfg.dtype} on the "
+        f"card; {torch.cuda.memory_allocated() / 2 ** 30:.2f} GiB)")
     return cfg, params, tokens.to(DEVICE)
 
 
@@ -878,13 +913,12 @@ def phase_flash(torch, cfg, params, tokens):
 
 def step_inputs(torch, cfg, logits, pcache):
     """One decode step's inputs after a prefill of the serving prompt: a
-    bf16 cache one position longer holding the prefill's keys and values,
-    and each sequence's greedy token."""
+    bf16 cache one position longer holding the prefill's keys and values
+    (or RWKV's float32 state and bf16 token shifts), and each sequence's
+    greedy token."""
     from repro_torch.models.lm import transformer
-    cache = transformer.init_cache(cfg, SERVE_BATCH, SERVE_PROMPT + 1,
-                                   torch.bfloat16, DEVICE)
-    for key in ("k", "v"):
-        cache[key][:, :, :SERVE_PROMPT] = pcache[key]
+    cache = transformer.fill_cache(cfg, transformer.init_cache(
+        cfg, SERVE_BATCH, SERVE_PROMPT + 1, torch.bfloat16, DEVICE), pcache)
     return cache, torch.argmax(logits[:, -1], dim=-1, keepdim=True)
 
 
@@ -940,13 +974,16 @@ def phase_serve(torch, cfg, params, tokens, run, tag, per_prefill,
     check(bool(((ids >= 0) & (ids < cfg.padded_vocab)).all()),
           "ids out of the vocabulary")
     n_pf = SERVE_BATCH * SERVE_PROMPT
+    cache = (f"state cache {res.cache_bytes / 2 ** 20:.1f} MiB (s float32, "
+             f"token shifts bf16)" if cfg.rwkv else
+             f"KV cache {res.cache_bytes / 2 ** 20:.1f} MiB (bf16, length "
+             f"{SERVE_PROMPT + SERVE_NEW})")
     log(f"[{tag} serve] {run}: batch {SERVE_BATCH} x prompt {SERVE_PROMPT}, "
         f"{SERVE_NEW} greedy tokens: prefill {res.prefill_ms:.2f} ms "
         f"({n_pf / res.prefill_ms * 1e3:.0f} tok/s)  decode "
         f"{res.decode_ms_per_step:.2f} ms/step "
-        f"({SERVE_BATCH / res.decode_ms_per_step * 1e3:.0f} tok/s)  KV cache "
-        f"{res.cache_bytes / 2 ** 20:.1f} MiB (bf16, length "
-        f"{SERVE_PROMPT + SERVE_NEW})  peak memory {peak:.2f} GiB  launches "
+        f"({SERVE_BATCH / res.decode_ms_per_step * 1e3:.0f} tok/s)  {cache}"
+        f"  peak memory {peak:.2f} GiB  launches "
         f"{launches} (one prefill alone: {alone}; one decode step alone: "
         f"{step})  ids seq 0 {ids[0, :8].tolist()}...")
     return launches, res
@@ -959,7 +996,7 @@ def phase_serve_profile(torch, cfg, params, tokens, res, run, tag, shares,
     `shares` ({label: a substring of its CUDA name}; each must show in the
     prefill), and the device's idle share of the unprofiled prefill / mean
     decode step of `res`, 1 - kernel ms / that time. The decode step must
-    show each label of `step_kernels` and no flash kernel."""
+    show each label of `step_kernels` and no other kernel of `shares`."""
     from repro_torch.train.train_step import make_decode_step
     from repro_torch.train.train_step import make_prefill_step
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
@@ -989,12 +1026,12 @@ def phase_serve_profile(torch, cfg, params, tokens, res, run, tag, shares,
     dev, wall = profile_kernels(
         torch, lambda: decode(params, cache, tok, SERVE_PROMPT))
     busy = sum(t for _, t, _ in dev) / 1e3
-    check(not any("flash_fwd_kernel" in k for k, _, _ in dev),
-          "a decode step launched the flash kernel")
     got, text = share(dev, busy)
-    for label in step_kernels:
-        check(got[label] > 0, f"the profiled decode step shows no {label} "
-              f"kernel")
+    for label in shares:
+        shown = got[label] > 0
+        check(shown == (label in step_kernels),
+              f"the profiled decode step {'shows' if shown else 'lacks'} "
+              f"the {label} kernel")
     log(f"[{tag} profile] {run} decode step: kernels {busy:.2f} ms in "
         f"{sum(n for _, _, n in dev)} launches, {text}, device idle share "
         f"{1 - busy / res.decode_ms_per_step:.3f} of the unprofiled mean "
@@ -1014,10 +1051,8 @@ def serve_logits(torch, cfg, params, tokens, steps, device):
     with torch.no_grad():
         logits, pcache = transformer.prefill(cfg, params, {"tokens": tokens})
         B, P = tokens.shape
-        cache = transformer.init_cache(cfg, B, P + steps, torch.float32,
-                                       device)
-        for key in ("k", "v"):
-            cache[key][:, :, :P] = pcache[key]
+        cache = transformer.fill_cache(cfg, transformer.init_cache(
+            cfg, B, P + steps, torch.float32, device), pcache)
         out = [logits[:, -1]]
         for t in range(steps):
             tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
@@ -1184,6 +1219,119 @@ def phase_moe_kernels(torch, cfg, params, tokens):
     return readings
 
 
+# ---------------------------------------------------------------------------
+# phase 8: RWKV serving (rwkv6-7b prefill + greedy decode)
+# ---------------------------------------------------------------------------
+def capture_wkv(torch, cfg, params, tokens):
+    """The (r, k, v, logw, u, s0) a real prefill hands `wkv6` at layer 0,
+    taken by wrapping the function the time mix calls (this prefill is not
+    counted). It must call it once per layer."""
+    from repro_torch.models.lm import rwkv6, transformer
+    real, seen, n = rwkv6.wkv6, [], [0]
+
+    def spy(*args):
+        if n[0] == 0:
+            seen.extend(None if a is None else a.clone() for a in args)
+        n[0] += 1
+        return real(*args)
+
+    rwkv6.wkv6 = spy
+    try:
+        with torch.no_grad():
+            transformer.prefill(cfg, params, {"tokens": tokens})
+    finally:
+        rwkv6.wkv6 = real
+    check(n[0] == cfg.num_layers, f"prefill made {n[0]} wkv6 calls")
+    return seen
+
+
+def check_wkv(torch, label, r, k, v, logw, u, s0=None):
+    """wkv6_fwd against its plain version (`wkv6_fwd_ref`: the chunked form
+    on float32 casts, the scan where 16 does not divide T) at one shape:
+    output and final state within 2e-5 x max |plain|, bf16 inputs as
+    float32 ones (both sides work in float32 from the same values),
+    bit-identical relaunch, ms, plain ms and the bound: each input read
+    and each output written once at 3.35 TB/s, against the causal work of
+    the chunked form at 67 TFLOP/s float32. A step of a (batch, head)
+    takes 4 N^2 flops for reading and updating the state, 2 (C + 1) N for
+    its row of the causal score tile (diagonal included) and that row's
+    product with v, and N^2 / C for the state's decay once a chunk of
+    C = 16; the tile's upper half is zero and not counted. No single
+    PyTorch call computes WKV6, so there is no library time."""
+    from repro_torch.kernels.rwkv6_chunk import kernel, ref
+    B, T, H, N = r.shape
+    out, s_f = kernel.wkv6_fwd(r, k, v, logw, u, s0)
+    want, want_s = ref.wkv6_fwd_ref(r, k, v, logw, u, s0)
+    rel = 2e-5
+    errs = {}
+    for name, got, exp in (("out", out, want), ("s_final", s_f, want_s)):
+        err = (got - exp).abs().max().item()
+        scale = exp.abs().max().item()
+        check(bool(torch.isfinite(got).all()), f"wkv6 {label}: non-finite "
+              f"{name}")
+        check(err <= rel * scale, f"wkv6 {label}: {name} max abs err {err} "
+              f"> {rel} * {scale}")
+        errs[name] = (err, scale)
+    again = kernel.wkv6_fwd(r, k, v, logw, u, s0)
+    check(torch.equal(out, again[0]) and torch.equal(s_f, again[1]),
+          f"wkv6 {label}: differs between launches")
+    del again, want, want_s
+    n_bytes = (3 * r.numel() * r.element_size() + 4 * logw.numel()
+               + 4 * u.numel() + (0 if s0 is None else 4 * s0.numel())
+               + 4 * out.numel() + 4 * s_f.numel())
+    C = 16
+    flops = (4.0 * N * N + 2.0 * (C + 1) * N + N * N / C) * B * H * T
+    b_ms, b_by = _bound_ms(n_bytes, flops)
+    got = {"max_abs_err": max(e for e, _ in errs.values()), "bound_ms": b_ms,
+           "bound_by": b_by, "library_ms": None,
+           "ms": cuda_ms(torch, lambda: kernel.wkv6_fwd(r, k, v, logw, u,
+                                                        s0)),
+           "plain_ms": cuda_ms(torch, lambda: ref.wkv6_fwd_ref(
+               r, k, v, logw, u, s0), reps=1, rounds=3, warmup=1)}
+    log(f"[8 kernels] wkv6_fwd {label}: r {tuple(r.shape)} "
+        f"{str(r.dtype)[6:]} s0 {'given' if s0 is not None else 'zeros'}  "
+        f"max_abs_err out {errs['out'][0]:.3e} (tol {rel:.0e} x max |plain| "
+        f"{errs['out'][1]:.3e}), s_final {errs['s_final'][0]:.3e} (x "
+        f"{errs['s_final'][1]:.3e})  bit-identical relaunch True  ms "
+        f"{got['ms']:.4f}  plain_ms {got['plain_ms']:.4f}  library_ms null "
+        f"(no single PyTorch call computes WKV6)  bound_ms {b_ms:.4f} "
+        f"({b_by}; {n_bytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP; "
+        f"{flops / got['ms'] / 1e9:.1f} TFLOP/s)")
+    return got, s_f
+
+
+def phase_rwkv_kernels(torch, cfg, params, tokens):
+    """wkv6_fwd at the inputs a real prefill hands it at layer 0 (T 2048,
+    from zeros), at a ragged T (2047), at T 1 and at T 2048 from the
+    prefill's final state (non-zero), and in float32. Returns the readings
+    of one prefill (32 launches of layer 0's shape: ms, plain and bound
+    summed), each shape's beside them."""
+    r, k, v, logw, u, s0 = capture_wkv(torch, cfg, params, tokens)
+    check(s0 is None, "the prefill handed wkv6 a state")
+    shapes = {}
+    shapes["prefill"], s_f = check_wkv(torch, "prefill layer 0", r, k, v,
+                                       logw, u)
+    n = SERVE_PROMPT - 1
+    shapes["ragged"], _ = check_wkv(
+        torch, f"layer 0, T {n}", *(t[:, :n].contiguous()
+                                    for t in (r, k, v, logw)), u)
+    shapes["T 1"], _ = check_wkv(
+        torch, "layer 0, T 1, from the prefill's state",
+        *(t[:, :1].contiguous() for t in (r, k, v, logw)), u, s_f)
+    shapes["state"], _ = check_wkv(
+        torch, "layer 0, from the prefill's state", r, k, v, logw, u, s_f)
+    shapes["float32"], _ = check_wkv(torch, "prefill layer 0, float32",
+                                     r.float(), k.float(), v.float(), logw,
+                                     u)
+    one = shapes["prefill"]
+    return {"wkv6_fwd": {
+        **{key: cfg.num_layers * one[key]
+           for key in ("ms", "plain_ms", "bound_ms")},
+        "library_ms": None, "bound_by": one["bound_by"],
+        "max_abs_err": max(x["max_abs_err"] for x in shapes.values()),
+        "shapes": shapes}}
+
+
 def main() -> int:
     try:
         import torch
@@ -1294,6 +1442,17 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_serve_card_vs_cpu(torch, MOE, "7")
+
+    cfg, params, tokens = serve_model(torch, RWKV, "8")
+    readings[RWKV_SERVE] = phase_rwkv_kernels(torch, cfg, params, tokens)
+    runs[RWKV_SERVE], res = phase_serve(
+        torch, cfg, params, tokens, RWKV_SERVE, "8",
+        {"wkv6_fwd": cfg.num_layers}, {})
+    phase_serve_profile(torch, cfg, params, tokens, res, RWKV_SERVE, "8",
+                        {"wkv6": "wkv6_chunk_kernel"})
+    del params
+    torch.cuda.empty_cache()
+    phase_serve_card_vs_cpu(torch, RWKV, "8")
 
     kernels = []
     for name in REPLACES:

@@ -228,4 +228,21 @@ QWEN2_MOE_A27B = ModelConfig(
     act="silu",
 )
 
-LM_CONFIGS = {c.name: c for c in (GEMMA3_1B, QWEN2_MOE_A27B)}
+# rwkv6-7b "Finch" [ssm] — attention-free, data-dependent decay.
+# [arXiv:2404.05892] (`repro/configs/rwkv6_7b.py`)
+RWKV6_7B = ModelConfig(
+    name="rwkv6-7b",
+    family="ssm",
+    num_layers=32,
+    d_model=4096,
+    num_heads=64,                 # wkv heads, head_dim 64
+    num_kv_heads=64,
+    head_dim=64,
+    d_ff=14336,
+    vocab_size=65536,
+    attention="none",
+    rwkv=True,
+    act="relu2",                  # rwkv channel-mix uses relu^2
+)
+
+LM_CONFIGS = {c.name: c for c in (GEMMA3_1B, QWEN2_MOE_A27B, RWKV6_7B)}

@@ -1,5 +1,6 @@
 """Batched LM serving (`repro/launch/serve.py`): prefill a request batch,
-then decode greedily (or by sampling) against a bfloat16 KV cache, with
+then decode greedily (or by sampling) against a bfloat16 KV cache (an
+RWKV model: its recurrent state, float32, and bf16 token shifts), with
 prefill and per-step decode timings and the cache's size.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma3-1b \\
@@ -8,15 +9,20 @@ prefill and per-step decode timings and the cache's size.
         --no-reduced --batch 4 --prompt-len 2048 --tokens 32   # the card
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch qwen2-moe-a2.7b --no-reduced --batch 4 --prompt-len 2048
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch rwkv6-7b \\
+        --no-reduced --batch 4 --prompt-len 2048 --tokens 32
 
 The prefill's attention runs the hand-written flash-attention kernel on
-the card (`repro_torch.kernels.flash_attention`), and an MoE model's
-expert matmuls the hand-written grouped matmul (`kernels.moe_gmm`), in
-the prefill and in every decode step. Unlike the reference's CLI, whose
-`--reduced` cannot be switched off, `--no-reduced` serves the config at
-full width. Parameters are random, drawn from `--seed` by a generator on
-the serving device, directly in the compute dtype (qwen2-moe-a2.7b's
-float32 tree, 57 GB, would not fit beside its cast).
+the card (`repro_torch.kernels.flash_attention`), an MoE model's expert
+matmuls the hand-written grouped matmul (`kernels.moe_gmm`), in the
+prefill and in every decode step, and an RWKV model's prefill the
+hand-written WKV6 chunk kernel (`kernels.rwkv6_chunk`; its decode step
+runs the recurrence in plain PyTorch, as the reference does). Unlike
+the reference's CLI, whose `--reduced` cannot be switched off,
+`--no-reduced` serves the config at full width. Parameters are random,
+drawn from `--seed` by a generator on the serving device, directly in
+the compute dtype (qwen2-moe-a2.7b's float32 tree, 57 GB, would not fit
+beside its cast).
 """
 from __future__ import annotations
 
@@ -60,7 +66,8 @@ def generate(cfg: ModelConfig, params, tokens, n_new: int, *,
              generator: Optional[torch.Generator] = None,
              device: DeviceLike = None) -> Generation:
     """Prefill `tokens` (B, P), copy the prefill cache into a bfloat16
-    cache of length P + n_new, then take n_new decode steps.
+    cache of length P + n_new (`transformer.fill_cache`; an RWKV state
+    stays float32), then take n_new decode steps.
 
     Runs on `device` (the card unless given): the parameters are cast to
     the compute dtype there once (`transformer.cast_params`, no copy if
@@ -81,9 +88,8 @@ def generate(cfg: ModelConfig, params, tokens, n_new: int, *,
     _sync(dev)
     prefill_ms = (time.perf_counter() - t0) * 1e3
 
-    cache = transformer.init_cache(cfg, B, P + n_new, torch.bfloat16, dev)
-    for key in ("k", "v"):
-        cache[key][:, :, :P] = pcache[key]
+    cache = transformer.fill_cache(cfg, transformer.init_cache(
+        cfg, B, P + n_new, torch.bfloat16, dev), pcache)
     del pcache
     cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
 
@@ -135,7 +141,8 @@ def main(argv=None):
     print(f"prefill: {args.batch} x {args.prompt_len} tok in "
           f"{res.prefill_ms:.1f} ms "
           f"({args.batch * args.prompt_len / pf_s:.0f} tok/s)")
-    print(f"cache: {res.cache_bytes / 2**20:.1f} MiB (KV)")
+    print(f"cache: {res.cache_bytes / 2**20:.1f} MiB "
+          f"({'state' if cfg.rwkv else 'KV'})")
     dt = res.decode_ms_per_step * args.tokens / 1e3
     print(f"decode: {args.tokens} steps x {args.batch} seqs in "
           f"{dt * 1e3:.1f} ms ({args.tokens * args.batch / max(dt, 1e-9):.0f}"

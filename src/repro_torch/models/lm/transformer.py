@@ -1,8 +1,9 @@
 """The LM serving path of the generic transformer
-(`repro/models/lm/transformer.py`), dense and MoE families: `init`, the
-prefill / train forward (`apply`, `prefill`), the KV cache and the decode
-step. RWKV, hybrid SSM, encoder-decoder, M-RoPE, learned positions and
-vision tokens belong to later slices and raise `NotImplementedError`.
+(`repro/models/lm/transformer.py`), dense, MoE and RWKV families: `init`,
+the prefill / train forward (`apply`, `prefill`), the cache (keys and
+values, or RWKV's recurrent state) and the decode step. Hybrid SSM,
+encoder-decoder, M-RoPE, learned positions and vision tokens belong to
+later slices and raise `NotImplementedError`.
 
 Parameters are a dict tree in the reference's layout: layer parameters
 stacked on a leading L axis (the reference builds them with `jax.vmap`),
@@ -10,12 +11,12 @@ weights `(din, dout)` for `x @ W`, so `params_from_jax` / `params_to_jax`
 carry them across without transposes. They are stored float32, and each
 use casts a weight to the compute dtype as the reference does
 (`.astype(dt)`); `cast_params` does that cast once for serving (same
-values; the norm scales and the MoE router stay float32, as the
-reference keeps them). `init(dtype=)` builds the tree in the compute
-dtype directly, for a model whose float32 tree would not fit. The
-reference's sharding constraints (`shd.act_*`) are no-ops off a mesh and
-are dropped. The decode step writes the new key and value into the cache
-in place.
+values; the leaves the reference uses in float32 stay float32:
+`_keeps_float32`). `init(dtype=)` builds the tree in the compute dtype
+directly, for a model whose float32 tree would not fit. The reference's
+sharding constraints (`shd.act_*`) are no-ops off a mesh and are dropped.
+The decode step writes the new key and value, or the new RWKV state and
+token shifts, into the cache in place.
 """
 from __future__ import annotations
 
@@ -27,6 +28,7 @@ import torch
 
 from repro_torch.configs import ModelConfig
 from repro_torch.devices import DeviceLike, resolve_device
+from repro_torch.models.lm import rwkv6
 from repro_torch.models.lm.attention import decode_attention, flash_attention
 from repro_torch.models.lm.common import (activation, apply_rope, dense_init,
                                           embed_init, norm_apply, norm_init,
@@ -35,16 +37,21 @@ from repro_torch.models.lm.moe import moe_ffn, moe_shapes
 
 Params = Dict[str, Any]
 
-_NOT_PORTED = ("rwkv", "hybrid", "encoder_decoder", "mrope", "learned_pos",
+_NOT_PORTED = ("hybrid", "encoder_decoder", "mrope", "learned_pos",
                "vision_tokens", "mlp_bias")
+# leaves used in float32 whatever the compute dtype: the MoE router, whose
+# product the reference takes in float32 (`repro/models/lm/moe.py:76`), and
+# RWKV's decay LoRA, bonus and per-head norm (`repro/models/lm/rwkv6.py:
+# 138-149, 161`)
+_FLOAT32_LEAVES = ("router", "w0", "wa_decay", "wb_decay", "u", "ln_x")
 
 
 def _check_supported(cfg: ModelConfig) -> None:
     on = [f for f in _NOT_PORTED if getattr(cfg, f)]
     if on:
         raise NotImplementedError(
-            f"{cfg.name}: {', '.join(on)} not ported yet (dense and MoE "
-            f"LMs only)")
+            f"{cfg.name}: {', '.join(on)} not ported yet (dense, MoE and "
+            f"RWKV LMs only)")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -59,9 +66,9 @@ def _tree_map(fn: Callable, tree, path=()):
 
 def _keeps_float32(path) -> bool:
     """Leaves the compute dtype never rounds: the norms' (any key holding
-    "norm") and the MoE router, whose product the reference takes in
-    float32 (`repro/models/lm/moe.py:76`)."""
-    return any("norm" in k for k in path) or path[-1] == "router"
+    "norm") and those named in `_FLOAT32_LEAVES` (by exact key: RWKV's
+    "u", not the MLP's "wu")."""
+    return any("norm" in k for k in path) or path[-1] in _FLOAT32_LEAVES
 
 
 def _layer(layers: Params, i: int) -> Params:
@@ -78,12 +85,13 @@ def init(cfg: ModelConfig, generator: torch.Generator, max_seq: int = 4096,
     `device` (the card unless given). `max_seq` sizes learned position
     tables, which no ported config has.
 
-    Float32 unless `dtype` is given. With `dtype`, every leaf but the
-    norms and the router (which stay float32, as `cast_params` keeps them)
-    is stored in that dtype. Each stacked layer leaf is drawn one layer
+    Float32 unless `dtype` is given. With `dtype`, every leaf but those of
+    `_keeps_float32` (which stay float32, as `cast_params` keeps them) is
+    stored in that dtype. Each stacked layer leaf is drawn one layer
     slice at a time into its place on `device`: the peak is the tree plus
     one float32 slice (at qwen2-moe-a2.7b, an expert tensor's 0.69 GB),
-    not a float32 tree beside the cast one."""
+    not a float32 tree beside the cast one. RWKV's leaves take the
+    reference's draws (`rwkv6.time_mix_init`)."""
     _check_supported(cfg)
     dev = resolve_device(device)
     g = generator
@@ -97,37 +105,43 @@ def init(cfg: ModelConfig, generator: torch.Generator, max_seq: int = 4096,
     def place(path, t):
         return t.to(device=dev, dtype=leaf_dtype(path))
 
-    def dense(path, shape):
-        """A stacked (L, ...) LeCun-normal leaf."""
+    def dense(path, shape, draw=dense_init):
+        """A stacked (L, ...) leaf, LeCun-normal unless `draw` says."""
         out = torch.empty(shape, dtype=leaf_dtype(path), device=dev)
         for i in range(shape[0]):
-            out[i].copy_(dense_init(g, shape[1:]))
+            out[i].copy_(draw(g, shape[1:]))
         return out
 
     def stacked(path, tree):
         return _tree_map(lambda p, t: place(path + p, t.expand(
             L, *t.shape).clone()), tree)
 
-    attn = {k: dense(("attn", k), s) for k, s in (
-        ("wq", (L, d, qd)), ("wk", (L, d, kvd)), ("wv", (L, d, kvd)),
-        ("wo", (L, qd, d)))}
-    if cfg.qkv_bias:
-        attn.update(stacked(("attn",), {"bq": torch.zeros((qd,)),
-                                        "bk": torch.zeros((kvd,)),
-                                        "bv": torch.zeros((kvd,))}))
-    if cfg.qk_norm:
-        attn.update(stacked(("attn",),
-                            {"qnorm": torch.zeros((cfg.head_dim,)),
-                             "knorm": torch.zeros((cfg.head_dim,))}))
     layers: Params = {"norm1": stacked(("norm1",), norm_init(cfg, d)),
-                      "norm2": stacked(("norm2",), norm_init(cfg, d)),
-                      "attn": attn}
-    if cfg.moe:
-        layers["moe"] = {k: dense(("moe", k), (L, *s))
-                         for k, s in moe_shapes(cfg).items()}
+                      "norm2": stacked(("norm2",), norm_init(cfg, d))}
+    if cfg.rwkv:
+        for name, leaves in (("time", rwkv6.time_mix_init(cfg)),
+                             ("chan", rwkv6.channel_mix_init(cfg))):
+            layers[name] = {k: dense((name, k), (L, *s), draw)
+                            for k, (s, draw) in leaves.items()}
     else:
-        layers["mlp"] = {k: dense(("mlp", k), s) for k, s in (
-            ("wg", (L, d, ff)), ("wu", (L, d, ff)), ("wd", (L, ff, d)))}
+        attn = {k: dense(("attn", k), s) for k, s in (
+            ("wq", (L, d, qd)), ("wk", (L, d, kvd)), ("wv", (L, d, kvd)),
+            ("wo", (L, qd, d)))}
+        if cfg.qkv_bias:
+            attn.update(stacked(("attn",), {"bq": torch.zeros((qd,)),
+                                            "bk": torch.zeros((kvd,)),
+                                            "bv": torch.zeros((kvd,))}))
+        if cfg.qk_norm:
+            attn.update(stacked(("attn",),
+                                {"qnorm": torch.zeros((cfg.head_dim,)),
+                                 "knorm": torch.zeros((cfg.head_dim,))}))
+        layers["attn"] = attn
+        if cfg.moe:
+            layers["moe"] = {k: dense(("moe", k), (L, *s))
+                             for k, s in moe_shapes(cfg).items()}
+        else:
+            layers["mlp"] = {k: dense(("mlp", k), s) for k, s in (
+                ("wg", (L, d, ff)), ("wu", (L, d, ff)), ("wd", (L, ff, d)))}
     params: Params = {
         "embed": place(("embed",), embed_init(g, (V, d))),
         "layers": layers,
@@ -148,9 +162,9 @@ def param_count(params: Params) -> int:
 def cast_params(cfg: ModelConfig, params: Params,
                 device: DeviceLike = None) -> Params:
     """The tree on `device` (the card unless given) with every weight in
-    the compute dtype, as each use in the reference casts it; the norms'
-    leaves (any leaf under a key holding "norm") and the MoE router stay
-    float32. A leaf already so is not copied."""
+    the compute dtype, as each use in the reference casts it; the leaves
+    of `_keeps_float32` (norms, the MoE router, RWKV's decay LoRA, bonus
+    and head norm) stay float32. A leaf already so is not copied."""
     dev = resolve_device(device)
     dt = _dtype(cfg)
 
@@ -228,8 +242,28 @@ def _ffn(cfg, p, x):
     return _mlp(cfg, p["mlp"], x), torch.zeros((), device=x.device)
 
 
+def _rwkv_layer(cfg, p, x, state=None, chunked=True):
+    """One RWKV layer: time mix and channel mix, each over its normed
+    input, from `state` ({"s", "shift_t", "shift_c"} of this layer, or
+    None for zeros). Returns (x, the layer's new state)."""
+    st = None if state is None else {"shift": state["shift_t"],
+                                     "s": state["s"]}
+    y, st = rwkv6.time_mix(norm_apply(cfg, x, p["norm1"]), p["time"], cfg,
+                           state=st, chunked=chunked)
+    x = x + y
+    y, sc = rwkv6.channel_mix(
+        norm_apply(cfg, x, p["norm2"]), p["chan"], cfg,
+        state=None if state is None else state["shift_c"])
+    return x + y, {"s": st["s"], "shift_t": st["shift"], "shift_c": sc}
+
+
 def _layer_train(cfg, p, x, positions, is_global, collect=False):
-    """One decoder layer; returns (x, aux, {"k", "v"} or None)."""
+    """One decoder layer; returns (x, aux, the layer's cache entries or
+    None): {"k", "v"}, or RWKV's {"s", "shift_t", "shift_c"}."""
+    if cfg.rwkv:
+        x, extras = _rwkv_layer(cfg, p, x)
+        return x, torch.zeros((), device=x.device), \
+            extras if collect else None
     h = norm_apply(cfg, x, p["norm1"])
     attn_out, (k, v) = _attn_train(cfg, p["attn"], h, positions, is_global)
     extras = {"k": k, "v": v} if collect else None
@@ -272,23 +306,25 @@ def apply(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
 
 def prefill(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
     """Inference prefill: the forward pass that also materialises the
-    cache. Returns (last-position logits (B, 1, V), {"k", "v"} each
-    (L, B, S, KH, hd) in the compute dtype)."""
+    cache. Returns (last-position logits (B, 1, V), the cache with a
+    leading L axis: {"k", "v"} each (B, S, KH, hd) in the compute dtype,
+    or RWKV's {"s": (B, H, N, N) float32, "shift_t", "shift_c": (B, 1, d)
+    the last token of each mix's normed input})."""
     _check_supported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
     x = _embed_tokens(cfg, params, tokens, _dtype(cfg))
     positions = torch.arange(S, device=x.device).expand(B, S)
-    ks, vs = [], []
+    per_layer = []
     for i in range(cfg.num_layers):
         x, _, extras = _layer_train(cfg, _layer(params["layers"], i), x,
                                     positions, cfg.is_global_layer(i),
                                     collect=True)
-        ks.append(extras["k"])
-        vs.append(extras["v"])
+        per_layer.append(extras)
     x = norm_apply(cfg, x, params["final_norm"])
     logits = unembed(cfg, params, x[:, -1:])
-    return logits, {"k": torch.stack(ks), "v": torch.stack(vs)}
+    return logits, {k: torch.stack([e[k] for e in per_layer])
+                    for k in per_layer[0]}
 
 
 def unembed(cfg: ModelConfig, params: Params, hidden) -> torch.Tensor:
@@ -304,18 +340,44 @@ def unembed(cfg: ModelConfig, params: Params, hidden) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 def init_cache(cfg: ModelConfig, batch_size: int, seq_len: int,
                dtype=torch.bfloat16, device: DeviceLike = None) -> Params:
+    """Zeros: the KV cache (L, B, seq_len, KH, hd) in `dtype`, or RWKV's
+    state, whatever `seq_len`: "s" (L, B, H, N, N) float32 and the token
+    shifts "shift_t", "shift_c" (L, B, 1, d) in `dtype`."""
     _check_supported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.num_layers, batch_size, seq_len, cfg.num_kv_heads,
-             cfg.head_dim)
+    L, B = cfg.num_layers, batch_size
+    if cfg.rwkv:
+        N = cfg.head_dim
+        return {"s": torch.zeros((L, B, cfg.num_heads, N, N),
+                                 dtype=torch.float32, device=dev),
+                "shift_t": torch.zeros((L, B, 1, cfg.d_model), dtype=dtype,
+                                       device=dev),
+                "shift_c": torch.zeros((L, B, 1, cfg.d_model), dtype=dtype,
+                                       device=dev)}
+    shape = (L, B, seq_len, cfg.num_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def fill_cache(cfg: ModelConfig, cache: Params, pcache: Params) -> Params:
+    """Copy a prefill's cache into a decode cache from `init_cache`, each
+    leaf cast to the decode cache's dtype (RWKV's state stays float32):
+    the keys and values into positions 0..S-1, RWKV's state whole.
+    Returns `cache`."""
+    for key, src in pcache.items():
+        if cfg.rwkv:
+            cache[key].copy_(src)
+        else:
+            cache[key][:, :, :src.shape[2]] = src
+    return cache
 
 
 def decode_step(cfg: ModelConfig, params: Params, cache: Params, tokens,
                 pos: int):
     """One token for the whole batch. tokens: (B, 1); pos: int index.
-    Writes the step's k (after RoPE) and v into `cache` at `pos`, in place.
+    Writes the step's k (after RoPE) and v into `cache` at `pos`, in place;
+    an RWKV model updates its state and token shifts in place instead, by
+    the exact recurrence (no kernel, as in the reference).
 
     Returns (logits (B, 1, V), cache)."""
     _check_supported(cfg)
@@ -324,6 +386,12 @@ def decode_step(cfg: ModelConfig, params: Params, cache: Params, tokens,
     positions = torch.full((B, 1), pos, device=x.device)
     for i in range(cfg.num_layers):
         p = _layer(params["layers"], i)
+        if cfg.rwkv:
+            layer_cache = {k: c[i] for k, c in cache.items()}
+            x, new = _rwkv_layer(cfg, p, x, layer_cache, chunked=False)
+            for k, c in layer_cache.items():
+                c.copy_(new[k])
+            continue
         kc, vc = cache["k"][i], cache["v"][i]
         h = norm_apply(cfg, x, p["norm1"])
         q, k, v = _qkv(cfg, p["attn"], h)

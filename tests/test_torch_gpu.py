@@ -19,6 +19,8 @@ from repro_torch.kernels.gather_cached import kernel as cached_kernel
 from repro_torch.kernels.gather_cached.ref import gather_cached_ref
 from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
 from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+from repro_torch.kernels.rwkv6_chunk import kernel as wkv_kernel
+from repro_torch.kernels.rwkv6_chunk.ref import wkv6_fwd_ref
 from repro_torch.launch.serve import generate
 from repro_torch.models.lm import transformer
 from repro_torch.train.gnn_loop import GNNTrainer
@@ -352,10 +354,8 @@ def _serve_logits(cfg, params, tokens, steps, device):
     with torch.no_grad():
         logits, pcache = transformer.prefill(cfg, params, {"tokens": tokens})
         B, P = tokens.shape
-        cache = transformer.init_cache(cfg, B, P + steps, torch.float32,
-                                       device)
-        for key in ("k", "v"):
-            cache[key][:, :, :P] = pcache[key]
+        cache = transformer.fill_cache(cfg, transformer.init_cache(
+            cfg, B, P + steps, torch.float32, device), pcache)
         out = [logits[:, -1]]
         for t in range(steps):
             tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
@@ -480,4 +480,95 @@ def test_moe_generate_on_the_card_matches_the_cpu(cuda):
     gpu = generate(cfg, params, tokens, 8, device=cuda)
     assert gmm_kernel.LAUNCHES["moe_gmm_fwd"] == 3 * cfg.num_layers * 9
     assert flash_kernel.LAUNCHES["flash_attention_fwd"] == cfg.num_layers
+    assert torch.equal(gpu.ids.cpu(), cpu.ids)
+
+
+def _wkv_inputs(B, T, H, N, dtype, state, device):
+    """r, k, v unit normal in `dtype`; logw = clip(-exp(z), -5, -1e-4) as
+    the model clamps it, both ends of the clip occurring; u 0.1 x normal;
+    s0 normal or None."""
+    rng = np.random.default_rng((B, T, H, N, int(state)))
+    r, k, v = (torch.as_tensor(rng.normal(size=(B, T, H, N)), dtype=dtype,
+                               device=device) for _ in range(3))
+    z = rng.normal(size=(B, T, H, N)) * 4.0 - 0.6
+    logw = torch.as_tensor(np.clip(-np.exp(z), -5.0, -1e-4),
+                           dtype=torch.float32, device=device)
+    u = torch.as_tensor(rng.normal(size=(H, N)) * 0.1, dtype=torch.float32,
+                        device=device)
+    s0 = torch.as_tensor(rng.normal(size=(B, H, N, N)), dtype=torch.float32,
+                         device=device) if state else None
+    return r, k, v, logw, u, s0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("N", [16, 64])
+@pytest.mark.parametrize("T", [1, 15, 16, 47, 2048])
+def test_wkv6_matches_plain_version(cuda, T, N, state, dtype):
+    """wkv6_fwd against its plain version (the chunked form on float32
+    casts, the scan where 16 does not divide T) on the card, output and
+    final state: max error within 2e-5 * max |plain| for float32 and for
+    bf16 inputs alike (both sides work in float32 from the same values;
+    the factored exps reach e^80, so float32 rounding scales with the
+    largest values); bit-identical relaunch; one count per launch."""
+    B, H = (1, 2) if T == 2048 else (2, 3)
+    dt = getattr(torch, dtype)
+    r, k, v, logw, u, s0 = _wkv_inputs(B, T, H, N, dt, state, cuda)
+    before = wkv_kernel.LAUNCHES["wkv6_fwd"]
+    out, s_f = wkv_kernel.wkv6_fwd(r, k, v, logw, u, s0)
+    assert out.shape == (B, T, H, N) and out.dtype == torch.float32
+    assert s_f.shape == (B, H, N, N) and s_f.dtype == torch.float32
+    want, want_s = wkv6_fwd_ref(r, k, v, logw, u, s0)
+    rel = 2e-5
+    for got, ref_ in ((out, want), (s_f, want_s)):
+        assert bool(torch.isfinite(got).all())
+        assert float((got - ref_).abs().max()) <= rel * float(
+            ref_.abs().max())
+    again = wkv_kernel.wkv6_fwd(r, k, v, logw, u, s0)
+    assert torch.equal(out, again[0]) and torch.equal(s_f, again[1])
+    assert wkv_kernel.LAUNCHES["wkv6_fwd"] == before + 2
+
+
+def test_wkv6_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    r, k, v, logw, u, s0 = _wkv_inputs(1, 8, 2, 16, torch.bfloat16, True,
+                                       cuda)
+    wide = _wkv_inputs(1, 8, 1, 65, torch.float32, False, cuda)
+    before = dict(wkv_kernel.LAUNCHES)
+    bad = [((r.double(), k.double(), v.double(), logw, u), TypeError),
+           ((r, k.float(), v, logw, u), TypeError),
+           ((r, k, v, logw.to(torch.bfloat16), u), TypeError),
+           ((r, k, v, logw, u.double()), TypeError),
+           ((r, k, v, logw, u, s0.to(torch.bfloat16)), TypeError),
+           ((r, k.cpu(), v, logw, u), ValueError),
+           ((r, k[:, :4].contiguous(), v, logw, u), ValueError),
+           ((r, k, v, logw, u[:1].contiguous()), ValueError),
+           ((r, k, v, logw, u, s0[:, :1].contiguous()), ValueError),
+           ((r[0], k[0], v[0], logw[0], u), ValueError),
+           ((r.transpose(1, 2).contiguous().transpose(1, 2), k, v, logw,
+             u), ValueError),
+           ((r[:, :0], k[:, :0], v[:, :0], logw[:, :0], u), ValueError),
+           (wide[:5], ValueError)]
+    for args, err in bad:
+        with pytest.raises(err):
+            wkv_kernel.wkv6_fwd(*args)
+    assert wkv_kernel.LAUNCHES == before
+
+
+def test_rwkv_generate_on_the_card_matches_the_cpu(cuda):
+    """Reduced rwkv6-7b in float32, same parameters and prompts: prefill
+    and 8 decode steps' logits within rtol 1e-4 / atol 1e-5 through a
+    float32 state, `generate`'s greedy ids equal; exactly one wkv6_fwd
+    launch per layer in the prefill and none in a decode step."""
+    cfg = LM_CONFIGS["rwkv6-7b"].reduced().scaled(dtype="float32")
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (2, 40),
+                           generator=torch.Generator().manual_seed(1))
+    card = _serve_logits(cfg, params, tokens, 8, cuda)
+    for a, b in zip(card, _serve_logits(cfg, params, tokens, 8, "cpu")):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
+    cpu = generate(cfg, params, tokens, 8, device="cpu")
+    wkv_kernel.reset_launches()
+    gpu = generate(cfg, params, tokens, 8, device=cuda)
+    assert wkv_kernel.LAUNCHES["wkv6_fwd"] == cfg.num_layers
     assert torch.equal(gpu.ids.cpu(), cpu.ids)

@@ -16,6 +16,7 @@ from repro_torch.graphs import synthetic
 from repro_torch.graphs.csr import DeviceGraph
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.gather_agg import kernel
+from repro_torch.kernels.rwkv6_chunk import kernel as wkv_kernel
 from repro_torch.launch.serve import generate
 from repro_torch.train.gnn_loop import GNNTrainer
 
@@ -42,7 +43,7 @@ def test_port_modules_import_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 57          # every slice module was imported
+    assert n_modules >= 62          # every slice module was imported
 
 
 _EACH_FIRST = r"""
@@ -65,7 +66,7 @@ def test_each_port_module_imports_first():
     out = subprocess.run([sys.executable, "-c", _EACH_FIRST], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 57
+    assert int(out.stdout.split()[0]) >= 62
 
 
 @pytest.fixture(scope="module")
@@ -116,3 +117,15 @@ def test_flash_cpu_tensors_take_the_plain_path_and_count_no_launch():
                                            is_global=False)
     assert out.shape == q.shape
     assert flash_kernel.LAUNCHES == {"flash_attention_fwd": 0}
+
+
+def test_wkv6_cpu_tensors_take_the_plain_path_and_count_no_launch():
+    wkv_kernel.reset_launches()
+    rng = np.random.default_rng((0, 3))
+    r, k, v = (torch.as_tensor(rng.normal(size=(1, 5, 2, 16)),
+                               dtype=torch.float32) for _ in range(3))
+    logw = torch.full((1, 5, 2, 16), -0.5)
+    u = torch.zeros((2, 16))
+    out, s_f = wkv_kernel.wkv6_fwd(r, k, v, logw, u)
+    assert out.shape == r.shape and s_f.shape == (1, 2, 16, 16)
+    assert wkv_kernel.LAUNCHES == {"wkv6_fwd": 0}

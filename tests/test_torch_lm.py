@@ -126,12 +126,16 @@ def test_embed_tokens_scale(dtype):
 # prefill and decode against JAX
 # ---------------------------------------------------------------------------
 def _jax_serve(cfg, params, tokens, steps, cache_dtype, feed=None):
-    """JAX prefill, then `steps` decode steps; greedy ids, or the ids of
-    `feed` (B, steps + 1) when given. Returns (logits per token, ids,
-    prefill cache, cache after the steps)."""
+    """JAX prefill of `tokens` (B, P), then `steps` decode steps; greedy
+    ids, or the ids of `feed` (B, steps + 1) when given. The prefill cache
+    is copied as `repro/launch/serve.py:57-66` copies it. Returns (logits
+    per token, ids, prefill cache, cache after the steps)."""
+    n_seq, n_prompt = tokens.shape
     logits, pcache = jax_tf.prefill(cfg, params, {"tokens": tokens})
-    cache = jax_tf.init_cache(cfg, B, PROMPT + steps, cache_dtype)
-    for key in ("k", "v"):
+    cache = jax_tf.init_cache(cfg, n_seq, n_prompt + steps, cache_dtype)
+    if cfg.rwkv:
+        cache = jax.tree.map(lambda z, p: p.astype(z.dtype), cache, pcache)
+    for key in () if cfg.rwkv else ("k", "v"):
         cache[key] = jax.lax.dynamic_update_slice_in_dim(
             cache[key], pcache[key].astype(cache_dtype), 0, axis=2)
     decode = jax.jit(lambda p, c, t, pos: jax_tf.decode_step(cfg, p, c, t,
@@ -144,17 +148,18 @@ def _jax_serve(cfg, params, tokens, steps, cache_dtype, feed=None):
         ids.append(np.asarray(tok))
         if t == steps:
             break
-        logits, cache = decode(params, cache, tok, PROMPT + t)
+        logits, cache = decode(params, cache, tok, n_prompt + t)
         out.append(np.asarray(logits[:, -1], np.float32))
     return out, np.concatenate(ids, 1), pcache, cache
 
 
 def _torch_serve(cfg, params, tokens, steps, cache_dtype, feed=None):
+    """The port's counterpart of `_jax_serve`: the prefill cache goes
+    through `transformer.fill_cache`, as `generate` copies it."""
+    n_seq, n_prompt = tokens.shape
     logits, pcache = transformer.prefill(cfg, params, {"tokens": tokens})
-    cache = transformer.init_cache(cfg, B, PROMPT + steps, cache_dtype,
-                                   device="cpu")
-    for key in ("k", "v"):
-        cache[key][:, :, :PROMPT] = pcache[key]
+    cache = transformer.fill_cache(cfg, transformer.init_cache(
+        cfg, n_seq, n_prompt + steps, cache_dtype, device="cpu"), pcache)
     out, ids = [logits[:, -1].float().numpy()], []
     for t in range(steps + 1):
         tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
@@ -164,7 +169,7 @@ def _torch_serve(cfg, params, tokens, steps, cache_dtype, feed=None):
         if t == steps:
             break
         logits, cache = transformer.decode_step(cfg, params, cache, tok,
-                                                PROMPT + t)
+                                                n_prompt + t)
         out.append(logits[:, -1].float().numpy())
     return out, np.concatenate(ids, 1), pcache, cache
 
@@ -330,8 +335,8 @@ def test_entry_points_raise_without_a_card(entry, monkeypatch):
             transformer.params_from_jax({"embed": np.zeros((2, 2))})
 
 
-@pytest.mark.parametrize("arch", ["hymba-1.5b", "rwkv6-7b",
-                                  "qwen2-vl-72b", "whisper-large-v3"])
+@pytest.mark.parametrize("arch", ["hymba-1.5b", "qwen2-vl-72b",
+                                  "whisper-large-v3"])
 def test_unported_families_raise(arch):
     import dataclasses
 
