@@ -54,12 +54,16 @@ run, exit code != 0):
               random parameters drawn as phase 7 draws them):
               `flash_attention_fwd` at the q, k, v a real prefill hands
               it at a global layer (5) and a local one (0, window 512),
-              at a ragged length (2047) and in float32 — max error
-              against the plain version (2e-2 bf16, 2e-5 float32),
-              bit-identical relaunch, ms beside the plain version,
-              `scaled_dot_product_attention` (its backend logged) and the
-              bound (compulsory bytes at 3.35 TB/s, unmasked-pair flops at
-              the bf16 tensor-core peak, or float32's); then one prefill
+              at a ragged length (2047) and in float32 — the route (bf16
+              on the tensor-core kernel, float32 on the SIMT one), max
+              error against the plain version (2e-2 bf16, 2e-5 float32)
+              and, on the tensor-core route, against the emulation of its
+              rounding points (p_bf16) within 2^-7 |emu| + 2^-10 max|v|,
+              bit-identical relaunch, ms and TFLOP/s beside the plain
+              version, `scaled_dot_product_attention` (its backend logged)
+              and the bound (compulsory bytes at 3.35 TB/s, unmasked-pair
+              flops at the bf16 tensor-core peak, or float32's); then one
+              prefill
               and one decode step alone, and `generate` with batch 4,
               prompt 2048 and 32 greedy tokens, each with its launch
               counters zeroed just before and read just after: exactly 26
@@ -67,7 +71,9 @@ run, exit code != 0):
               prefill and decode ms and tokens/s, KV cache MiB, peak
               memory, and one prefill and one decode step under
               torch.profiler (kernels by device time and launches, the
-              flash kernel's share, the idle share); last,
+              flash kernel's share, the idle share; the prefill's flash
+              time must be the tensor-core kernel's, and the SIMT kernel
+              must not show); last,
               reduced gemma3-1b in float32 served on the card and on the
               CPU: prefill and 8 decode steps' logits within rtol 1e-4,
               greedy ids equal
@@ -84,10 +90,12 @@ run, exit code != 0):
               2e-5 x max |plain| (float32), bit-identical relaunch, ms
               beside the plain version, `torch.bmm` and the bound — and
               `flash_attention_fwd` at layer 0's q, k, v (D 128, 16 heads
-              over 16); then phase 6's serving run through `generate`:
-              exactly 72 gmm and 24 flash launches per prefill, 72 gmm
-              and 0 flash per decode step, 0 gather; the profile (the
-              gmm and flash kernels' shares); reduced qwen2-moe-a2.7b in
+              over 16; the tensor-core route, checked as in phase 6);
+              then phase 6's serving run through `generate`: exactly 72
+              gmm and 24 flash launches per prefill, 72 gmm and 0 flash
+              per decode step, 0 gather; the profile (the gmm and the
+              tensor-core flash kernels' shares, no SIMT flash kernel);
+              reduced qwen2-moe-a2.7b in
               float32 on the card and on the CPU within rtol 1e-4, greedy
               ids equal
   8. serve    rwkv6-7b at full width (32 layers, d_model 4096, 64 WKV
@@ -158,6 +166,9 @@ PER = {**{run: "train step" for run in RUNS}, SERVE: "prefill",
        MOE_SERVE: "prefill", MOE_DECODE: "decode step",
        RWKV_SERVE: "prefill"}
 DEVICE = "cuda"
+# the CUDA names of the flash kernels: the bf16 prefills must spend their
+# attention time in the tensor-core one and never in the SIMT one
+FLASH_TC, FLASH_SIMT = "flash_fwd_tc_kernel", "flash_fwd_kernel"
 REPLACES = {
     "gather_agg_fwd": "src/repro/kernels/gather_agg/kernel.py:56",
     "gather_agg_bwd_dx": "src/repro/kernels/gather_agg/kernel.py:101",
@@ -822,21 +833,46 @@ def sdpa_backend(torch, fn) -> str:
 
 
 def check_flash(torch, label, q, k, v, kw, tag="6"):
-    """flash_attention_fwd against its plain version at one shape: max
-    error (2e-2 bf16, 2e-5 float32, the reference's tolerances), bit-
-    identical relaunch, ms, plain ms, SDPA ms and the bound."""
+    """flash_attention_fwd against its plain version at one shape: the
+    route it took (bf16 must take the tensor-core kernel, float32 the
+    SIMT one), max error (2e-2 bf16, 2e-5 float32, the reference's
+    tolerances), on the tensor-core route also the error against the
+    emulation of its rounding points (`attention_ref(..., p_bf16=True,
+    kv_tile=...)`) within 2^-7 |emulation| + 2^-10 max|v| (one output ulp
+    plus weights that round the other way: `tests/test_torch_gpu.py`
+    derives it), bit-identical relaunch, ms and TFLOP/s, plain ms, SDPA ms
+    and the bound."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels.flash_attention import kernel, ref
     B, Sq, H, D = q.shape
     Skv = k.shape[1]
+    routes = dict(kernel.ROUTES)
     out = kernel.flash_attention_fwd(q, k, v, **kw)
+    route = [r for r, n in kernel.ROUTES.items() if n != routes[r]]
+    want_route = ["tensor_core" if q.dtype == torch.bfloat16 else "simt"]
+    check(route == want_route, f"flash {label}: route {route}, not "
+          f"{want_route}")
     want = ref.attention_ref(q, k, v, **kw)
     err = (out.float() - want.float()).abs().max().item()
     tol = 2e-2 if q.dtype == torch.bfloat16 else 2e-5
     check(bool(torch.isfinite(out).all()), f"flash {label}: non-finite")
     check(torch.allclose(out.float(), want.float(), rtol=tol, atol=tol),
           f"flash {label}: max abs err {err} (tol {tol})")
+    emu_text = ""
+    if route == ["tensor_core"]:
+        emu = ref.attention_ref(q, k, v, p_bf16=True,
+                                kv_tile=kernel.tc_kv_tile(D), **kw).float()
+        diff = (out.float() - emu).abs()
+        v_max = float(v.float().abs().max())
+        ratio = float((diff / (2.0 ** -7 * emu.abs() + 2.0 ** -10 * v_max))
+                      .max())
+        emu_text = (f"  vs the p_bf16 emulation: max abs err "
+                    f"{float(diff.max()):.3e}, {ratio:.3f} of its bound "
+                    f"2^-7 |emu| + 2^-10 max|v| (max|v| {v_max:.3f})")
+        check(ratio <= 1.0, f"flash {label}: {ratio} of the emulation's "
+              f"bound")
+        del emu, diff
     check(torch.equal(out, kernel.flash_attention_fwd(q, k, v, **kw)),
           f"flash {label}: differs between launches")
     mask = ref._mask(torch.arange(Sq, device=q.device) + kw["q_offset"],
@@ -857,22 +893,26 @@ def check_flash(torch, label, q, k, v, kw, tag="6"):
     pairs = int(mask.sum())                 # unmasked (q, kv) per head
     peak = BF16_FLOPS_PER_S if q.dtype == torch.bfloat16 else \
         F32_FLOPS_PER_S
+    flops = 4.0 * D * pairs * B * H
     b_ms, b_by = _bound_ms(
-        (2 * q.numel() + 2 * k.numel()) * q.element_size(),
-        4.0 * D * pairs * B * H, peak)
+        (2 * q.numel() + 2 * k.numel()) * q.element_size(), flops, peak)
     got = {"max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+           "route": route[0],
            "ms": cuda_ms(torch, lambda: kernel.flash_attention_fwd(
                q, k, v, **kw)),
            "plain_ms": cuda_ms(torch, lambda: ref.attention_ref(
                q, k, v, **kw)),
            "library_ms": cuda_ms(torch, sdpa)}
+    got["tflops"] = flops / got["ms"] / 1e9
     log(f"[{tag} kernels] flash_attention_fwd {label}: q {tuple(q.shape)} k "
-        f"{tuple(k.shape)} {str(q.dtype)[6:]} {kw}  unmasked pairs per "
-        f"head {pairs}  max_abs_err {err:.3e} (tol {tol:.0e})  "
-        f"bit-identical relaunch True  ms {got['ms']:.4f}  plain_ms "
-        f"{got['plain_ms']:.4f}  library_ms {got['library_ms']:.4f} "
-        f"(scaled_dot_product_attention via {backend}, err "
-        f"{float(lib_err):.3e})  bound_ms {b_ms:.4f} ({b_by})")
+        f"{tuple(k.shape)} {str(q.dtype)[6:]} {kw}  route {route[0]}  "
+        f"unmasked pairs per head {pairs}  max_abs_err {err:.3e} (tol "
+        f"{tol:.0e}){emu_text}  bit-identical relaunch True  ms "
+        f"{got['ms']:.4f} ({got['tflops']:.1f} TFLOP/s; the bound's "
+        f"{flops / b_ms / 1e9:.1f})  plain_ms {got['plain_ms']:.4f}  "
+        f"library_ms {got['library_ms']:.4f} (scaled_dot_product_attention "
+        f"via {backend}, err {float(lib_err):.3e})  bound_ms {b_ms:.4f} "
+        f"({b_by})")
     return got
 
 
@@ -990,13 +1030,14 @@ def phase_serve(torch, cfg, params, tokens, run, tag, per_prefill,
 
 
 def phase_serve_profile(torch, cfg, params, tokens, res, run, tag, shares,
-                        step_kernels=(), top: int = 8):
+                        step_kernels=(), absent=(), top: int = 8):
     """One more prefill and one more decode step under torch.profiler:
     CUDA kernels by device time, the share of each hand-written kernel of
     `shares` ({label: a substring of its CUDA name}; each must show in the
     prefill), and the device's idle share of the unprofiled prefill / mean
     decode step of `res`, 1 - kernel ms / that time. The decode step must
-    show each label of `step_kernels` and no other kernel of `shares`."""
+    show each label of `step_kernels` and no other kernel of `shares`. No
+    kernel whose name holds a substring of `absent` may show in either."""
     from repro_torch.train.train_step import make_decode_step
     from repro_torch.train.train_step import make_prefill_step
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
@@ -1015,6 +1056,9 @@ def phase_serve_profile(torch, cfg, params, tokens, res, run, tag, shares,
     got, text = share(dev, busy)
     for label, ms in got.items():
         check(ms > 0, f"the profiled prefill shows no {label} kernel")
+    for sub in absent:
+        check(not any(sub in k for k, _, _ in dev),
+              f"the profiled prefill shows {sub}")
     log(f"[{tag} profile] {run} prefill: kernels {busy:.2f} ms in "
         f"{sum(n for _, _, n in dev)} launches, {text}, device idle share "
         f"{1 - busy / res.prefill_ms:.3f} of the unprofiled prefill "
@@ -1027,6 +1071,9 @@ def phase_serve_profile(torch, cfg, params, tokens, res, run, tag, shares,
         torch, lambda: decode(params, cache, tok, SERVE_PROMPT))
     busy = sum(t for _, t, _ in dev) / 1e3
     got, text = share(dev, busy)
+    for sub in absent:
+        check(not any(sub in k for k, _, _ in dev),
+              f"the profiled decode step shows {sub}")
     for label in shares:
         shown = got[label] > 0
         check(shown == (label in step_kernels),
@@ -1424,7 +1471,7 @@ def main() -> int:
         torch, cfg, params, tokens, SERVE, "6",
         {"flash_attention_fwd": cfg.num_layers}, {})
     phase_serve_profile(torch, cfg, params, tokens, res, SERVE, "6",
-                        {"flash": "flash_fwd_kernel"})
+                        {"flash": FLASH_TC}, absent=(FLASH_SIMT,))
     del params
     torch.cuda.empty_cache()
     phase_serve_card_vs_cpu(torch, "gemma3-1b", "6")
@@ -1437,8 +1484,8 @@ def main() -> int:
          "moe_gmm_fwd": 3 * cfg.num_layers},
         {"moe_gmm_fwd": 3 * cfg.num_layers})
     phase_serve_profile(torch, cfg, params, tokens, res, MOE_SERVE, "7",
-                        {"flash": "flash_fwd_kernel",
-                         "moe_gmm": "gmm_bf16_kernel"}, ("moe_gmm",))
+                        {"flash": FLASH_TC, "moe_gmm": "gmm_bf16_kernel"},
+                        ("moe_gmm",), absent=(FLASH_SIMT,))
     del params
     torch.cuda.empty_cache()
     phase_serve_card_vs_cpu(torch, MOE, "7")

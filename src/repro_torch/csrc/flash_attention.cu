@@ -3,51 +3,104 @@
 // Plain C interface, loaded with ctypes by
 // repro_torch/kernels/flash_attention/kernel.py; built for sm_90a.
 //
-// flash_attention_fwd replaces the TPU kernel flash_attention_pallas
-// (src/repro/kernels/flash_attention/kernel.py:65):
+// flash_attention_fwd and flash_attention_fwd_tc replace the TPU kernel
+// flash_attention_pallas (src/repro/kernels/flash_attention/kernel.py:65):
 //     o[b, i, h] = sum_j softmax_j(s[i, j]) v[b, j, h // (H / KH)]
 //     s[i, j]    = <q[b, i, h], k[b, j, h // (H / KH)]> / sqrt(D), or -1e30
 //                  where masked: j > q_pos when causal, q_pos - j >= window
 //                  unless the layer is global; q_pos = q_offset + i.
-// q (B, Sq, H, D), k / v (B, Skv, KH, D), contiguous, float32 or bfloat16;
-// float32 scores, softmax and sums; the output in q's dtype. Any Sq and
-// Skv (the TPU kernel asserts that its tiles divide them), D <= 256.
+// q (B, Sq, H, D), k / v (B, Skv, KH, D), contiguous; float32 scores,
+// softmax and sums; the output in q's dtype. Any Sq and Skv (the TPU
+// kernel asserts that its tiles divide them). Two kernels, two entry
+// points; the wrapper picks one from the dtype, D and alignment:
+//
+//  - flash_attention_fwd_tc: bf16 q, k, v with D 64, 128 or 256, every
+//    pointer 16-byte aligned (the row strides H D 2 and KH D 2 bytes are
+//    then multiples of 16). Tensor cores, wgmma fed by TMA.
+//  - flash_attention_fwd: float32 (exact float32, no tensor cores), and
+//    bf16 at any other D <= 256 or alignment. SIMT fmaf.
 //
 // What bounds it on an H100: operations. At gemma3-1b's prefill (S 2048,
 // D 256) each (query, key) pair costs 4 D flops and each input byte is
 // reused by a whole tile of rows, far above the card's ~295 flops/byte
-// bf16 ridge. This first version is simple and uses no tensor cores (the
-// float32 path must stay exact float32 anyway): one block of 256 threads
-// per 64 query rows of one (batch, head). The Q tile and each K / V tile
-// are staged in shared memory in the input dtype (bf16 halves the bytes;
-// rows padded by one pair so that the 16 rows a warp reads sit in
-// distinct banks). Thread (ty, tx) of the 16 x 16 grid computes the
-// scores of rows ty + 16 i and columns tx + 16 j as register-blocked dot
-// products; the row max and row sum are reduced over the 16 lanes that
-// hold a row with xor shuffles; the probabilities go through shared
-// memory to the P V product, where the same thread owns rows ty + 16 i of
-// the output and column pairs 2 tx + 32 j, so the running max, sum and
-// rescale factor never leave its registers. wgmma and TMA are a later
-// version's tools.
+// bf16 ridge.
 //
-// Masks. Masked scores take the reference's finite -1e30, never -inf, so
-// no inf - inf appears. A block skips the KV tiles that lie wholly outside
-// the mask of all its rows (in a local layer, every tile before the
-// window): where a row of the reference sees such a tile before its first
-// unmasked key it adds exp(0) terms that the next real tile's rescale
-// exp(-1e30 - m) multiplies by exactly 0, and after it, exp(-1e30 - m) =
-// 0, so skipping gives the same result. A row that sees no key at all
-// (possible only when the window excludes every key) would take the
-// reference's uniform average over all keys; if the block's last row is
-// such a row, which it is whenever any row is, the block keeps every tile.
-// Keys past Skv (the ragged last tile) are zero-filled and get probability
-// exactly 0. The l >= 1e-30 floor of the division is kept.
+// The tensor-core kernel. Work items are 128 query rows of one (batch,
+// head), numbered longest causal rows first. One persistent block of 384
+// threads per SM walks them in rounds of gridDim.x, in snake order, so the
+// longest items of one round meet the shortest of the next (no atomics:
+// the schedule is fixed). Warpgroup 0 is the producer; warpgroups 1 and 2
+// each compute 64 rows of an item. setmaxnreg gives the producer 24
+// registers and each consumer thread 240 (the O accumulator alone is
+// D / 2 float32 a thread: 128 at D 256). One producer thread loads each
+// item's Q by TMA (two Q buffers at D <= 128, so that the next item's Q
+// lands while this one runs; one at D 256, where shared memory is full)
+// and streams the K and V tiles (BK keys: 128 at D <= 128, 64 at D 256)
+// through a ring of 2 stages that runs on across items, in 64-column
+// slabs in the 128-byte swizzle that wgmma reads. K and V have their own
+// full and empty mbarriers, so that Q K^T starts before V lands and a K
+// stage is refilled as soon as its product is done. The tensor maps are
+// encoded on the host per call (cuTensorMapEncodeTiled, taken through
+// cudaGetDriverEntryPoint) and passed as __grid_constant__ parameters;
+// TMA zero-fills rows past Sq and Skv. Per tile j a consumer warpgroup
+// issues S_j = Q K_j^T (wgmma.m64nBKk16, both operands in shared memory,
+// K-major, float32 accumulators) and O += P_{j-1} V_{j-1} (wgmma.m64nDk16
+// with P, converted to bf16, from registers: the accumulator layout of S
+// is the A-operand layout of P V; V read from its (keys, D) tile through
+// the transpose flag) together, then masks S_j (only a tile that crosses
+// the causal diagonal or the window's edge, or holds keys past Skv, with
+// 32-bit column bounds per row) and runs the online softmax in registers
+// in the log2 domain (the row max reduced over the 4 lanes of the
+// accumulator layout that share a row, the row sum at the end) while the
+// P V product runs, and rescales O once it is done. The epilogue divides
+// by max(l, 1e-30), rounds to bf16 into the warpgroup's own Q rows in the
+// 128-byte swizzle and writes them with TMA stores (rows past Sq are not
+// written). Tried and measured slower on an H100 with this code: FA3's
+// order (O rescaled under the next Q K^T) and pingpong scheduling of the
+// two warpgroups. Not tried: packing the query heads that share a KV head
+// into one item.
+//
+// Its numerics, held against ref.attention_ref(..., p_bf16=True,
+// kv_tile=BK) on the card: Q K^T of bf16 operands is exact products
+// summed in float32 (only the order of the sums differs from the plain
+// version); p = 2^(t - m) from the running row max m of the tiles so far
+// is rounded to bf16 for P V (the rounding the TPU's MXU makes at DEFAULT
+// precision), a relative error of at most 2^-8 a weight, so the output
+// moves by at most 2^-8 max|v| before its own bf16 rounding; l sums the
+// unrounded float32 p.
+//
+// The SIMT kernel is simple: one block of 256 threads per 64 query rows
+// of one (batch, head). The Q tile and each K / V tile are staged in
+// shared memory in the input dtype (bf16 halves the bytes; rows padded by
+// one pair so that the 16 rows a warp reads sit in distinct banks).
+// Thread (ty, tx) of the 16 x 16 grid computes the scores of rows
+// ty + 16 i and columns tx + 16 j as register-blocked dot products; the
+// row max and row sum are reduced over the 16 lanes that hold a row with
+// xor shuffles; the probabilities go through shared memory to the P V
+// product, where the same thread owns rows ty + 16 i of the output and
+// column pairs 2 tx + 32 j, so the running max, sum and rescale factor
+// never leave its registers.
+//
+// Masks (both kernels). Masked scores take the reference's finite -1e30,
+// never -inf, so no inf - inf appears. A block skips the KV tiles that
+// lie wholly outside the mask of all its rows (in a local layer, every
+// tile before the window): where a row of the reference sees such a tile
+// before its first unmasked key it adds exp(0) terms that the next real
+// tile's rescale exp(-1e30 - m) multiplies by exactly 0, and after it,
+// exp(-1e30 - m) = 0, so skipping gives the same result. A row that sees
+// no key at all (possible only when the window excludes every key) would
+// take the reference's uniform average over all keys; if the block's last
+// row is such a row, which it is whenever any row is, the block keeps
+// every tile. Keys past Skv (the ragged last tile) are zero-filled and
+// get probability exactly 0. The l >= 1e-30 floor of the division is
+// kept.
 //
 // There are no atomics and every sum runs in a fixed order, so a relaunch
-// is bit-identical. The function launches on the caller's stream,
+// is bit-identical. Each function launches on the caller's stream,
 // allocates nothing, and returns the first CUDA error of the launch (the
-// shared-memory opt-in, then cudaGetLastError()).
+// tensor maps, the shared-memory opt-in, then cudaGetLastError()).
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -352,6 +405,756 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
+
+// ===========================================================================
+// The tensor-core kernel: bf16 q, k, v with D 64, 128 or 256
+// ===========================================================================
+namespace {
+namespace tc {
+
+constexpr int kBM = 128;        // query rows per block: 2 consumer warpgroups
+constexpr int kThreads = 384;   // warpgroup 0 loads, warpgroups 1 and 2 compute
+constexpr int kStages = 2;      // depth of the K / V ring
+constexpr int kConsumerWarps = 8;
+constexpr float kNegInf = -1e30f;
+constexpr float kPastEnd = -3e38f;   // a key past Skv: below every score
+
+template <int D>
+struct Cfg {
+  static constexpr int kBK = D >= 256 ? 64 : 128;    // keys per KV tile
+  static constexpr int kSlabs = D / 64;              // 128-byte column slabs
+  static constexpr int kQSlab = kBM * 128;           // bytes of one Q slab
+  static constexpr int kKVSlab = kBK * 128;          // ... of one K / V slab
+  static constexpr int kQBytes = kBM * D * 2;
+  // Q buffers: two where shared memory allows, so that the next item's Q
+  // lands while this one runs
+  static constexpr int kQBufs = D >= 256 ? 1 : 2;
+  static constexpr int kKVBytes = kBK * D * 2;       // one K or one V tile
+  // q full, q empty; k, v full; k, v empty
+  static constexpr int kBars = 2 * kQBufs + 4 * kStages;
+  // 1024 bytes of slack to align the base to the 128-byte swizzle's atom
+  static constexpr size_t kSmem =
+      1024 + kQBufs * kQBytes + 2 * kStages * kKVBytes + 8 * kBars;
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count));
+}
+
+// one arrival that also sets the bytes the barrier's phase waits for
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar,
+                                               uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
+}
+
+// spin until the phase of parity `parity` has completed
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+}
+
+// TMA: the box at (c0, c1, c2, c3) of a 4-D tensor map into shared memory,
+// completing `bar`'s transaction bytes; elements out of bounds read as 0
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map,
+                                         uint64_t* bar, int c0, int c1,
+                                         int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// TMA: a box of shared memory to the 4-D tensor map at (c0, c1, c2, c3);
+// elements out of bounds are not written
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          const void* src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, "
+      "%4, %5}], [%1];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a tile in the 128-byte swizzle (the
+// layout TMA writes with CU_TENSOR_MAP_SWIZZLE_128B); offsets in bytes
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16 |
+         static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32 |
+         static_cast<uint64_t>(1) << 62;
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// pins accumulator registers in place around asynchronous wgmma work, so
+// the compiler moves no read or write of them across it
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+
+// keeps the bf16 P registers live until the wgmma reading them is done
+template <int N>
+__device__ __forceinline__ void fence_p(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// d (64 x N, float32, the accumulator layout) = or += a (64 x 16) b (16 x
+// N): both operands in shared memory, K-major (scale_d 0 overwrites d)
+template <int N>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t a,
+                                         uint64_t b, int scale_d);
+// d += a b with a from registers (bf16 pairs in the accumulator layout of
+// a 64 x 16 tile) and b read transposed: a (16 x N) tile stored N-major
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2],
+                                         const uint32_t (&a)[4], uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma_ss<64>(float (&d)[32], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_ss<128>(float (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<64>(float (&d)[32],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<128>(float (&d)[64],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs<256>(float (&d)[128],
+                                             const uint32_t (&a)[4],
+                                             uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %133, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, {%128, %129, %130, %131}, %132, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]),
+        "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]),
+        "+f"(d[70]), "+f"(d[71]), "+f"(d[72]), "+f"(d[73]), "+f"(d[74]),
+        "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
+        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]),
+        "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]),
+        "+f"(d[95]), "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]),
+        "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]), "+f"(d[104]),
+        "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]),
+        "+f"(d[110]), "+f"(d[111]), "+f"(d[112]), "+f"(d[113]), "+f"(d[114]),
+        "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
+        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]),
+        "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+
+// One work item: 128 query rows of one (b, h) and the KV tiles they see.
+// Items are numbered longest causal rows first: the last query block of
+// every (b, h), then the one before it, ...; the H heads of one batch row
+// side by side, so that the heads sharing a KV head read it from L2
+// together.
+struct Item {
+  int b, h, kh, q0, q_rows, t_lo, t_hi;
+  int64_t p_first, p_last;
+  bool keep_all;   // the last row sees no key: keep (and mask) every tile
+};
+
+template <int BK>
+__device__ __forceinline__ Item item_at(int w, int n_qb, int B, int Sq,
+                                        int Skv, int H, int KH, int causal,
+                                        int64_t window, int is_global,
+                                        int64_t q_offset) {
+  Item I;
+  const int pair = w % (H * B);
+  I.h = pair % H;
+  I.b = pair / H;
+  I.kh = I.h / (H / KH);
+  I.q0 = (n_qb - 1 - w / (H * B)) * kBM;
+  I.q_rows = min(kBM, Sq - I.q0);
+  // the KV tiles some row may see: keys [lo, hi], from the first row's
+  // window start to the last row's causal end (as in the SIMT kernel)
+  I.p_first = q_offset + I.q0;
+  I.p_last = I.p_first + I.q_rows - 1;
+  const int64_t hi = causal ? min64(Skv - 1, I.p_last) : Skv - 1;
+  const int64_t lo_last = is_global ? 0 : max64(0, I.p_last - window + 1);
+  I.keep_all = lo_last > hi;
+  I.t_lo = 0;
+  I.t_hi = (Skv + BK - 1) / BK;
+  if (!I.keep_all) {
+    const int64_t lo = is_global ? 0 : max64(0, I.p_first - window + 1);
+    I.t_lo = static_cast<int>(lo / BK);
+    I.t_hi = static_cast<int>(hi / BK) + 1;
+  }
+  return I;
+}
+
+// the n-th item of this block: a persistent block per SM walks rounds of
+// gridDim.x items, in snake order (forward, then backward), so that the
+// longest items of one round meet the shortest of the next
+__device__ __forceinline__ int item_of(int n) {
+  const int g = static_cast<int>(gridDim.x), c = static_cast<int>(blockIdx.x);
+  return n * g + (n % 2 == 0 ? c : g - 1 - c);
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tk,
+                        const __grid_constant__ CUtensorMap tv,
+                        const __grid_constant__ CUtensorMap to, int B,
+                        int Sq, int Skv, int H, int KH, int causal,
+                        int64_t window, int is_global, int64_t q_offset,
+                        float scale_log2, int n_items) {
+  using C = Cfg<D>;
+  constexpr int BK = C::kBK;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sQ = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  unsigned char* sK = sQ + C::kQBufs * C::kQBytes;   // [stage][slab][BK][64]
+  unsigned char* sV = sK + kStages * C::kKVBytes;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sV + kStages * C::kKVBytes);
+  uint64_t* q_empty = q_full + C::kQBufs;
+  uint64_t* k_full = q_empty + C::kQBufs;
+  uint64_t* v_full = k_full + kStages;
+  uint64_t* k_empty = v_full + kStages;
+  uint64_t* v_empty = k_empty + kStages;
+  const int n_qb = (Sq + kBM - 1) / kBM;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < C::kQBufs; ++s) {
+      mbar_init(&q_full[s], 1);
+      mbar_init(&q_empty[s], 2);                  // one per consumer group
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&k_empty[s], kConsumerWarps);
+      mbar_init(&v_empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (threadIdx.x < 128) {
+    // producer warpgroup: one thread issues every TMA load; the K / V
+    // ring runs on across items (`it` counts the tiles loaded so far)
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n");
+    if (threadIdx.x == 0) {
+      int it = 0;
+      for (int n = 0;; ++n) {
+        const int w = item_of(n);
+        if (w >= n_items) break;
+        const Item I = item_at<BK>(w, n_qb, B, Sq, Skv, H, KH, causal,
+                                   window, is_global, q_offset);
+        // the buffer's last item has stored its O
+        const int qs = n % C::kQBufs;
+        unsigned char* q_dst = sQ + qs * C::kQBytes;
+        mbar_wait(&q_empty[qs], ((n / C::kQBufs) & 1) ^ 1);
+        mbar_expect_tx(&q_full[qs], C::kQBytes);
+#pragma unroll
+        for (int s = 0; s < C::kSlabs; ++s)
+          tma_load(q_dst + s * C::kQSlab, &tq, &q_full[qs], 64 * s, I.h,
+                   I.q0, I.b);
+        for (int t = I.t_lo; t < I.t_hi; ++t, ++it) {
+          const int st = it % kStages;
+          const uint32_t free = ((it / kStages) & 1) ^ 1;
+          unsigned char* k_dst = sK + st * C::kKVBytes;
+          unsigned char* v_dst = sV + st * C::kKVBytes;
+          mbar_wait(&k_empty[st], free);
+          mbar_expect_tx(&k_full[st], C::kKVBytes);
+#pragma unroll
+          for (int s = 0; s < C::kSlabs; ++s)
+            tma_load(k_dst + s * C::kKVSlab, &tk, &k_full[st], 64 * s, I.kh,
+                     t * BK, I.b);
+          mbar_wait(&v_empty[st], free);
+          mbar_expect_tx(&v_full[st], C::kKVBytes);
+#pragma unroll
+          for (int s = 0; s < C::kSlabs; ++s)
+            tma_load(v_dst + s * C::kKVSlab, &tv, &v_full[st], 64 * s, I.kh,
+                     t * BK, I.b);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroups: rows 64 cw .. 64 cw + 63 of each item; this
+    // thread holds rows r and r + 8 of them, columns 8 j + c2 and + 1
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n");
+    const int cw = threadIdx.x / 128 - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int rl = 16 * warp + lane / 4;          // row r - 64 cw
+    const int r = 64 * cw + rl, c2 = 2 * (lane % 4);
+
+    float acc[D / 2], s[BK / 2];
+    uint32_t p[BK / 4];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    float m0, m1, l0, l1;
+    int it = 0;                                   // tiles consumed so far
+    int stored = -1;   // the Q buffer whose O is still being stored, if any
+    // once the TMA stores have read this warpgroup's O out of a Q buffer,
+    // the buffer is free for the producer (one arrival per warpgroup)
+    auto free_q = [&]() {
+      if (stored >= 0 && threadIdx.x % 128 == 0) {
+        asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+        mbar_arrive(&q_empty[stored]);
+      }
+      stored = -1;
+    };
+
+    // S = Q K^T of the tile in stage st: D / 16 steps of k16, both
+    // operands K-major
+    auto issue_qk = [&](uint32_t q_addr, int st) {
+      const uint32_t k_addr = smem_u32(sK + st * C::kKVBytes);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;
+        wgmma_ss<BK>(
+            s, sw128_desc(q_addr + (kk / 4) * C::kQSlab + off, 16, 1024),
+            sw128_desc(k_addr + (kk / 4) * C::kKVSlab + off, 16, 1024),
+            kk > 0);
+      }
+    };
+    // O += P V: BK / 16 steps of k16, V read transposed from its (keys, D)
+    // tile; LBO steps over the 64-wide column slabs, SBO over 8 keys
+    auto issue_pv = [&](int st) {
+      const uint32_t v_addr = smem_u32(sV + st * C::kKVBytes);
+#pragma unroll
+      for (int kk = 0; kk < BK / 16; ++kk) {
+        const uint32_t a[4] = {p[4 * kk], p[4 * kk + 1], p[4 * kk + 2],
+                               p[4 * kk + 3]};
+        wgmma_rs<D>(acc, a,
+                    sw128_desc(v_addr + kk * 16 * 128, C::kKVSlab, 1024));
+      }
+    };
+    auto release = [&](uint64_t* bar) {   // this warp is done with a tile
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    for (int n = 0;; ++n) {
+      const int w = item_of(n);
+      if (w >= n_items) break;
+      const Item I = item_at<BK>(w, n_qb, B, Sq, Skv, H, KH, causal,
+                                 window, is_global, q_offset);
+      const int64_t pos = q_offset + I.q0 + r;    // query position of row r
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+      m0 = m1 = kNegInf;
+      l0 = l1 = 0.f;
+
+      // mask, online softmax and row sums of tile t (in s); returns the
+      // rescale factors of rows r and r + 8 in a0, a1
+      auto softmax = [&](int t, float& a0, float& a1) {
+        // scale into the log2 domain. Only a tile that crosses the causal
+        // diagonal or the window's edge, or holds keys past Skv, is
+        // masked: row r + 8 h sees the tile's columns [lo_h, hi_h] (32-bit
+        // offsets from the tile's first key, clamped to [-1, BK]); masked
+        // keys take -1e30, keys past Skv -3e38 (below every masked score,
+        // so their weight is exactly 0 even in a row that sees no key)
+        const int k0 = t * BK;
+        const bool edge = I.keep_all || k0 + BK > Skv ||
+                          (causal && k0 + BK - 1 > I.p_first) ||
+                          (!is_global && I.p_last - k0 >= window);
+        if (edge) {
+          int lo[2], hi[2];
+          const int end = min(Skv - k0, BK) - 1 - c2;   // last key in range
+#pragma unroll
+          for (int h = 0; h < 2; ++h) {
+            const int64_t qp = pos + 8 * h - k0;
+            const int64_t top = causal ? min64(qp, BK) : BK;
+            const int64_t bot = is_global ? 0 : max64(qp - window + 1, -1);
+            hi[h] = static_cast<int>(max64(top, -1)) - c2;
+            lo[h] = static_cast<int>(min64(bot, BK)) - c2;
+          }
+#pragma unroll
+          for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int o = 8 * j + (e & 1), h = e >> 1;  // column - c2
+              const float x = s[4 * j + e] * scale_log2;
+              s[4 * j + e] = o > end ? kPastEnd
+                             : (o >= lo[h] && o <= hi[h]) ? x : kNegInf;
+            }
+        } else {
+#pragma unroll
+          for (int j = 0; j < BK / 2; ++j) s[j] *= scale_log2;
+        }
+        // rows r (registers 4 j, 4 j + 1) and r + 8 (4 j + 2, 4 j + 3);
+        // the 4 lanes of a quad hold a row together
+        float mx[4] = {m0, m1, m0, m1};
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            mx[(e >> 1) + 2 * (j & 1)] =
+                fmaxf(mx[(e >> 1) + 2 * (j & 1)], s[4 * j + e]);
+        float mx0 = fmaxf(mx[0], mx[2]), mx1 = fmaxf(mx[1], mx[3]);
+#pragma unroll
+        for (int off = 1; off < 4; off <<= 1) {
+          mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+          mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+        }
+        a0 = ex2(m0 - mx0);
+        a1 = ex2(m1 - mx1);
+        m0 = mx0;
+        m1 = mx1;
+        float rs[4] = {0.f, 0.f, 0.f, 0.f};     // l sums the unrounded p
+#pragma unroll
+        for (int j = 0; j < BK / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            s[4 * j + e] = ex2(s[4 * j + e] - (e < 2 ? m0 : m1));
+            rs[(e >> 1) + 2 * (j & 1)] += s[4 * j + e];
+          }
+        l0 = l0 * a0 + (rs[0] + rs[2]);
+        l1 = l1 * a1 + (rs[1] + rs[3]);
+      };
+
+      // Per tile j the warpgroup issues S_j = Q K_j^T and O += P_{j-1}
+      // V_{j-1} together, then runs the softmax of S_j while the P V
+      // product is on the tensor cores; O is rescaled once it is done. K_j
+      // is released as soon as S_j is done, V_{j-1} after its product.
+      const int nt = I.t_hi - I.t_lo;
+      const int qs = n % C::kQBufs;
+      unsigned char* so = sQ + qs * C::kQBytes + 64 * cw * 128;  // our rows
+      mbar_wait(&q_full[qs], (n / C::kQBufs) & 1);
+      for (int i = 0; i < nt; ++i) {
+        const int st = (it + i) % kStages, pst = (it + i - 1) % kStages;
+        mbar_wait(&k_full[st], ((it + i) / kStages) & 1);
+        if (i > 0) mbar_wait(&v_full[pst], ((it + i - 1) / kStages) & 1);
+        fence_regs(s);
+        fence_regs(acc);
+        wgmma_fence();
+        issue_qk(smem_u32(so), st);
+        wgmma_commit();
+        if (i > 0) {
+          issue_pv(pst);
+          wgmma_commit();
+          wgmma_wait<1>();
+        } else {
+          wgmma_wait<0>();
+        }
+        fence_regs(s);
+        release(&k_empty[st]);
+        float a0, a1;
+        softmax(I.t_lo + i, a0, a1);
+        if (i == 0) free_q();      // the last item's stores are done by now
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_p(p);
+        if (i > 0) release(&v_empty[pst]);
+#pragma unroll
+        for (int j = 0; j < D / 8; ++j) {
+          acc[4 * j] *= a0;
+          acc[4 * j + 1] *= a0;
+          acc[4 * j + 2] *= a1;
+          acc[4 * j + 3] *= a1;
+        }
+        // P in bf16: the accumulator layout of S is the A-operand layout
+        // of P V, 4 registers for each 16 keys
+#pragma unroll
+        for (int j = 0; j < BK / 4; ++j)
+          p[j] = pack_bf16(s[2 * j], s[2 * j + 1]);
+      }
+      {
+        const int pst = (it + nt - 1) % kStages;
+        mbar_wait(&v_full[pst], ((it + nt - 1) / kStages) & 1);
+        fence_regs(acc);
+        wgmma_fence();
+        issue_pv(pst);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(acc);
+        fence_p(p);
+        release(&v_empty[pst]);
+      }
+      it += nt;
+
+      // epilogue: l over the quad; O / max(l, 1e-30) rounded to bf16 into
+      // this warpgroup's own Q rows (its Q K^T products are done) in the
+      // 128-byte swizzle, then TMA stores of its 64 rows (rows past Sq
+      // are not written); Q's buffer is free once they have read it
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+        l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+      }
+      const float inv0 = 1.f / fmaxf(l0, 1e-30f);
+      const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        unsigned char* base = so + (j / 8) * C::kQSlab + c2 * 2;
+        *reinterpret_cast<__nv_bfloat162*>(
+            base + rl * 128 + (((j % 8) ^ (rl % 8)) * 16)) =
+            __floats2bfloat162_rn(acc[4 * j] * inv0, acc[4 * j + 1] * inv0);
+        *reinterpret_cast<__nv_bfloat162*>(
+            base + (rl + 8) * 128 + (((j % 8) ^ ((rl + 8) % 8)) * 16)) =
+            __floats2bfloat162_rn(acc[4 * j + 2] * inv1,
+                                  acc[4 * j + 3] * inv1);
+      }
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile("bar.sync %0, 128;\n" ::"r"(1 + cw) : "memory");
+      if (threadIdx.x % 128 == 0) {
+#pragma unroll
+        for (int sl = 0; sl < C::kSlabs; ++sl)
+          tma_store(&to, so + sl * C::kQSlab, 64 * sl, I.h, I.q0 + 64 * cw,
+                    I.b);
+        asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+      }
+      // with two Q buffers the next item runs from the other one: free
+      // this one during its first tile; with one, free it now
+      stored = qs;
+      if (C::kQBufs == 1) free_q();
+    }
+    free_q();   // the stores must have read shared memory before exit
+  }
+}
+
+// cuTensorMapEncodeTiled, taken from the driver through the runtime so the
+// library needs no -lcuda
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType,
+                                cuuint32_t, void*, const cuuint64_t*,
+                                const cuuint64_t*, const cuuint32_t*,
+                                const cuuint32_t*, CUtensorMapInterleave,
+                                CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// the (D, heads, rows, B) bf16 tensor at `ptr`, read in boxes of 64 columns
+// of one head by `box_rows` rows, in the 128-byte swizzle
+int make_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
+             int D, int box_rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(B)};
+  const cuuint64_t row = static_cast<cuuint64_t>(heads) * D * 2;
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(D) * 2, row,
+                                 row * static_cast<cuuint64_t>(rows)};
+  const cuuint32_t box[4] = {64, 1, static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  const CUresult res = fn(
+      map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims,
+      strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+      CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+      CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int B,
+           int Sq, int Skv, int H, int KH, int causal, int64_t window,
+           int is_global, int64_t q_offset, float scale,
+           cudaStream_t stream) {
+  using C = Cfg<D>;
+  CUtensorMap tq, tk, tv, to;
+  int rc = make_map(&tq, q, B, Sq, H, D, kBM);
+  if (rc == 0) rc = make_map(&tk, k, B, Skv, KH, D, C::kBK);
+  if (rc == 0) rc = make_map(&tv, v, B, Skv, KH, D, C::kBK);
+  if (rc == 0) rc = make_map(&to, o, B, Sq, H, D, kBM / 2);
+  if (rc != 0) return rc;
+  auto kern = flash_fwd_tc_kernel<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(C::kSmem));
+  int dev = 0, sms = 0;
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t items = static_cast<int64_t>((Sq + kBM - 1) / kBM) * H * B;
+  if (items > 0x7FFFFFFF) return static_cast<int>(cudaErrorInvalidValue);
+  // one persistent block per SM (the shared memory allows no second)
+  const int grid = static_cast<int>(items < sms ? items : sms);
+  kern<<<grid, kThreads, C::kSmem, stream>>>(
+      tq, tk, tv, to, B, Sq, Skv, H, KH, causal, window, is_global,
+      q_offset, scale * 1.4426950408889634f, static_cast<int>(items));
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+}  // namespace
+
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, int64_t B,
                                    int64_t Sq, int64_t Skv, int64_t H,
@@ -376,4 +1179,33 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                          args[4], args[5], static_cast<int>(causal != 0),
                          window, static_cast<int>(is_global != 0), q_offset,
                          scale, stream);
+}
+
+extern "C" int flash_attention_fwd_tc(const void* q, const void* k,
+                                      const void* v, void* o, int64_t B,
+                                      int64_t Sq, int64_t Skv, int64_t H,
+                                      int64_t KH, int64_t D, int64_t causal,
+                                      int64_t window, int64_t is_global,
+                                      int64_t q_offset, float scale,
+                                      cudaStream_t stream) {
+  if (B == 0 || Sq == 0 || H == 0) return 0;
+  const uintptr_t addr =
+      reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
+      reinterpret_cast<uintptr_t>(v) | reinterpret_cast<uintptr_t>(o);
+  if ((D != 64 && D != 128 && D != 256) || addr % 16 != 0 || Skv < 1 ||
+      KH < 1 || H % KH != 0 || q_offset < 0 || B > 65535 || H > 65535 ||
+      Sq > (1LL << 30) || Skv > (1LL << 30))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int b = static_cast<int>(B), sq = static_cast<int>(Sq),
+            skv = static_cast<int>(Skv), h = static_cast<int>(H),
+            kh = static_cast<int>(KH), c = static_cast<int>(causal != 0),
+            g = static_cast<int>(is_global != 0);
+  if (D == 64)
+    return tc::launch<64>(q, k, v, o, b, sq, skv, h, kh, c, window, g,
+                          q_offset, scale, stream);
+  if (D == 128)
+    return tc::launch<128>(q, k, v, o, b, sq, skv, h, kh, c, window, g,
+                           q_offset, scale, stream);
+  return tc::launch<256>(q, k, v, o, b, sq, skv, h, kh, c, window, g,
+                         q_offset, scale, stream);
 }

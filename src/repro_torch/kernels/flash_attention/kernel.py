@@ -3,9 +3,15 @@
 in `repro/kernels/flash_attention/kernel.py`.
 
 Dispatch goes by the tensors' device: CPU tensors take the plain PyTorch
-version (`ref.py`), CUDA tensors launch the kernel — or raise. There is no
-fallback from a failed launch. The wrapper counts its launches in
-`LAUNCHES` (kernel launches only, never the plain path).
+version (`ref.py`), CUDA tensors launch a kernel — or raise. On the card
+`route` picks the kernel explicitly, each with its own C entry point: the
+tensor-core kernel (`flash_attention_fwd_tc`: wgmma fed by TMA) for bf16
+q, k, v at D 64, 128 or 256 with 16-byte aligned pointers and row
+strides; the exact SIMT kernel (`flash_attention_fwd`) for float32 and
+for bf16 at any other D or alignment. There is no fallback from a failed
+launch to the other kernel or to the plain version. The wrapper counts its
+launches in `LAUNCHES` (kernel launches only, never the plain path) and
+which kernel each took in `ROUTES`.
 """
 from __future__ import annotations
 
@@ -21,15 +27,37 @@ from repro_torch.kernels.gather_agg.kernel import (_check, _device_of,
                                                    _raise_on)
 
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0}
+ROUTES: Dict[str, int] = {"tensor_core": 0, "simt": 0}
 MAX_HEAD_DIM = 256
+TC_HEAD_DIMS = (64, 128, 256)
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, ROUTES):
+        for k in counts:
+            counts[k] = 0
+
+
+def tc_kv_tile(head_dim: int) -> int:
+    """Keys per KV tile of the tensor-core kernel (`Cfg::kBK` in the
+    source): the tiles over which its running row max, and so its bf16
+    rounding of p, proceeds."""
+    return 64 if head_dim >= 256 else 128
+
+
+def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
+    """The kernel a CUDA call takes: "tensor_core" for bf16 at D 64, 128
+    or 256 with every pointer 16-byte aligned and the row strides H D 2
+    and KH D 2 bytes multiples of 16 (what TMA reads), else "simt"."""
+    D, H, KH = q.shape[3], q.shape[2], k.shape[2]
+    if (q.dtype == torch.bfloat16 and D in TC_HEAD_DIMS
+            and all(t.data_ptr() % 16 == 0 for t in (q, k, v))
+            and H * D * 2 % 16 == 0 and KH * D * 2 % 16 == 0):
+        return "tensor_core"
+    return "simt"
 
 
 def _lib() -> ctypes.CDLL:
@@ -38,6 +66,9 @@ def _lib() -> ctypes.CDLL:
         lib.flash_attention_fwd.argtypes = [_P] * 4 + [_I64] * 10 + [
             ctypes.c_float, _I64, _P]
         lib.flash_attention_fwd.restype = ctypes.c_int
+        lib.flash_attention_fwd_tc.argtypes = [_P] * 4 + [_I64] * 10 + [
+            ctypes.c_float, _P]
+        lib.flash_attention_fwd_tc.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -53,7 +84,10 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     and Skv >= 1, D <= 256. Query row i sits at position q_offset + i;
     masked: kv_pos > q_pos when `causal`, q_pos - kv_pos >= window unless
     `is_global`. Replaces `flash_attention_pallas` (without its tile
-    sizes, and without its divisibility assert)."""
+    sizes, and without its divisibility assert). The tensor-core route
+    rounds p to bf16 for its P V product, as the TPU's MXU does at
+    DEFAULT precision: `ref.attention_ref(..., p_bf16=True,
+    kv_tile=tc_kv_tile(D))` emulates it."""
     dev = _device_of(q)
     if dev.type == "cpu":
         return attention_ref(q, k, v, causal=causal, window=window,
@@ -79,11 +113,16 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _lib().flash_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-        Skv, H, KH, D, int(bool(causal)), int(window), int(bool(is_global)),
-        int(q_offset), 1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16),
-        stream)
-    _raise_on(rc, "flash_attention_fwd")
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
+            Skv, H, KH, D, int(bool(causal)), int(window),
+            int(bool(is_global)), int(q_offset), 1.0 / math.sqrt(D))
+    kind = route(q, k, v)
+    if kind == "tensor_core":
+        rc = _lib().flash_attention_fwd_tc(*args, stream)
+    else:
+        rc = _lib().flash_attention_fwd(
+            *args, int(q.dtype == torch.bfloat16), stream)
+    _raise_on(rc, f"flash_attention_fwd ({kind})")
     LAUNCHES["flash_attention_fwd"] += 1
+    ROUTES[kind] += 1
     return out

@@ -13,6 +13,7 @@ from repro.kernels.flash_attention.ops import flash_attention_op as jax_op
 from repro.models.lm import attention as jax_attention
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models.lm.attention import flash_attention
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -90,6 +91,7 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     out = kernel.flash_attention_fwd(q, k, v, window=16, is_global=False)
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     assert kernel.LAUNCHES == {"flash_attention_fwd": 0}
+    assert kernel.ROUTES == {"tensor_core": 0, "simt": 0}
 
 
 def test_an_input_that_requires_grad_raises():
@@ -100,3 +102,85 @@ def test_an_input_that_requires_grad_raises():
         flash_attention(q, k, v)
     with torch.no_grad():
         assert flash_attention(q, k, v).shape == q.shape
+
+
+# The emulation of the tensor-core kernel's rounding points
+# (`attention_ref(..., p_bf16=True)`): p rounded to bf16 before P V, l from
+# the unrounded p. Each weight then carries a relative error of at most
+# 2^-8 (bf16 keeps 8 significant bits), so the output moves by at most
+# 2^-8 max|v| from the float32 softmax; a bf16 output adds its own
+# rounding, at most 2^-8 of each side (2^-7 |ref| in all). kv_tile None
+# rounds at the row's final max, 32 at the running max of 32-key tiles.
+def _bound(ref, v, dtype):
+    b = 2.0 ** -8 * float(v.float().abs().max()) + 1e-6
+    return b + (2.0 ** -7 * ref.float().abs() if dtype == "bfloat16" else 0)
+
+
+@pytest.mark.parametrize("kv_tile", [None, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("kw", [
+    dict(causal=True), dict(causal=False),
+    dict(causal=True, window=16, is_global=False),
+    dict(causal=True, window=16, is_global=False, q_offset=32),
+    dict(causal=False, window=8, is_global=False, q_offset=60)])
+def test_p_bf16_emulation_within_its_bound_of_attention_ref(kw, dtype,
+                                                            kv_tile):
+    """Lengths no tile divides (47 queries over 71 keys); the last case
+    has rows that see no key (the reference's uniform average)."""
+    _, (q, k, v) = _inputs(7, 2, 47, 71, 4, 2, 16, dtype)
+    ref = attention_ref(q, k, v, **kw)
+    emu = attention_ref(q, k, v, p_bf16=True, kv_tile=kv_tile, **kw)
+    assert emu.dtype == q.dtype and emu.shape == q.shape
+    diff = (emu.float() - ref.float()).abs()
+    assert bool((diff <= _bound(ref, v, dtype)).all())
+    assert float(diff.max()) > 0          # it does round
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_p_bf16_emulation_matches_pallas_op_on_bf16_values(case):
+    """q, k, v rounded to bf16 first, then given in float32 to the Pallas
+    op in interpret mode (float32 p, as on the CPU) and to the emulation:
+    within 2^-8 max|v| plus the reference's float32 tolerance."""
+    b, s, h, g, d, causal = case
+    rng = np.random.default_rng((sum(case), 17))
+    arrs = [torch.from_numpy(rng.normal(size=(b, s, n, d)).astype(
+        np.float32)).bfloat16().float() for n in (h, h // g, h // g)]
+    want = jax_op(*(jnp.asarray(a.numpy()) for a in arrs), causal=causal,
+                  bq=32, bk=32)
+    emu = attention_ref(*arrs, causal=causal, p_bf16=True, kv_tile=32)
+    diff = np.abs(emu.numpy() - np.asarray(want, np.float32))
+    assert diff.max() <= 2.0 ** -8 * float(arrs[2].abs().max()) + TOL[
+        "float32"]
+
+
+@pytest.mark.parametrize("kw", [dict(causal=True), dict(causal=False),
+                                dict(causal=True, window=16,
+                                     is_global=False, q_offset=32)])
+def test_p_bf16_off_is_attention_ref_bit_for_bit(kw):
+    for dtype in ("float32", "bfloat16"):
+        _, (q, k, v) = _inputs(8, 2, 32, 64, 4, 1, 16, dtype)
+        assert torch.equal(attention_ref(q, k, v, p_bf16=False, **kw),
+                           attention_ref(q, k, v, **kw))
+    with pytest.raises(ValueError, match="p_bf16"):
+        attention_ref(q, k, v, kv_tile=32, **kw)
+
+
+def test_route_picks_the_kernel_from_dtype_head_dim_and_alignment():
+    """The choice is made from the tensors alone, so it is tested here:
+    bf16 at D 64, 128 and 256 with 16-byte aligned pointers takes the
+    tensor-core kernel; float32, other head dims and a pointer off a
+    16-byte boundary take the SIMT kernel."""
+    def qkv(d, dtype=torch.bfloat16, offset=0):
+        flat = torch.zeros(offset + 4 * 8 * 4 * d, dtype=dtype)
+        q = flat[offset:].view(4, 8, 4, d)
+        k = torch.zeros((4, 8, 2, d), dtype=dtype)
+        return q, k, k.clone()
+
+    for d in kernel.TC_HEAD_DIMS:
+        assert kernel.route(*qkv(d)) == "tensor_core"
+        assert kernel.route(*qkv(d, torch.float32)) == "simt"
+        assert kernel.route(*qkv(d, offset=1)) == "simt"
+    for d in (16, 32, 100, 192):
+        assert kernel.route(*qkv(d)) == "simt"
+    assert [kernel.tc_kv_tile(d) for d in kernel.TC_HEAD_DIMS] == [128, 128,
+                                                                   64]

@@ -298,15 +298,50 @@ FLASH_CASES = [(2, 40, 40, 4, 2, 16, True, 16, True, 0),
                (2, 257, 257, 4, 1, 256, True, 100, False, 0),
                (1, 70, 70, 4, 1, 256, False, 30, False, 0),
                (1, 33, 97, 4, 1, 256, True, 40, False, 64),
-               (1, 65, 65, 2, 2, 100, False, 1 << 30, True, 0)]
+               (1, 65, 65, 2, 2, 100, False, 1 << 30, True, 0),
+               # the tensor-core kernel's cases (bf16 at D 64, 128, 256;
+               # blocks of 128 query rows, KV tiles of 128 keys at D <= 128
+               # and 64 at D 256): D 128 with the window's edge and the
+               # causal diagonal inside tiles, GQA 1:1; Skv shorter than
+               # one tile at an offset; queries at an offset into a longer
+               # key sequence, GQA 4:1; non-causal at D 64; D 256 windowed
+               # at an offset over 2 ragged query blocks; and two cases
+               # where the last rows see no key (non-causal at D 128,
+               # causal at D 256)
+               (2, 300, 300, 4, 4, 128, True, 100, False, 0),
+               (1, 200, 37, 2, 2, 128, True, 1 << 30, True, 163),
+               (2, 70, 300, 8, 2, 128, True, 1 << 30, True, 230),
+               (1, 150, 260, 4, 4, 64, False, 1 << 30, True, 0),
+               (1, 129, 200, 4, 1, 256, True, 60, False, 50),
+               (1, 150, 120, 4, 1, 128, False, 40, False, 100),
+               (1, 100, 90, 2, 1, 256, True, 20, False, 100)]
+
+
+def _tc_close(out, q, k, v, kw):
+    """The tensor-core kernel against the plain emulation of its rounding
+    points (p rounded to bf16 at the running max of each KV tile). With
+    the same running maxima the two round the same float32 weights; they
+    part only where the order of the float32 sums of a score puts its
+    weight on the other side of a bf16 rounding boundary (that weight
+    moves by one bf16 ulp, at most 2^-7 of it) and in the output's own
+    rounding (one bf16 ulp, at most 2^-7 |e|): |out - e| <= 2^-7 |e| +
+    2^-10 max|v|, the absolute term covering such weights up to 1/8 of a
+    row's mass. Returns the largest |out - e| over that bound."""
+    e = attention_ref(q, k, v, p_bf16=True,
+                      kv_tile=flash_kernel.tc_kv_tile(q.shape[3]),
+                      **kw).float()
+    bound = 2.0 ** -7 * e.abs() + 2.0 ** -10 * float(v.float().abs().max())
+    return float(((out.float() - e).abs() / bound).max())
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_CASES)
 def test_flash_attention_matches_plain_version(cuda, case, dtype):
     """flash_attention_fwd against its plain version on the card, at the
-    reference's tolerances (2e-5 float32, 2e-2 bfloat16); bit-identical
-    relaunch; one count per launch."""
+    reference's tolerances (2e-5 float32, 2e-2 bfloat16); bf16 at D 64,
+    128 and 256 takes the tensor-core route and is also held to the
+    emulation of its rounding points, float32 and other head dims the SIMT
+    route; bit-identical relaunch; one count per launch and route."""
     B, Sq, Skv, H, KH, D, causal, window, is_global, q_offset = case
     dt = getattr(torch, dtype)
     rng = np.random.default_rng((Sq, Skv, D))
@@ -315,21 +350,57 @@ def test_flash_attention_matches_plain_version(cuda, case, dtype):
                for s, n in ((Sq, H), (Skv, KH), (Skv, KH)))
     kw = dict(causal=causal, window=window, is_global=is_global,
               q_offset=q_offset)
+    kind = "tensor_core" if dtype == "bfloat16" and D in (64, 128, 256) \
+        else "simt"
     before = flash_kernel.LAUNCHES["flash_attention_fwd"]
+    routes = dict(flash_kernel.ROUTES)
     out = flash_kernel.flash_attention_fwd(q, k, v, **kw)
+    assert flash_kernel.ROUTES[kind] == routes[kind] + 1
     assert out.shape == q.shape and out.dtype == dt
     tol = 2e-5 if dtype == "float32" else 2e-2
     torch.testing.assert_close(out.float(),
                                attention_ref(q, k, v, **kw).float(),
                                rtol=tol, atol=tol)
+    if kind == "tensor_core":
+        assert _tc_close(out, q, k, v, kw) <= 1.0
     assert torch.equal(out, flash_kernel.flash_attention_fwd(q, k, v, **kw))
     assert flash_kernel.LAUNCHES["flash_attention_fwd"] == before + 2
+    assert sum(flash_kernel.ROUTES.values()) == sum(routes.values()) + 2
+
+
+def test_flash_bf16_takes_the_simt_route_at_other_head_dims_or_misaligned(
+        cuda):
+    """bf16 at D 100, and bf16 at D 128 whose q starts 2 bytes past a
+    16-byte boundary (contiguous, at a storage offset of one element), go
+    to the SIMT kernel, explicitly, and agree with the plain version."""
+    rng = np.random.default_rng(5)
+
+    def draw(s, n, d, offset=0):
+        flat = torch.as_tensor(rng.normal(size=offset + 2 * s * n * d),
+                               dtype=torch.bfloat16, device=cuda)
+        return flat[offset:offset + 2 * s * n * d].view(2, s, n, d)
+
+    kw = dict(causal=True, window=1 << 30, is_global=True, q_offset=0)
+    for q, k, v in ((draw(90, 4, 100), draw(90, 2, 100), draw(90, 2, 100)),
+                    (draw(90, 4, 128, 1), draw(90, 2, 128),
+                     draw(90, 2, 128))):
+        assert flash_kernel.route(q, k, v) == "simt"
+        routes = dict(flash_kernel.ROUTES)
+        out = flash_kernel.flash_attention_fwd(q, k, v, **kw)
+        assert flash_kernel.ROUTES == dict(routes,
+                                           simt=routes["simt"] + 1)
+        torch.testing.assert_close(out.float(),
+                                   attention_ref(q, k, v, **kw).float(),
+                                   rtol=2e-2, atol=2e-2)
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     q = torch.zeros((1, 8, 4, 16), device=cuda)
     k = torch.zeros((1, 8, 2, 16), device=cuda)
+    qb = torch.zeros((1, 8, 4, 128), device=cuda, dtype=torch.bfloat16)
+    kb = torch.zeros((1, 8, 2, 128), device=cuda, dtype=torch.bfloat16)
     before = dict(flash_kernel.LAUNCHES)
+    routes = dict(flash_kernel.ROUTES)
     bad = [((q.double(), k.double(), k.double()), {}, TypeError),
            ((q, k.bfloat16(), k), {}, TypeError),
            ((q, k, k.cpu()), {}, ValueError),
@@ -339,11 +410,16 @@ def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
            ((torch.zeros((1, 8, 4, 300), device=cuda),
              torch.zeros((1, 8, 2, 300), device=cuda),
              torch.zeros((1, 8, 2, 300), device=cuda)), {}, ValueError),
-           ((q, k, k), {"q_offset": -1}, ValueError)]
+           ((q, k, k), {"q_offset": -1}, ValueError),
+           # inputs the tensor-core route would take, refused all the same
+           ((qb, kb, kb), {"q_offset": -1}, ValueError),
+           ((qb, kb[:, :0], kb[:, :0]), {}, ValueError),
+           ((qb, kb, kb.float()), {}, TypeError)]
     for args, kw, err in bad:
         with pytest.raises(err):
             flash_kernel.flash_attention_fwd(*args, **kw)
     assert flash_kernel.LAUNCHES == before
+    assert flash_kernel.ROUTES == routes
 
 
 def _serve_logits(cfg, params, tokens, steps, device):
