@@ -82,22 +82,36 @@ run, exit code != 0):
               top-4 of d_ff 1408 plus a 5632-wide shared expert, vocab
               152064; 14,316,308,480 parameters drawn by a seeded
               generator on the card directly in bf16, norms and router
-              float32): `moe_gmm_fwd` at the x and w a real prefill (C
+              float32): `moe_gmm_fwd` at the inputs a real prefill (C
               688, two dispatch groups of 344) and a real decode step (C
-              8) hand it at layer 0 (gate, up, down), in float32 at both
-              gates, at a ragged shape (C 344, d 2040, f 1400) and at odd
-              widths — max error within 1e-3 x max |plain| (bf16) or
-              2e-5 x max |plain| (float32), bit-identical relaunch, ms
-              beside the plain version, `torch.bmm` and the bound — and
-              `flash_attention_fwd` at layer 0's q, k, v (D 128, 16 heads
-              over 16; the tensor-core route, checked as in phase 6);
-              then phase 6's serving run through `generate`: exactly 72
-              gmm and 24 flash launches per prefill, 72 gmm and 0 flash
-              per decode step, 0 gather; the profile (the gmm and the
-              tensor-core flash kernels' shares, no SIMT flash kernel);
-              reduced qwen2-moe-a2.7b in
-              float32 on the card and on the CPU within rtol 1e-4, greedy
-              ids equal
+              8) hand the MoE layer's two ops at layer 0 (the gated one
+              and the down product, both spied): gate, up and down with
+              float32 output, in float32 at both gates, at a ragged shape
+              (C 344, d 2040, f 1400) and at odd widths — the route each
+              took (bf16 prefill and ragged: tensor_core; decode and odd
+              widths: mma_sync; float32: simt), max error within 1e-3 x
+              max |plain| (bf16) or 2e-5 x max |plain| (float32),
+              bit-identical relaunch, ms beside the plain version,
+              `torch.bmm` and the bound; then the layer's own launches,
+              gated (h in bf16) and down (bf16 out), dense and with the
+              path's real `rows`: the bf16 output equal to the float32
+              one cast, the gated one to the composite of the same
+              route's float32 outputs (elements that differ counted, at
+              most one bf16 ulp), with `rows` equal to dense at the real
+              rows and with one expert emptied and one full, ms dense
+              and with rows, plain, `torch.bmm` of the same products,
+              bounds dense and occupied (the rows and experts that hold
+              tokens), TFLOP/s, decode's occupied experts and weight
+              bytes read — and `flash_attention_fwd` at layer 0's q, k,
+              v (D 128, 16 heads over 16; the tensor-core route, checked
+              as in phase 6); then phase 6's serving run through
+              `generate`: exactly 48 gmm (all tensor_core) and 24 flash
+              launches per prefill, 48 gmm (all mma_sync) and 0 flash per
+              decode step, 0 gather; the profile (the prefill's gmm time
+              in the tensor-core kernel, decode's in the mma.sync one,
+              never the float32 one; the tensor-core flash kernel's share,
+              no SIMT flash kernel); reduced qwen2-moe-a2.7b in float32 on
+              the card and on the CPU within rtol 1e-4, greedy ids equal
   8. serve    rwkv6-7b at full width (32 layers, d_model 4096, 64 WKV
               heads of 64, relu² channel mix of d_ff 14336, vocab 65536,
               untied head; 7,534,546,944 parameters drawn on the card in
@@ -169,6 +183,10 @@ DEVICE = "cuda"
 # the CUDA names of the flash kernels: the bf16 prefills must spend their
 # attention time in the tensor-core one and never in the SIMT one
 FLASH_TC, FLASH_SIMT = "flash_fwd_tc_kernel", "flash_fwd_kernel"
+# ... and of the grouped matmul's routes: the qwen2-moe prefill must run
+# the tensor-core one only, its decode step the mma.sync one only
+GMM_TC, GMM_MMA, GMM_SIMT = "gmm_tc_kernel", "gmm_mma_kernel", \
+    "gmm_f32_kernel"
 REPLACES = {
     "gather_agg_fwd": "src/repro/kernels/gather_agg/kernel.py:56",
     "gather_agg_bwd_dx": "src/repro/kernels/gather_agg/kernel.py:101",
@@ -963,13 +981,15 @@ def step_inputs(torch, cfg, logits, pcache):
 
 
 def phase_serve(torch, cfg, params, tokens, run, tag, per_prefill,
-                per_step):
+                per_step, routes=None):
     """The serving path through `generate`: batch 4, prompt 2048, 32
     greedy tokens. `per_prefill` / `per_step` ({kernel: launches}, every
     other kernel 0) are what one prefill and one decode step must launch:
     each is read alone first (a prefill, then one decode step on its
     cache), then over `generate`, its counters zeroed just before and read
-    just after: exactly one prefill's and 32 decode steps' worth."""
+    just after: exactly one prefill's and 32 decode steps' worth.
+    `routes` (module, {route: launches} of a prefill, ... of a step), if
+    given, must equal that kernel module's `ROUTES` after each."""
     from repro_torch.launch.serve import generate
     from repro_torch.train.train_step import (make_decode_step,
                                               make_prefill_step)
@@ -977,12 +997,20 @@ def phase_serve(torch, cfg, params, tokens, run, tag, per_prefill,
     def want(per, n=1):
         return {k: per.get(k, 0) * n for k in read_launches()}
 
+    def check_routes(i, n=1, label=""):
+        if routes is not None:
+            module, per = routes[0], routes[i]
+            want_r = {k: per.get(k, 0) * n for k in module.ROUTES}
+            check(module.ROUTES == want_r, f"{run} {label}: routes "
+                  f"{module.ROUTES} != {want_r}")
+
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
     torch.cuda.synchronize()
     reset_launches()
     logits, pcache = prefill(params, {"tokens": tokens})
     torch.cuda.synchronize()
     alone = read_launches()
+    check_routes(1, label="one prefill")
     check(bool(torch.isfinite(logits).all()), "prefill: non-finite logits")
     check(tuple(logits.shape) == (SERVE_BATCH, 1, cfg.padded_vocab),
           f"prefill logits {tuple(logits.shape)}")
@@ -992,6 +1020,7 @@ def phase_serve(torch, cfg, params, tokens, run, tag, per_prefill,
     logits, _ = decode(params, cache, tok, SERVE_PROMPT)
     torch.cuda.synchronize()
     step = read_launches()
+    check_routes(2, label="one decode step")
     check(bool(torch.isfinite(logits).all()), "decode: non-finite logits")
     del logits, cache
     torch.cuda.synchronize()
@@ -1000,6 +1029,12 @@ def phase_serve(torch, cfg, params, tokens, run, tag, per_prefill,
     res = generate(cfg, params, tokens, SERVE_NEW, device=DEVICE)
     launches = read_launches()                   # ... and are read here
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if routes is not None:
+        gen_routes = dict(routes[0].ROUTES)
+        for k in gen_routes:
+            want_r = routes[1].get(k, 0) + SERVE_NEW * routes[2].get(k, 0)
+            check(gen_routes[k] == want_r, f"{run}: route {k} "
+                  f"{gen_routes[k]} != {want_r} over generate")
     check(alone == want(per_prefill),
           f"one prefill: launches {alone} != {want(per_prefill)}")
     check(step == want(per_step),
@@ -1025,25 +1060,30 @@ def phase_serve(torch, cfg, params, tokens, run, tag, per_prefill,
         f"({SERVE_BATCH / res.decode_ms_per_step * 1e3:.0f} tok/s)  {cache}"
         f"  peak memory {peak:.2f} GiB  launches "
         f"{launches} (one prefill alone: {alone}; one decode step alone: "
-        f"{step})  ids seq 0 {ids[0, :8].tolist()}...")
+        f"{step}){'' if routes is None else f'  routes {gen_routes}'}  ids "
+        f"seq 0 {ids[0, :8].tolist()}...")
     return launches, res
 
 
 def phase_serve_profile(torch, cfg, params, tokens, res, run, tag, shares,
-                        step_kernels=(), absent=(), top: int = 8):
+                        step_shares=None, absent=(), prefill_absent=(),
+                        step_absent=(), top: int = 8):
     """One more prefill and one more decode step under torch.profiler:
     CUDA kernels by device time, the share of each hand-written kernel of
     `shares` ({label: a substring of its CUDA name}; each must show in the
     prefill), and the device's idle share of the unprofiled prefill / mean
     decode step of `res`, 1 - kernel ms / that time. The decode step must
-    show each label of `step_kernels` and no other kernel of `shares`. No
-    kernel whose name holds a substring of `absent` may show in either."""
+    show each kernel of `step_shares` (same form) and no kernel of
+    `shares` whose label it lacks. No kernel whose name holds a substring
+    of `absent` may show in either, of `prefill_absent` in the prefill, of
+    `step_absent` in the decode step."""
+    step_shares = step_shares or {}
     from repro_torch.train.train_step import make_decode_step
     from repro_torch.train.train_step import make_prefill_step
     prefill, decode = make_prefill_step(cfg), make_decode_step(cfg)
     out = {}
 
-    def share(dev, busy):
+    def share(dev, busy, shares=shares):
         got = {label: sum(t for k, t, _ in dev if sub in k) / 1e3
                for label, sub in shares.items()}
         return got, ", ".join(f"{label} {ms:.2f} ms (share {ms / busy:.3f})"
@@ -1056,7 +1096,7 @@ def phase_serve_profile(torch, cfg, params, tokens, res, run, tag, shares,
     got, text = share(dev, busy)
     for label, ms in got.items():
         check(ms > 0, f"the profiled prefill shows no {label} kernel")
-    for sub in absent:
+    for sub in (*absent, *prefill_absent):
         check(not any(sub in k for k, _, _ in dev),
               f"the profiled prefill shows {sub}")
     log(f"[{tag} profile] {run} prefill: kernels {busy:.2f} ms in "
@@ -1070,13 +1110,13 @@ def phase_serve_profile(torch, cfg, params, tokens, res, run, tag, shares,
     dev, wall = profile_kernels(
         torch, lambda: decode(params, cache, tok, SERVE_PROMPT))
     busy = sum(t for _, t, _ in dev) / 1e3
-    got, text = share(dev, busy)
-    for sub in absent:
+    got, text = share(dev, busy, {**shares, **step_shares})
+    for sub in (*absent, *step_absent):
         check(not any(sub in k for k, _, _ in dev),
               f"the profiled decode step shows {sub}")
-    for label in shares:
+    for label in {**shares, **step_shares}:
         shown = got[label] > 0
-        check(shown == (label in step_kernels),
+        check(shown == (label in step_shares),
               f"the profiled decode step {'shows' if shown else 'lacks'} "
               f"the {label} kernel")
     log(f"[{tag} profile] {run} decode step: kernels {busy:.2f} ms in "
@@ -1143,47 +1183,64 @@ def phase_serve_card_vs_cpu(torch, arch, tag, steps: int = 8):
 # phase 7: MoE serving (qwen2-moe-a2.7b prefill + greedy decode)
 # ---------------------------------------------------------------------------
 def capture_gmm(torch, cfg, params, tokens):
-    """The (x, w) a real prefill and a real decode step (position 2048, on
-    the prefill's cache) hand `moe_gmm` at layer 0 (gate, up, down),
-    taken by wrapping the function the MoE layer calls (these runs are
-    not counted). Each pass must call it 3 times per layer."""
+    """The calls a real prefill and a real decode step (position 2048, on
+    the prefill's cache) make at layer 0 to the two grouped-matmul ops the
+    MoE layer calls, the gated one (x, wg, wu; rows) and the down product
+    (h, wd; rows, out_dtype), whatever their signatures: each as (args,
+    keywords), x and h cloned, taken by wrapping both functions (these
+    runs are not counted). Each pass must call them 2 times per layer,
+    gated then down."""
     from repro_torch.models.lm import moe, transformer
-    real, seen, n = moe.moe_gmm, [], [0]
+    names = ("moe_gmm_gated", "moe_gmm")
+    real = {n: getattr(moe, n) for n in names}
+    seen, order = {}, []
 
-    def spy(x, w):
-        if n[0] < 3:
-            seen.append((x.clone(), w))
-        n[0] += 1
-        return real(x, w)
+    def spy(name):
+        def call(*args, **kw):
+            if name not in seen:
+                seen[name] = ((args[0].clone(), *args[1:]), dict(kw))
+            order.append(name)
+            return real[name](*args, **kw)
+        return call
 
     got = {}
-    moe.moe_gmm = spy
+    for n in names:
+        setattr(moe, n, spy(n))
     try:
         with torch.no_grad():
             logits, pcache = transformer.prefill(cfg, params,
                                                  {"tokens": tokens})
-            check(n[0] == 3 * cfg.num_layers, f"prefill: {n[0]} gmm calls")
-            got["prefill"], n[0] = seen[:], 0
+            check(order == list(names) * cfg.num_layers,
+                  f"prefill: gmm calls {order[:4]}... ({len(order)})")
+            got["prefill"] = dict(seen)
             seen.clear()
+            order.clear()
             cache, tok = step_inputs(torch, cfg, logits, pcache)
             del pcache
             transformer.decode_step(cfg, params, cache, tok, SERVE_PROMPT)
-            check(n[0] == 3 * cfg.num_layers, f"decode: {n[0]} gmm calls")
-            got["decode"] = seen[:]
+            check(order == list(names) * cfg.num_layers,
+                  f"decode: gmm calls {order[:4]}... ({len(order)})")
+            got["decode"] = dict(seen)
     finally:
-        moe.moe_gmm = real
+        for n in names:
+            setattr(moe, n, real[n])
     return got
 
 
-def check_gmm(torch, label, x, w):
-    """moe_gmm_fwd against its plain version at one shape: max error within
-    1e-3 * max |plain| (bf16 inputs) or 2e-5 * max |plain| (float32),
-    bit-identical relaunch, ms, plain ms, `torch.bmm` ms (cuBLAS, output
-    in the input dtype) and the bound."""
+def check_gmm(torch, label, x, w, want_route):
+    """moe_gmm_fwd (float32 output) against its plain version at one
+    shape: the route it took, max error within 1e-3 * max |plain| (bf16
+    inputs) or 2e-5 * max |plain| (float32), bit-identical relaunch, ms,
+    plain ms, `torch.bmm` ms (cuBLAS, output in the input dtype) and the
+    bound."""
     from repro_torch.kernels.moe_gmm import kernel, ref
     E, C, d = x.shape
     f = w.shape[2]
+    routes = dict(kernel.ROUTES)
     out = kernel.moe_gmm_fwd(x, w)
+    route = [r for r, n in kernel.ROUTES.items() if n != routes[r]]
+    check(route == [want_route], f"gmm {label}: route {route}, not "
+          f"{want_route}")
     want = ref.moe_gmm_ref(x, w)
     err = (out - want).abs().max().item()
     scale = want.abs().max().item()
@@ -1200,60 +1257,220 @@ def check_gmm(torch, label, x, w):
                            + w.numel() * w.element_size() + E * C * f * 4,
                            2.0 * E * C * d * f, peak)
     got = {"max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+           "route": want_route,
            "ms": cuda_ms(torch, lambda: kernel.moe_gmm_fwd(x, w)),
            "plain_ms": cuda_ms(torch, lambda: ref.moe_gmm_ref(x, w)),
            "library_ms": cuda_ms(torch, lambda: torch.bmm(x, w))}
     log(f"[7 kernels] moe_gmm_fwd {label}: x {tuple(x.shape)} w "
-        f"{tuple(w.shape)} {str(x.dtype)[6:]}  max_abs_err {err:.3e} (tol "
-        f"{rel:.0e} x max |plain| {scale:.3e})  bit-identical relaunch True"
-        f"  ms {got['ms']:.4f}  plain_ms {got['plain_ms']:.4f}  library_ms "
-        f"{got['library_ms']:.4f} (torch.bmm, err {lib_err:.3e})  bound_ms "
-        f"{b_ms:.4f} ({b_by}; {2.0 * E * C * d * f / got['ms'] / 1e9:.1f} "
-        f"TFLOP/s)")
+        f"{tuple(w.shape)} {str(x.dtype)[6:]}  route {want_route}  "
+        f"max_abs_err {err:.3e} (tol {rel:.0e} x max |plain| {scale:.3e})  "
+        f"bit-identical relaunch True  ms {got['ms']:.4f}  plain_ms "
+        f"{got['plain_ms']:.4f}  library_ms {got['library_ms']:.4f} "
+        f"(torch.bmm, err {lib_err:.3e})  bound_ms {b_ms:.4f} ({b_by}; "
+        f"{2.0 * E * C * d * f / got['ms'] / 1e9:.1f} TFLOP/s)")
+    return got
+
+
+def _occupied(torch, rows, C):
+    """Occupied rows and experts of a `rows` (E, G) over capacity C."""
+    G = rows.shape[1]
+    occ_rows = int(rows.clamp(max=C // G).sum())
+    return occ_rows, int((rows.sum(1) > 0).sum())
+
+
+def _gmm_bounds(torch, x, ws, rows, out_bytes):
+    """(dense bound, occupied bound), each (ms, by), of one launch over x
+    and the weights `ws`: dense, every row and expert; occupied, the rows
+    `rows` names as non-zero and the weights of the experts that hold
+    one (what this run's data needs); the output is written whole."""
+    E, C, d = x.shape
+    f = ws[0].shape[2]
+    occ_rows, occ_e = _occupied(torch, rows, C)
+    out = E * C * f * out_bytes
+    w_bytes = d * f * 2 * len(ws)
+    dense = _bound_ms(E * C * d * 2 + E * w_bytes + out,
+                      2.0 * E * C * d * f * len(ws), BF16_FLOPS_PER_S)
+    occ = _bound_ms(occ_rows * d * 2 + occ_e * w_bytes + out
+                    + rows.numel() * 4,
+                    2.0 * occ_rows * d * f * len(ws), BF16_FLOPS_PER_S)
+    return dense, occ
+
+
+def check_gmm_epilogues(torch, path, x, wg, wu, h, wd, rows, want_route):
+    """The layer's two launches at one path's real layer-0 inputs: the
+    gated one (x, wg, wu) and the down product in the compute dtype (h,
+    wd), each dense and with the path's real `rows`, on `want_route`.
+    Checks: the output in x's dtype equals the same route's float32
+    output cast, bit for bit; the gated one the composite of the same
+    route's two float32 outputs (`.to`, `F.silu`, `*` on the card), the
+    elements that differ counted and at most one bf16 ulp; with `rows`
+    equal to dense (torch.equal) at the real rows, and with one occupied
+    expert set to 0 rows (its input zeroed) and one other to C, for both
+    launches and the float32 epilogue; bit-identical relaunches. Times
+    (ms dense / with rows, plain, `torch.bmm` of the same products,
+    bounds dense / occupied, TFLOP/s)."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.moe_gmm import kernel, ref
+    dt = x.dtype
+    E, C, d = x.shape
+    G = rows.shape[1]
+    f = wg.shape[2]
+    occ_rows, occ_e = _occupied(torch, rows, C)
+
+    def gated(a=x, r=None):
+        return kernel.moe_gmm_gated_fwd(a, wg, wu, rows=r)
+
+    def down(a=h, r=None):
+        return kernel.moe_gmm_fwd(a, wd, rows=r, out_dtype=dt)
+
+    routes = dict(kernel.ROUTES)
+    hg, og = gated(), down()
+    check(kernel.ROUTES == dict(routes, **{want_route: routes[want_route]
+                                           + 2}),
+          f"gmm {path} epilogues: routes {kernel.ROUTES} (was {routes})")
+    # bf16 epilogue: the float32 output rounded once
+    check(torch.equal(og, kernel.moe_gmm_fwd(h, wd).to(dt)),
+          f"gmm {path} down: bf16 out != float32 out .to(bf16)")
+    # gated epilogue: the layer's former composite on the same route
+    comp = Fn.silu(kernel.moe_gmm_fwd(x, wg).to(dt)) * \
+        kernel.moe_gmm_fwd(x, wu).to(dt)
+    differ = hg != comp                  # +0 and -0 compare equal here
+    n_diff = int(differ.sum())
+    ulps = int((hg.view(torch.int16).int() - comp.view(torch.int16).int())
+               [differ].abs().max()) if n_diff else 0
+    check(ulps <= 1, f"gmm {path} gated: {ulps} bf16 ulps from the "
+          f"composite")
+    del comp
+    # rows: the real ones, then one occupied expert emptied and one full
+    e0 = int(torch.argmax(rows.sum(1)))
+    e1 = (e0 + 1) % E
+    rows2 = rows.clone()
+    rows2[e0], rows2[e1] = 0, C // G
+    x2, h2 = x.clone(), h.clone()
+    x2[e0], h2[e0] = 0, 0
+    g32 = kernel.moe_gmm_fwd(x, wg)
+    for name, a, b in (
+            ("gated", gated(r=rows), hg), ("down", down(r=rows), og),
+            ("float32 gate", kernel.moe_gmm_fwd(x, wg, rows=rows), g32),
+            ("gated, expert emptied / full", gated(x2, rows2), gated(x2)),
+            ("down, expert emptied / full", down(h2, rows2), down(h2))):
+        check(torch.equal(a, b), f"gmm {path} {name}: rows != dense")
+    check(torch.equal(gated(r=rows), hg) and torch.equal(down(r=rows), og),
+          f"gmm {path}: differs between launches")
+    del x2, h2, g32, rows2
+    got = {}
+    for name, ws, fn, plain, lib, out_b in (
+            ("gated", (wg, wu), gated,
+             lambda: ref.moe_gmm_gated_ref(x, wg, wu),
+             lambda: (torch.bmm(x, wg), torch.bmm(x, wu)), 2),
+            ("down", (wd,), down, lambda: ref.moe_gmm_ref(h, wd, dt),
+             lambda: torch.bmm(h, wd), 2)):
+        a = x if name == "gated" else h
+        (dense_ms_b, dense_by), (occ_ms_b, occ_by) = _gmm_bounds(
+            torch, a, ws, rows, out_b)
+        flops = 2.0 * E * C * a.shape[2] * ws[0].shape[2] * len(ws)
+        occ_flops = flops * occ_rows / (E * C)
+        r = {"ms_dense": cuda_ms(torch, fn),
+             "ms": cuda_ms(torch, lambda: fn(r=rows)),
+             "plain_ms": cuda_ms(torch, plain),
+             "library_ms": cuda_ms(torch, lib),
+             "bound_dense_ms": dense_ms_b, "bound_ms": occ_ms_b,
+             "bound_by": occ_by, "route": want_route}
+        got[name] = r
+        w_read = occ_e * a.shape[2] * ws[0].shape[2] * 2 * len(ws)
+        tf_dense = flops / r["ms_dense"] / 1e9
+        tf_occ = occ_flops / r["ms"] / 1e9
+        log(f"[7 kernels] moe_gmm_fwd {path} layer 0 {name} "
+            f"({'silu(x wg) * (x wu)' if name == 'gated' else 'h wd'}, out "
+            f"{str(dt)[6:]}): x {tuple(a.shape)} route {want_route}  rows "
+            f"{occ_rows} of {E * C} occupied, {occ_e} of {E} experts (G "
+            f"{G})  ms dense {r['ms_dense']:.4f} ({tf_dense:.1f} TFLOP/s)"
+            f"  ms with rows {r['ms']:.4f} ({tf_occ:.1f} occupied TFLOP/s; "
+            f"weights read "
+            f"{w_read / 1e6:.1f} MB)  plain_ms {r['plain_ms']:.4f}  "
+            f"library_ms {r['library_ms']:.4f} (torch.bmm x{len(ws)})  "
+            f"bound_ms dense {dense_ms_b:.4f} ({dense_by}), occupied "
+            f"{occ_ms_b:.4f} ({occ_by})")
+    log(f"[7 kernels] moe_gmm_fwd {path} layer 0 epilogues: bf16 out == "
+        f"float32 out .to(bf16) True; gated vs the composite (.to, F.silu, "
+        f"*): {n_diff} of {hg.numel()} elements differ, max {ulps} bf16 "
+        f"ulp; rows == dense True (real rows; expert {e0} emptied, {e1} "
+        f"full); bit-identical relaunch True")
+    got["gated_diff"] = n_diff
     return got
 
 
 def phase_moe_kernels(torch, cfg, params, tokens):
-    """moe_gmm_fwd at the x and w a real prefill (C 688: 2 groups of 344)
-    and a real decode step (C 8) hand it at layer 0, gate, up and down; in
-    float32 at the prefill's and the decode step's gate; at a ragged shape
-    (C 344, d 2040, f 1400: no tile divides d or f) and at odd widths (the
-    element-wise load path); then flash_attention_fwd at layer 0's real
-    q, k, v. Returns the readings of one prefill and of one decode step
-    (every layer's launches have layer 0's shapes: ms, plain, library and
-    bound summed over the 3 x 24), each shape's beside them."""
+    """moe_gmm_fwd at the inputs a real prefill (C 688: 2 groups of 344)
+    and a real decode step (C 8) hand it at layer 0: gate, up and down
+    with float32 output against the plain version; in float32 at the
+    prefill's and the decode step's gate (simt); at a ragged shape (C 344,
+    d 2040, f 1400: no tile divides d or f) and at odd widths (mma_sync);
+    then the layer's own launches, the gated one and the down product in
+    bf16, with their epilogue and `rows` checks and times; then
+    flash_attention_fwd at layer 0's real q, k, v. The prefill's bf16
+    calls must take the tensor_core route, decode's mma_sync. Returns the
+    readings of one prefill and of one decode step (every layer's two
+    launches have layer 0's shapes: ms with rows, plain, library and the
+    occupied bound summed over the 2 x 24), each shape's beside them."""
     got = capture_gmm(torch, cfg, params, tokens)
-    shapes = {}
+    bf16_route = {"prefill": "tensor_core", "decode": "mma_sync"}
+    shapes, layer = {}, {}
     for path, calls in got.items():
-        for name, (x, w) in zip(("gate", "up", "down"), calls):
+        (x, wg, wu), kwg = calls["moe_gmm_gated"]
+        (h, wd), kwd = calls["moe_gmm"]
+        rows = kwg["rows"]
+        check(torch.equal(rows, kwd["rows"]) and rows.dtype == torch.int32,
+              f"{path}: the two launches' rows differ")
+        check(kwd["out_dtype"] == x.dtype, f"{path}: down out_dtype "
+              f"{kwd['out_dtype']}")
+        for name, a, w in (("gate", x, wg), ("up", x, wu), ("down", h, wd)):
             shapes[f"{path} {name}"] = check_gmm(
-                torch, f"{path} layer 0 {name}", x, w)
-    for path in ("prefill", "decode"):
-        x, w = got[path][0]
+                torch, f"{path} layer 0 {name}", a, w, bf16_route[path])
         shapes[f"{path} gate float32"] = check_gmm(
-            torch, f"{path} layer 0 gate, float32", x.float(), w.float())
-    x, w = got["prefill"][0]
+            torch, f"{path} layer 0 gate, float32", x.float(), wg.float(),
+            "simt")
+        layer[path] = check_gmm_epilogues(torch, path, x, wg, wu, h, wd,
+                                          rows, bf16_route[path])
+    x, wg = got["prefill"]["moe_gmm_gated"][0][:2]
     shapes["ragged"] = check_gmm(
         torch, "ragged, prefill gate cut to C 344, d 2040, f 1400",
-        x[:, :344, :2040].contiguous(), w[:, :2040, :1400].contiguous())
+        x[:, :344, :2040].contiguous(), wg[:, :2040, :1400].contiguous(),
+        "tensor_core")
     gen = torch.Generator(device=DEVICE).manual_seed(2)
     shapes["odd widths"] = check_gmm(
         torch, "odd widths (element-wise loads)",
         torch.randn((4, 344, 1001), generator=gen, device=DEVICE,
                     dtype=torch.bfloat16),
         torch.randn((4, 1001, 703), generator=gen, device=DEVICE,
-                    dtype=torch.bfloat16))
-    del got, x, w
+                    dtype=torch.bfloat16), "mma_sync")
+    del got, x, wg
     readings = {}
     for path, run in (("prefill", MOE_SERVE), ("decode", MOE_DECODE)):
-        per = [shapes[f"{path} {n}"] for n in ("gate", "up", "down")]
+        per = [layer[path]["gated"], layer[path]["down"]]
         readings[run] = {"moe_gmm_fwd": {
             **{k: cfg.num_layers * sum(r[k] for r in per)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+               for k in ("ms", "ms_dense", "plain_ms", "library_ms",
+                         "bound_ms", "bound_dense_ms")},
+            "route": bf16_route[path],
             "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
             "bound_by": "/".join(sorted({r["bound_by"] for r in per})),
-            "shapes": shapes if path == "prefill" else {
-                k: v for k, v in shapes.items() if k.startswith(path)}}}
+            "gated_vs_composite_elements_differing": layer[path][
+                "gated_diff"],
+            "shapes": {**{k: v for k, v in shapes.items()
+                          if path == "prefill" or k.startswith(path)},
+                       **{f"{path} layer 0 {k}": v
+                          for k, v in layer[path].items() if k != "gated_diff"}}}}
+        log(f"[7 kernels] moe_gmm_fwd per {PER[run]} ({2 * cfg.num_layers} "
+            f"launches of layer 0's shapes, with rows): ms "
+            f"{readings[run]['moe_gmm_fwd']['ms']:.3f} (dense "
+            f"{readings[run]['moe_gmm_fwd']['ms_dense']:.3f})  plain_ms "
+            f"{readings[run]['moe_gmm_fwd']['plain_ms']:.3f}  library_ms "
+            f"{readings[run]['moe_gmm_fwd']['library_ms']:.3f} (torch.bmm of "
+            f"the 3 products)  bound_ms occupied "
+            f"{readings[run]['moe_gmm_fwd']['bound_ms']:.3f} (dense "
+            f"{readings[run]['moe_gmm_fwd']['bound_dense_ms']:.3f})")
     seen = capture_attention(torch, cfg, params, tokens, (0,))
     q, k, v, kw = seen[0]
     fl = check_flash(torch, f"{MOE} layer 0", q, k, v,
@@ -1478,14 +1695,19 @@ def main() -> int:
 
     cfg, params, tokens = serve_model(torch, MOE, "7")
     readings.update(phase_moe_kernels(torch, cfg, params, tokens))
+    from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
     runs[MOE_SERVE], res = phase_serve(
         torch, cfg, params, tokens, MOE_SERVE, "7",
         {"flash_attention_fwd": cfg.num_layers,
-         "moe_gmm_fwd": 3 * cfg.num_layers},
-        {"moe_gmm_fwd": 3 * cfg.num_layers})
+         "moe_gmm_fwd": 2 * cfg.num_layers},
+        {"moe_gmm_fwd": 2 * cfg.num_layers},
+        (gmm_kernel, {"tensor_core": 2 * cfg.num_layers},
+         {"mma_sync": 2 * cfg.num_layers}))
     phase_serve_profile(torch, cfg, params, tokens, res, MOE_SERVE, "7",
-                        {"flash": FLASH_TC, "moe_gmm": "gmm_bf16_kernel"},
-                        ("moe_gmm",), absent=(FLASH_SIMT,))
+                        {"flash": FLASH_TC, "moe_gmm": GMM_TC},
+                        {"moe_gmm": GMM_MMA},
+                        absent=(FLASH_SIMT, GMM_SIMT),
+                        prefill_absent=(GMM_MMA,), step_absent=(GMM_TC,))
     del params
     torch.cuda.empty_cache()
     phase_serve_card_vs_cpu(torch, MOE, "7")

@@ -7,8 +7,9 @@ renormalised), sorts its T_g * K assignments by expert (stably) and packs
 them into fixed-capacity expert slots; assignments past an expert's
 capacity are dropped. The expert matmuls run through the hand-written
 grouped matmul (`kernels/moe_gmm`), where the reference writes three
-einsums (`moe.py:125-127`), and each token sums its K weighted expert
-outputs.
+einsums (`moe.py:125-127`): one gated launch gives silu(x wg) * (x wu) in
+the compute dtype, one more the down product, both skipping the slots no
+token fills. Each token sums its K weighted expert outputs.
 
 Layout. The reference's dispatch buffer is (G, E, C, d); the port's is
 (E, G, C, d), viewed as (E, G * C, d), so that one kernel launch covers
@@ -32,7 +33,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.moe_gmm.ops import moe_gmm
+from repro_torch.kernels.moe_gmm.ops import moe_gmm, moe_gmm_gated
 from repro_torch.models.lm.common import dense_init
 
 GROUP_TOKENS = 4096          # target tokens per dispatch group
@@ -128,11 +129,14 @@ def moe_ffn(x: torch.Tensor, p, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     src[row_f.reshape(-1)] = token_f.reshape(-1)    # drops: the spare row
     xe = torch.cat([x, x.new_zeros((1, d))])[src[:-1]].view(E, GC, d)
 
-    # ---- grouped expert matmul (gated); each output in the compute dtype
-    # as the reference's einsums return it ----
-    h = F.silu(moe_gmm(xe, p["wg"].to(dt)).to(dt)) \
-        * moe_gmm(xe, p["wu"].to(dt)).to(dt)
-    og = moe_gmm(h, p["wd"].to(dt)).to(dt).view(E * GC, d)
+    # ---- grouped expert matmul: the gated one gives h, then the down
+    # product, each output in the compute dtype as the reference's einsums
+    # return it. occ[e, g]: group g's occupied slots of expert e (slots
+    # fill from 0; past them the buffer is zero, and so is h), built on
+    # the device ----
+    occ = counts.clamp(max=C).T.contiguous().to(torch.int32)
+    h = moe_gmm_gated(xe, p["wg"].to(dt), p["wu"].to(dt), rows=occ)
+    og = moe_gmm(h, p["wd"].to(dt), rows=occ, out_dtype=dt).view(E * GC, d)
 
     # ---- combine: each token's K weighted outputs in ascending expert
     # order, added one by one from zeros in the compute dtype ----

@@ -7,6 +7,7 @@ where only PyTorch is installed:
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as Fn
 
 from repro_torch.configs import LM_CONFIGS, GNNConfig, TrainConfig
 from repro_torch.core.reorder import prepare
@@ -523,12 +524,157 @@ def test_moe_gmm_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     assert gmm_kernel.LAUNCHES == before
 
 
+# (E, C, G, d, f): decode's C 8 (mma_sync), C 17 (the smallest on the
+# tensor-core route), 130 (a second row tile of 2 rows), 344 and two groups
+# of 344 (the prefill's capacities), d 2040 / f 1400 (multiples of 8, not
+# of 64: ragged k and column tiles on the tensor-core route), f 512 (its
+# 256-column tiles), odd widths at C 130, and past the tensor-core
+# route's limits, 257 experts and C 4104 (mma_sync)
+GMM_EPI_CASES = [(5, 8, 1, 64, 128), (4, 17, 1, 72, 136),
+                 (4, 130, 2, 128, 64), (4, 344, 1, 2040, 1400),
+                 (4, 688, 2, 256, 264), (3, 688, 2, 192, 512),
+                 (4, 130, 1, 77, 33), (257, 24, 2, 16, 16),
+                 (3, 4104, 2, 16, 24)]
+
+
+def _rows_and_input(E, C, G, d, rng, dt, device):
+    """`rows` (E, G) with expert 0 empty, expert 1 full, expert 2 ending
+    mid-tile (C / G // 2 + 3 rows, or 1 when that passes C / G), the
+    others random; x zero past each group's count, as the MoE buffer is."""
+    Cg = C // G
+    rows = rng.integers(0, Cg + 1, (E, G))
+    rows[0], rows[1], rows[2] = 0, Cg, min(Cg // 2 + 3, Cg) if Cg > 4 else 1
+    x = rng.normal(size=(E, G, Cg, d))
+    x[np.arange(Cg)[None, None, :] >= rows[..., None]] = 0.0
+    return (torch.as_tensor(rows, dtype=torch.int32, device=device),
+            torch.as_tensor(x.reshape(E, C, d), dtype=dt, device=device))
+
+
+@pytest.mark.parametrize("epilogue", ["float32", "in_dtype", "gated"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", GMM_EPI_CASES)
+def test_moe_gmm_routes_epilogues_and_rows(cuda, case, dtype, epilogue):
+    """Each route x epilogue x `rows` on the card: the route taken (simt
+    for float32, tensor_core for bf16 at C > 16 with widths a multiple of
+    8, mma_sync otherwise); the float32 output within 1e-3 (bf16) / 2e-5
+    (float32) x max |plain|; the output in x's dtype equal, bit for bit,
+    to the same route's float32 output cast; the gated one to the
+    composite of the same route's two float32 outputs (`.to`, `F.silu`,
+    `*` on the card); and every output with `rows` (expert 0 empty, 1
+    full, 2 ending mid-tile) equal to the one without, and to a relaunch.
+    One count per launch, in the one key and in the route's."""
+    E, C, G, d, f = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng((*case, len(dtype)))
+    rows, x = _rows_and_input(E, C, G, d, rng, dt, cuda)
+    w, wu = (torch.as_tensor(rng.normal(size=(E, d, f)) / np.sqrt(d),
+                             dtype=dt, device=cuda) for _ in range(2))
+    kind = ("simt" if dtype == "float32" else
+            "tensor_core" if 16 < C <= 4096 and E <= 256 and d % 8 == 0
+            and f % 8 == 0 else "mma_sync")
+    assert gmm_kernel.route(x, w, wu) == kind
+    if epilogue == "gated":
+        def op(rows=None):
+            return gmm_kernel.moe_gmm_gated_fwd(x, w, wu, rows=rows)
+    else:
+        out_dtype = torch.float32 if epilogue == "float32" else dt
+
+        def op(rows=None):
+            return gmm_kernel.moe_gmm_fwd(x, w, rows=rows,
+                                          out_dtype=out_dtype)
+    launches, routes = gmm_kernel.LAUNCHES["moe_gmm_fwd"], dict(
+        gmm_kernel.ROUTES)
+    dense, skipped = op(), op(rows)
+    assert gmm_kernel.LAUNCHES["moe_gmm_fwd"] == launches + 2
+    assert gmm_kernel.ROUTES == dict(routes, **{kind: routes[kind] + 2})
+    assert torch.equal(dense, skipped)
+    assert torch.equal(skipped, op(rows))
+    assert dense.shape == (E, C, f)
+    assert dense.dtype == (torch.float32 if epilogue == "float32" else dt)
+    g32 = gmm_kernel.moe_gmm_fwd(x, w)
+    if epilogue == "float32":
+        want = moe_gmm_ref(x, w)
+        tol = (1e-3 if dtype == "bfloat16" else 2e-5) * float(
+            want.abs().max())
+        assert float((dense - want).abs().max()) <= tol
+        assert bool(dense[0].eq(0).all())
+    elif epilogue == "in_dtype":
+        assert torch.equal(dense, g32.to(dt))
+    else:
+        u32 = gmm_kernel.moe_gmm_fwd(x, wu)
+        assert torch.equal(dense, Fn.silu(g32.to(dt)) * u32.to(dt))
+
+
+def test_moe_gmm_gated_holds_the_composite_past_the_fast_silu_range(cuda):
+    """The tensor-core gated epilogue divides branch-free only where every
+    value of a warp has 2^-60 <= |bf16(g)| <= 40; rows scaled so that some
+    warps hold |g| up to ~150 (silu's IEEE division with its branch) and
+    tiny ones (|g| < 2^-60) still equal the composite of the float32
+    outputs bit for bit."""
+    E, C, d, f = 3, 344, 256, 256
+    rng = np.random.default_rng(11)
+    x = torch.as_tensor(rng.normal(size=(E, C, d)), dtype=torch.bfloat16,
+                        device=cuda)
+    x[:, :40] *= 60.0
+    x[:, 40:60] *= 2.0 ** -70
+    w, wu = (torch.as_tensor(rng.normal(size=(E, d, f)) / 16,
+                             dtype=torch.bfloat16, device=cuda)
+             for _ in range(2))
+    assert gmm_kernel.route(x, w, wu) == "tensor_core"
+    g32, u32 = gmm_kernel.moe_gmm_fwd(x, w), gmm_kernel.moe_gmm_fwd(x, wu)
+    assert float(g32.abs().max()) > 40.0
+    got = gmm_kernel.moe_gmm_gated_fwd(x, w, wu)
+    assert torch.equal(got, Fn.silu(g32.to(x.dtype)) * u32.to(x.dtype))
+
+
+def test_moe_gmm_rows_skip_whole_experts_in_decode(cuda):
+    """Decode's shape (C 8, one group) with a single occupied expert: the
+    output equals the dense one, the empty experts' outputs are zero even
+    where their weights hold NaN (a skipped expert reads no weight)."""
+    E, C, d, f = 6, 8, 256, 128
+    rng = np.random.default_rng(3)
+    x = torch.zeros((E, C, d), dtype=torch.bfloat16, device=cuda)
+    x[4, :3] = torch.as_tensor(rng.normal(size=(3, d)), dtype=x.dtype,
+                               device=cuda)
+    w = torch.as_tensor(rng.normal(size=(E, d, f)) / 16, dtype=x.dtype,
+                        device=cuda)
+    rows = torch.tensor([[0], [0], [0], [0], [3], [0]], dtype=torch.int32,
+                        device=cuda)
+    dense = gmm_kernel.moe_gmm_gated_fwd(x, w, w)
+    poisoned = w.clone()
+    poisoned[torch.arange(E, device=cuda) != 4] = float("nan")
+    got = gmm_kernel.moe_gmm_gated_fwd(x, poisoned, poisoned, rows=rows)
+    assert gmm_kernel.route(x, w) == "mma_sync"
+    assert torch.equal(got, dense)
+    assert bool(got[torch.arange(E, device=cuda) != 4].eq(0).all())
+
+
+def test_moe_gmm_refuses_rows_it_cannot_read_on_the_card(cuda):
+    x = torch.zeros((4, 24, 16), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((4, 16, 8), device=cuda, dtype=torch.bfloat16)
+    ok = torch.zeros((4, 2), device=cuda, dtype=torch.int32)
+    before = (dict(gmm_kernel.LAUNCHES), dict(gmm_kernel.ROUTES))
+    bad = [(ok.cpu(), ValueError), (ok.long(), TypeError),
+           (ok[:3], ValueError), (ok[:, 0], ValueError),
+           (torch.zeros((4, 5), device=cuda, dtype=torch.int32), ValueError),
+           (torch.zeros((2, 4), device=cuda, dtype=torch.int32).T,
+            ValueError)]
+    for rows, err in bad:
+        with pytest.raises(err):
+            gmm_kernel.moe_gmm_fwd(x, w, rows=rows)
+        with pytest.raises(err):
+            gmm_kernel.moe_gmm_gated_fwd(x, w, w, rows=rows)
+    with pytest.raises(TypeError):
+        gmm_kernel.moe_gmm_fwd(x, w, out_dtype=torch.float16)
+    assert (gmm_kernel.LAUNCHES, gmm_kernel.ROUTES) == before
+
+
 def test_moe_generate_on_the_card_matches_the_cpu(cuda):
     """Reduced qwen2-moe-a2.7b in float32, same parameters and prompts:
     prefill and 8 decode steps' logits within rtol 1e-4 / atol 1e-5
-    through a float32 cache, `generate`'s greedy ids equal; exactly 3
-    moe_gmm_fwd launches per layer in the prefill and in every decode
-    step."""
+    through a float32 cache, `generate`'s greedy ids equal; exactly 2
+    moe_gmm_fwd launches per layer (the gated one and the down product)
+    in the prefill and in every decode step, all on the simt route."""
     cfg = LM_CONFIGS["qwen2-moe-a2.7b"].reduced().scaled(dtype="float32")
     params = transformer.init(cfg, torch.Generator().manual_seed(0),
                               device="cpu")
@@ -539,14 +685,14 @@ def test_moe_generate_on_the_card_matches_the_cpu(cuda):
         gmm_kernel.reset_launches()
         logits, pcache = transformer.prefill(cfg, on_card,
                                              {"tokens": tokens.to(cuda)})
-        assert gmm_kernel.LAUNCHES["moe_gmm_fwd"] == 3 * cfg.num_layers
+        assert gmm_kernel.LAUNCHES["moe_gmm_fwd"] == 2 * cfg.num_layers
         cache = transformer.init_cache(cfg, 2, 41, torch.float32, cuda)
         for key in ("k", "v"):
             cache[key][:, :, :40] = pcache[key]
         gmm_kernel.reset_launches()
         transformer.decode_step(cfg, on_card, cache, torch.argmax(
             logits[:, -1], dim=-1, keepdim=True), 40)
-        assert gmm_kernel.LAUNCHES["moe_gmm_fwd"] == 3 * cfg.num_layers
+        assert gmm_kernel.LAUNCHES["moe_gmm_fwd"] == 2 * cfg.num_layers
     card = _serve_logits(cfg, params, tokens, 8, cuda)
     for a, b in zip(card, _serve_logits(cfg, params, tokens, 8, "cpu")):
         torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5)
@@ -554,7 +700,9 @@ def test_moe_generate_on_the_card_matches_the_cpu(cuda):
     gmm_kernel.reset_launches()
     flash_kernel.reset_launches()
     gpu = generate(cfg, params, tokens, 8, device=cuda)
-    assert gmm_kernel.LAUNCHES["moe_gmm_fwd"] == 3 * cfg.num_layers * 9
+    assert gmm_kernel.LAUNCHES["moe_gmm_fwd"] == 2 * cfg.num_layers * 9
+    assert gmm_kernel.ROUTES == {"tensor_core": 0, "mma_sync": 0,
+                                 "simt": 2 * cfg.num_layers * 9}
     assert flash_kernel.LAUNCHES["flash_attention_fwd"] == cfg.num_layers
     assert torch.equal(gpu.ids.cpu(), cpu.ids)
 

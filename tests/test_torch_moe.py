@@ -18,6 +18,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.configs.registry import get_config
 from repro.dist import sharding as jax_shd
@@ -27,8 +28,8 @@ from repro.models.lm import moe as jax_moe
 from repro.models.lm import transformer as jax_tf
 from repro_torch.configs import LM_CONFIGS, ModelConfig
 from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
-from repro_torch.kernels.moe_gmm.ops import moe_gmm
-from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
+from repro_torch.kernels.moe_gmm.ops import moe_gmm, moe_gmm_gated
+from repro_torch.kernels.moe_gmm.ref import moe_gmm_gated_ref, moe_gmm_ref
 from repro_torch.launch import serve
 from repro_torch.models.lm import moe, transformer
 from test_torch_lm import (B, PROMPT, STEPS, _jax_serve, _torch_serve,
@@ -113,14 +114,135 @@ def test_plain_gmm_takes_shapes_the_pallas_kernel_refuses(shape, dtype):
 
 def test_cpu_tensors_count_no_launch_and_the_op_is_forward_only():
     x, w = (_t(a) for a in _gmm_inputs(2, 8, 16, 8, 2))
-    before = dict(gmm_kernel.LAUNCHES)
+    before = (dict(gmm_kernel.LAUNCHES), dict(gmm_kernel.ROUTES))
     gmm_kernel.moe_gmm_fwd(x, w)
     moe_gmm(x, w)
-    assert gmm_kernel.LAUNCHES == before
+    moe_gmm_gated(x, w, w)
+    assert (gmm_kernel.LAUNCHES, gmm_kernel.ROUTES) == before
+    with pytest.raises(RuntimeError, match="forward only"):
+        moe_gmm_gated(x, w, w.clone().requires_grad_())
     with pytest.raises(RuntimeError, match="forward only"):
         moe_gmm(x.requires_grad_(), w)
     with torch.no_grad():
         moe_gmm(x, w)
+
+
+# ---------------------------------------------------------------------------
+# the epilogues: output in the compute dtype, gated, rows
+# ---------------------------------------------------------------------------
+BF16_ULP = 2.0 ** -7          # bf16 keeps 8 significant bits
+
+
+def _bf16_np(t):
+    return t.to(torch.float32).numpy()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 16, 64, 32), (3, 344, 40, 24)])
+def test_plain_epilogues_match_the_reference_composite(shape, dtype):
+    """`moe_gmm_ref(..., out_dtype=dt)` and `moe_gmm_gated_ref` against the
+    reference's own expert math (`repro/models/lm/moe.py:125-126`):
+    `jnp.einsum` in the compute dtype, then `jax.nn.silu(g) * u`, on the
+    same inputs. float32 within rtol = atol = 1e-5 (sums in another
+    order). bf16 within 2 bf16 ulps of each value (2 x 2^-7 |want|) plus
+    2 ulps of the largest (2 x 2^-7 max |want|, for values that cancel):
+    both round each product to bf16, but JAX sums in another order, so a
+    product near a rounding boundary may round one ulp the other way,
+    and its silu (x * sigmoid(x) in bf16) rounds at other points than
+    PyTorch's x / (1 + exp(-x))."""
+    E, C, d, f = shape
+    x, wg = _gmm_inputs(E, C, d, f, 5)
+    _, wu = _gmm_inputs(E, C, d, f, 6)
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    xj, gj, uj = (jnp.asarray(a).astype(jdt) for a in (x, wg, wu))
+    want_g = jnp.einsum("ecd,edf->ecf", xj, gj)
+    want_h = jax.nn.silu(want_g) * jnp.einsum("ecd,edf->ecf", xj, uj)
+    assert want_h.dtype == jdt
+    xt, gt, ut = (_t(a).to(tdt) for a in (x, wg, wu))
+    got_g = moe_gmm_ref(xt, gt, tdt)
+    got_h = moe_gmm_gated_ref(xt, gt, ut)
+    assert got_g.dtype == got_h.dtype == tdt
+    for got, want in ((got_g, want_g), (got_h, want_h)):
+        got, want = _bf16_np(got), _np(want)
+        if dtype == "float32":
+            np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+        else:
+            np.testing.assert_allclose(
+                got, want, rtol=2 * BF16_ULP,
+                atol=2 * BF16_ULP * np.abs(want).max())
+    # the gated op on CPU tensors is the plain composite, and the plain
+    # output in the compute dtype is the float32 one rounded once
+    assert torch.equal(moe_gmm_gated(xt, gt, ut), got_h)
+    assert torch.equal(moe_gmm(xt, gt, out_dtype=tdt),
+                       moe_gmm_ref(xt, gt).to(tdt))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rows_are_a_no_op_for_the_plain_versions(dtype):
+    """On CPU tensors `rows` is checked and then ignored: the outputs with
+    it equal those without, bit for bit, for each op and epilogue."""
+    E, C, d, f, G = 4, 24, 16, 8, 2
+    x, wg = (_t(a).to(getattr(torch, dtype)) for a in
+             _gmm_inputs(E, C, d, f, 7))
+    wu = wg.flip(0).contiguous()
+    rows = torch.tensor([[0, 0], [3, 12], [12, 1], [5, 7]],
+                        dtype=torch.int32)
+    for kw in ({}, {"out_dtype": x.dtype}):
+        assert torch.equal(gmm_kernel.moe_gmm_fwd(x, wg, rows=rows, **kw),
+                           gmm_kernel.moe_gmm_fwd(x, wg, **kw))
+    assert torch.equal(gmm_kernel.moe_gmm_gated_fwd(x, wg, wu, rows=rows),
+                       gmm_kernel.moe_gmm_gated_fwd(x, wg, wu))
+
+
+def test_the_wrapper_refuses_rows_it_cannot_read():
+    """Wrong shape, dtype or device, or a group count that does not divide
+    C: refused before dispatch (so here, on the CPU path, too), by both
+    ops; and an out_dtype other than float32 or x's."""
+    x, w = (_t(a) for a in _gmm_inputs(4, 24, 16, 8, 8))
+    ok = torch.zeros((4, 2), dtype=torch.int32)
+    bad = [(ok[:3], ValueError), (ok[:, :0], ValueError),
+           (ok[:, 0], ValueError), (ok[None], ValueError),
+           (ok.long(), TypeError), (ok.float(), TypeError),
+           (torch.zeros((4, 5), dtype=torch.int32), ValueError),
+           (torch.zeros((2, 4), dtype=torch.int32).T, ValueError),
+           (ok.to("meta"), ValueError)]
+    for rows, err in bad:
+        with pytest.raises(err):
+            gmm_kernel.moe_gmm_fwd(x, w, rows=rows)
+        with pytest.raises(err):
+            gmm_kernel.moe_gmm_gated_fwd(x, w, w, rows=rows)
+    with pytest.raises(TypeError):
+        gmm_kernel.moe_gmm_fwd(x, w, out_dtype=torch.bfloat16)
+    gmm_kernel.moe_gmm_fwd(x, w, rows=ok)
+    gmm_kernel.moe_gmm_gated_fwd(x, w, w, rows=torch.zeros(
+        (4, 24), dtype=torch.int32))
+
+
+def test_route_picks_by_dtype_shape_and_alignment():
+    """`kernel.route` (read from shapes and pointers, so it answers for CPU
+    tensors too): float32 -> simt; bf16 -> tensor_core for 16 < C <= 4096,
+    E <= 256, d and f multiples of 8 and 16-byte aligned starts, else
+    mma_sync."""
+    def bf(*shape, offset=0):
+        return torch.zeros(int(np.prod(shape)) + offset,
+                           dtype=torch.bfloat16)[offset:].view(shape)
+
+    assert gmm_kernel.route(bf(2, 17, 16).float(), bf(2, 16, 8).float()) \
+        == "simt"
+    assert gmm_kernel.route(bf(2, 17, 16), bf(2, 16, 8)) == "tensor_core"
+    assert gmm_kernel.route(bf(2, 17, 16), bf(2, 16, 8),
+                            bf(2, 16, 8)) == "tensor_core"
+    assert gmm_kernel.route(bf(60, 688, 2048), bf(60, 2048, 1408)) == \
+        "tensor_core"
+    for x, w in ((bf(2, 16, 16), bf(2, 16, 8)),        # decode's C
+                 (bf(2, 17, 12), bf(2, 12, 8)),        # d not of 8
+                 (bf(2, 17, 16), bf(2, 16, 12)),       # f not of 8
+                 (bf(257, 17, 16), bf(257, 16, 8)),    # E past 256
+                 (bf(2, 4097, 16), bf(2, 16, 8)),      # C past 4096
+                 (bf(2, 17, 16, offset=1), bf(2, 16, 8))):   # misaligned
+        assert gmm_kernel.route(x, w) == "mma_sync"
+    assert gmm_kernel.route(bf(2, 17, 16), bf(2, 16, 8),
+                            bf(2, 16, 8, offset=1)) == "mma_sync"
 
 
 # ---------------------------------------------------------------------------
@@ -199,15 +321,92 @@ def test_dispatch_buffer_equals_the_reference(T, cf, monkeypatch):
     jax_moe.moe_ffn(jnp.asarray(x), jax.tree.map(jnp.asarray, p), jcfg)
     want = np.asarray(seen[1])                   # (G, E * C, d)
     got = []
-    real_gmm = moe.moe_gmm
-    monkeypatch.setattr(moe, "moe_gmm",
-                        lambda a, w: got.append(a) or real_gmm(a, w))
+    real_gmm = moe.moe_gmm_gated
+    monkeypatch.setattr(moe, "moe_gmm_gated",
+                        lambda a, wg, wu, rows=None: got.append(a)
+                        or real_gmm(a, wg, wu, rows=rows))
     moe.moe_ffn(_t(x), {k: _t(v) for k, v in p.items()}, cfg)
     E, G = cfg.num_experts, moe.moe_group_count(T)
     C = moe.moe_capacity(T // G, cfg)
     buf = got[0].reshape(E, G, C, cfg.d_model).permute(1, 0, 2, 3)
     np.testing.assert_array_equal(buf.reshape(G, E * C, -1).numpy(), want)
     assert want.shape == (G, E * C, cfg.d_model)
+
+
+@pytest.mark.parametrize("T,cf", [(64, 1.25), (64, 0.5), (8192, 1.25)])
+def test_rows_equal_the_reference_routes_occupied_slots(T, cf, monkeypatch):
+    """The `rows` moe_ffn hands both grouped matmuls: for each (expert,
+    group) the slots the reference's own `route` keeps, from the
+    reference's top-k, drops included (cf 0.5) and over two groups (T
+    8192); int32 (E, G); and the rows past them in the buffer are zero."""
+    arch = "qwen3-moe-235b-a22b"
+    cfg = port_config(arch).scaled(capacity_factor=cf)
+    jcfg = get_config(arch).reduced().scaled(capacity_factor=cf)
+    p = moe_params(jcfg, 6)
+    x = np.random.default_rng((T, 6)).normal(
+        size=(T, cfg.d_model)).astype(np.float32)
+    tops = []
+    real_top_k = jax.lax.top_k
+    monkeypatch.setattr(jax.lax, "top_k",
+                        lambda a, k: tops.append(real_top_k(a, k))
+                        or tops[-1])
+    jax_moe.moe_ffn(jnp.asarray(x), jax.tree.map(jnp.asarray, p), jcfg)
+    monkeypatch.setattr(jax.lax, "top_k", real_top_k)
+    topi = np.asarray(tops[0][1])                         # (G, Tg, K)
+    E, K, G = cfg.num_experts, cfg.top_k, moe.moe_group_count(T)
+    Tg = T // G
+    C = moe.moe_capacity(Tg, cfg)
+    ref_route = _reference_route(E, C, K, Tg)
+    want = np.zeros((E, G), np.int64)
+    for g in range(G):
+        _, dest, keep = (np.asarray(a) for a in ref_route(
+            jnp.asarray(topi[g], jnp.int32)))
+        np.add.at(want[:, g], dest[keep] // C, 1)
+    seen = []
+    real = moe.moe_gmm_gated
+    monkeypatch.setattr(moe, "moe_gmm_gated",
+                        lambda a, wg, wu, rows=None: seen.append((a, rows))
+                        or real(a, wg, wu, rows=rows))
+    moe.moe_ffn(_t(x), {k: _t(v) for k, v in p.items()}, cfg)
+    buf, rows = seen[0]
+    assert rows.dtype == torch.int32 and rows.shape == (E, G)
+    np.testing.assert_array_equal(rows.numpy(), want)
+    if cf == 0.5:
+        assert (want == C).any()                 # some expert is full
+    buf = buf.reshape(E, G, C, -1)
+    for e in range(E):
+        for g in range(G):
+            n = int(rows[e, g])
+            assert bool(buf[e, g, n:].eq(0).all())
+            assert bool(buf[e, g, :n].ne(0).any(-1).all())
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("T", [64, 8192])
+def test_moe_ffn_equals_the_composite_it_replaced(T, dtype, monkeypatch):
+    """moe_ffn through the gated op and the down product in the compute
+    dtype equals, bit for bit, the composite it replaced: three float32
+    grouped matmuls, each cast to the compute dtype, F.silu and the
+    multiply between them."""
+    cfg = port_config("qwen2-moe-a2.7b").scaled(dtype=dtype)
+    p = {k: _t(v) for k, v in moe_params(
+        get_config("qwen2-moe-a2.7b").reduced(), 7).items()}
+    x = _t(np.random.default_rng((T, 7)).normal(
+        size=(T, cfg.d_model)).astype(np.float32)).to(getattr(torch, dtype))
+    got, aux = moe.moe_ffn(x, p, cfg)
+
+    def gated(a, wg, wu, rows=None):
+        dt = a.dtype
+        return F.silu(moe_gmm(a, wg).to(dt)) * moe_gmm(a, wu).to(dt)
+
+    def down(a, w, rows=None, out_dtype=torch.float32):
+        return moe_gmm(a, w).to(out_dtype)
+
+    monkeypatch.setattr(moe, "moe_gmm_gated", gated)
+    monkeypatch.setattr(moe, "moe_gmm", down)
+    want, want_aux = moe.moe_ffn(x, p, cfg)
+    assert got.dtype == x.dtype
+    assert torch.equal(got, want) and torch.equal(aux, want_aux)
 
 
 # ---------------------------------------------------------------------------
