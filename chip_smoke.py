@@ -27,23 +27,30 @@ run, exit code != 0):
               plain one), bit-determinism over two launches, and ms (CUDA
               events around 10 back-to-back calls, median of 5) beside the
               plain version, one equivalent PyTorch call where there is one
-              (`embedding_bag`, `index_select`), and the bound (compulsory
+              (`embedding_bag`, `index_select`, and for bwd_dx `index_add_`
+              of the pre-multiplied rows, which is atomic and so not
+              deterministic), and the bound (compulsory
               bytes at 3.35 TB/s, flops at 67 TFLOP/s float32)
   4. train    GraphSAGE (20 steps), cached GraphSAGE (10 steps), GCN and
               GAT (10 steps each), each followed by one `evaluate` of 3
               validation batches, on the reddit-602 graph with the same
               policy, caps and batches; the kernels' launch counters are
               zeroed just before each run and read just after, and must
-              equal 3 per step + 3 per eval batch (forward), 2 per step
-              (bwd_dx; 3 for GAT, whose layer 0 differentiates its
-              projection), 3 per step for GAT's bwd_dw, and 1 per step and
+              equal 3 per step + 3 per eval batch (forward), 4 per step
+              (bwd_dx: the aggregate and the self-row gather at layers 1
+              and 2; 9 for GAT: the aggregate, z_self and e_src at all
+              three layers, whose layer 0 differentiates its projection),
+              3 per step for GAT's bwd_dw, and 1 per step and
               eval batch for the cached gather in the cached run (0 in any
               other); the cached run's losses must equal the uncached
               GraphSAGE run's first 10 bit for bit, and its hits + misses
               the valid input nodes of its batches; then 3 more steps of
               each run under torch.profiler: CUDA kernels by device time
-              per step and the device's idle share of an unprofiled step;
-              last, a fresh uncached and a fresh cached GraphSAGE trainer
+              per step and the device's idle share of an unprofiled step
+              (no PyTorch `indexing_backward` kernel may show: every row
+              gather's backward is the bwd_dx kernel); a second GAT trainer
+              from the same seed repeats the run's first 3 losses bit for
+              bit; last, a fresh uncached and a fresh cached GraphSAGE trainer
               take 10 steps in turns on the same batches (the cache's cost
               per step, without drift between runs)
   5. card vs CPU  5 guarded steps of GraphSAGE, of cached GraphSAGE and of
@@ -76,7 +83,10 @@ run, exit code != 0):
               must not show); last,
               reduced gemma3-1b in float32 served on the card and on the
               CPU: prefill and 8 decode steps' logits within rtol 1e-4,
-              greedy ids equal
+              greedy ids equal; and reduced gemma3-1b in bf16 at head_dim
+              64 (the tensor-core flash route in every prefill layer):
+              prefill and 8 decode steps' logits on the same tokens within
+              5e-2 x max |logit| of the CPU bf16 model
   7. serve    qwen2-moe-a2.7b at full width (24 layers, d_model 2048, 16
               heads over 16 KV heads of 128 with qkv bias, 60 experts
               top-4 of d_ff 1408 plus a 5632-wide shared expert, vocab
@@ -111,7 +121,11 @@ run, exit code != 0):
               in the tensor-core kernel, decode's in the mma.sync one,
               never the float32 one; the tensor-core flash kernel's share,
               no SIMT flash kernel); reduced qwen2-moe-a2.7b in float32 on
-              the card and on the CPU within rtol 1e-4, greedy ids equal
+              the card and on the CPU within rtol 1e-4, greedy ids equal;
+              reduced qwen2-moe-a2.7b in bf16 at head_dim 64 with a
+              prefill of 2 x 64 tokens (expert capacity 40: the grouped
+              matmul's tensor-core route; decode's capacity 8 takes
+              mma_sync) held as gemma3-1b's bf16 run
   8. serve    rwkv6-7b at full width (32 layers, d_model 4096, 64 WKV
               heads of 64, relu² channel mix of d_ff 14336, vocab 65536,
               untied head; 7,534,546,944 parameters drawn on the card in
@@ -119,7 +133,9 @@ run, exit code != 0):
               float32): `wkv6_fwd` at the r, k, v, logw, u a real prefill
               hands it at layer 0 (T 2048, from zeros), at a ragged T
               (2047), at T 1 and at T 2048 from the prefill's non-zero
-              final state, and in float32 — max error of the output and
+              final state, in float32, and at batch 1 with the head cut to
+              N 32 (32 of the kernel's 64 columns empty, 32 blocks for
+              132 SMs) — max error of the output and
               of the final state within 2e-5 x max |plain| (bf16 inputs
               as float32: both sides work in float32 from the same
               values), bit-identical relaunch, ms beside the plain
@@ -157,10 +173,10 @@ CACHE_FRAC = 0.2
 # the runs of the main path: the config trained at full width
 # (repro_torch.configs.CONFIGS), its steps, the bwd_dx / bwd_dw launches
 # each step makes, and whether layer 0 reads through the feature cache
-RUNS = {"graphsage": ("graphsage", 20, 2, 0, False),
-        "graphsage_cached": ("graphsage", 10, 2, 0, True),
-        "gcn": ("gcn", 10, 2, 0, False),
-        "gat": ("gat", 10, 3, 3, False)}
+RUNS = {"graphsage": ("graphsage", 20, 4, 0, False),
+        "graphsage_cached": ("graphsage", 10, 4, 0, True),
+        "gcn": ("gcn", 10, 4, 0, False),
+        "gat": ("gat", 10, 9, 3, False)}
 # LM serving: the reference's prefill_32k shape (32 x 32768,
 # `src/repro/configs/base.py:146-151`) cut to batch 4 x prompt 2048 to fit
 # this script's time limit, then 32 greedy tokens
@@ -309,11 +325,24 @@ def typical_batch(trainer):
     return batch
 
 
+def self_gather(torch, i, tag, x, idx, g):
+    """The bwd_dx launch of `gather_rows(x, idx)`'s backward: fanout 1,
+    unit weights, x viewed as (n_src, F)."""
+    M = idx.numel()
+    return {"layer": f"{i} {tag}", "x": x.reshape(x.shape[0], -1),
+            "idx": torch.clamp(idx.reshape(M, 1).to(torch.int32), 0,
+                               x.shape[0] - 1).contiguous(),
+            "w": torch.ones((M, 1), device=x.device),
+            "g": g.reshape(M, -1), "needs_fwd": False, "needs_dx": True,
+            "needs_dw": False}
+
+
 def main_path_layers(torch, trainer, batch):
     """The (x, idx, w) each SAGE layer hands `gather_agg` in a train step,
     from a real batch: layer 0 gathers from the global feature matrix
     through composed ids; layers 1 and 2 from hidden activations (random
-    values of the real width, from a seeded generator). GCN's calls have
+    values of the real width, from a seeded generator), whose self rows'
+    gather (`gather_rows`) also takes a bwd_dx launch. GCN's calls have
     the same shapes, with degree-normalised weights."""
     gen = torch.Generator(device=trainer.device).manual_seed(0)
     layers = []
@@ -333,8 +362,11 @@ def main_path_layers(torch, trainer, batch):
         g = torch.randn((idx.shape[0], x.shape[1]), generator=gen,
                         device=trainer.device)
         layers.append({"layer": i, "x": x, "idx": idx.contiguous(),
-                       "w": w.contiguous(), "g": g, "needs_dx": i > 0,
-                       "needs_dw": False})
+                       "w": w.contiguous(), "g": g, "needs_fwd": True,
+                       "needs_dx": i > 0, "needs_dw": False})
+        if i > 0:
+            layers.append(self_gather(torch, i, "self", x, block.self_pos,
+                                      torch.randn_like(g)))
     return layers
 
 
@@ -345,7 +377,9 @@ def gat_layers(torch, trainer, batch, cfg):
     idx2 = src_pos * H + h, and alpha a softmax over the row's unmasked
     neighbours and its self slot (masked slots exactly 0), as `gat_layer`
     makes it. g is the cotangent of the (n_dst*H, dh) out; every layer
-    differentiates zf (z = x W, at layer 0 too) and alpha."""
+    differentiates zf (z = x W, at layer 0 too) and alpha, and takes two
+    more bwd_dx launches for its row gathers z_self = z[self_pos] and
+    e_src = s_src[src_pos] (`gather_rows`)."""
     gen = torch.Generator(device=trainer.device).manual_seed(1)
     H = cfg.gat_heads
     dims = [cfg.in_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1) \
@@ -367,8 +401,17 @@ def gat_layers(torch, trainer, batch, cfg):
         g = torch.randn((n_dst * H, dh), generator=gen,
                         device=trainer.device)
         layers.append({"layer": i, "x": zf, "idx": idx.contiguous(),
-                       "w": w.contiguous(), "g": g, "needs_dx": True,
-                       "needs_dw": True})
+                       "w": w.contiguous(), "g": g, "needs_fwd": True,
+                       "needs_dx": True, "needs_dw": True})
+        layers.append(self_gather(
+            torch, i, "z_self", zf.reshape(n_src, H * dh), block.self_pos,
+            torch.randn((n_dst, H * dh), generator=gen,
+                        device=trainer.device)))
+        layers.append(self_gather(
+            torch, i, "e_src", torch.randn((n_src, H), generator=gen,
+                                           device=trainer.device),
+            block.src_pos, torch.randn((n_dst, r, H), generator=gen,
+                                       device=trainer.device)))
         n_src = n_dst
     return layers
 
@@ -433,14 +476,21 @@ def check_dx(torch, L):
           "bwd_dx differs between launches")
     b_ms, b_by = _bound_ms(n_dst * F * 4 + idx.numel() * 8 + n_src * F * 4,
                            2.0 * n_dst * r * F)
+    # the library call: one index_add_ of the rows w g, multiplied
+    # beforehand (atomics: neither deterministic nor ordered)
+    contrib = (w[..., None] * g[:, None, :]).reshape(-1, F)
+    flat, acc = idx.reshape(-1).long(), torch.zeros_like(dx)
     return {"max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
             "ms": cuda_ms(torch, lambda: kernel.gather_agg_bwd_dx(
                 idx, w, g, n_src)),
             "plain_ms": cuda_ms(torch, lambda: ref.gather_agg_bwd_dx_ref(
                 idx, w, g, n_src)),
-            "library_ms": None,
+            "library_ms": cuda_ms(torch, lambda: acc.index_add_(
+                0, flat, contrib)),
             "note": f"dx {n_src}x{F} edges {n_dst}x{r} (at most {terms} on "
-                    f"a row; tol {tol:.1e}; ms with the sort glue)"}
+                    f"a row; tol {tol:.1e}; ms with the sort glue; "
+                    f"library: index_add_ of the pre-multiplied rows, "
+                    f"atomic, not deterministic)"}
 
 
 def check_dw(torch, L):
@@ -537,7 +587,7 @@ def check_cached(torch, L):
                     f"index_select"}
 
 
-CHECKS = (("gather_agg_fwd", check_fwd, None),
+CHECKS = (("gather_agg_fwd", check_fwd, "needs_fwd"),
           ("gather_agg_bwd_dx", check_dx, "needs_dx"),
           ("gather_agg_bwd_dw", check_dw, "needs_dw"))
 CACHED_CHECKS = (("gather_cached_fwd", check_cached, None),)
@@ -733,6 +783,18 @@ def phase_profile(torch, trainer, name, step_ms: float, steps: int = 3,
     for key, t, n in dev[:top]:
         log(f"[4 profile] {name}: {t / steps / 1e3:8.3f} ms/step  "
             f"{n / steps:6.1f} calls/step  {key[:110]}")
+    slow = [key for key, _, _ in dev if "indexing_backward" in key]
+    check(not slow, f"{name}: PyTorch's index backward ran: {slow}")
+
+
+def phase_relaunch(trainer_of, losses, name, steps: int = 3):
+    """A second trainer from the same seed repeats the run's first `steps`
+    losses bit for bit: every kernel of the step sums in a fixed order."""
+    got = trainer_of().train_steps(steps)
+    check(got == losses[:steps], f"{name}: relaunch losses {got} != "
+          f"{losses[:steps]}")
+    log(f"[4 train] {name}: a second trainer from the same seed repeats "
+        f"the first {steps} losses bit for bit {got}")
 
 
 # ---------------------------------------------------------------------------
@@ -1179,6 +1241,112 @@ def phase_serve_card_vs_cpu(torch, arch, tag, steps: int = 8):
         f"{cpu.ids[0].tolist()}")
 
 
+class TopkReplay:
+    """Stands in for `torch` inside `models/lm/moe.py`: its first run
+    records each layer's top-k expert choices, a later run takes the same
+    choices (its own probabilities gathered at them) and counts the tokens
+    whose own choice differs. Routing is discontinuous: two devices whose
+    hidden states differ by bf16 rounding pick other experts for
+    near-ties, so the logits are held on the same choices."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.seen, self.at, self.flips, self.tokens = [], None, 0, 0
+
+    def __getattr__(self, name):
+        return getattr(self.torch, name)
+
+    def topk(self, probs, k, dim=-1):
+        torch = self.torch
+        v, i = torch.topk(probs, k, dim=dim)
+        if self.at is None:
+            self.seen.append(i.cpu())
+            return v, i
+        want = self.seen[self.at].to(i.device)
+        self.at += 1
+        differ = (torch.sort(i, dim)[0] != torch.sort(want, dim)[0]).any(dim)
+        self.flips += int(differ.sum())
+        self.tokens += differ.numel()
+        return torch.gather(probs, dim, want), want
+
+
+def teacher_logits(torch, cfg, params, tokens, feed, device):
+    """Prefill `tokens`, then one decode step per column of `feed` (the
+    same tokens on both devices, so that no argmax tie sends them down
+    other paths) against a cache in the compute dtype: the last logits of
+    the prefill and of each step, float32 on the CPU."""
+    from repro_torch.models.lm import transformer
+    params = transformer.cast_params(cfg, params, device)
+    dt = getattr(torch, cfg.dtype)
+    with torch.no_grad():
+        logits, pcache = transformer.prefill(
+            cfg, params, {"tokens": tokens.to(device)})
+        B, P = tokens.shape
+        cache = transformer.fill_cache(cfg, transformer.init_cache(
+            cfg, B, P + feed.shape[1], dt, device), pcache)
+        out = [logits[:, -1]]
+        for t in range(feed.shape[1]):
+            logits, cache = transformer.decode_step(
+                cfg, params, cache, feed[:, t:t + 1].to(device), P + t)
+            out.append(logits[:, -1])
+    return [o.float().cpu() for o in out]
+
+
+def phase_bf16_card_vs_cpu(torch, arch, tag, steps: int = 8):
+    """The reduced config of `arch` in bf16 at head_dim 64, so that every
+    prefill layer's flash launch takes the tensor-core kernel and (MoE) a
+    prefill of 2 x 64 tokens gives an expert capacity of 40, which the
+    grouped matmul's tensor-core kernel takes (decode's 8 takes mma_sync):
+    prefill and `steps` decode steps' logits on the same tokens and (MoE)
+    the same expert choices (`TopkReplay`; the tokens whose own choice
+    differs on the card are counted) within 5e-2 x max |logit| of the CPU
+    bf16 model (the bound of the CPU tests against JAX in bf16), the
+    routes counted."""
+    from repro_torch.configs import LM_CONFIGS
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+    from repro_torch.models.lm import moe, transformer
+    cfg = LM_CONFIGS[arch].reduced().scaled(head_dim=64)
+    check(cfg.dtype == "bfloat16", f"{cfg.name} computes in {cfg.dtype}")
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+    feed = torch.randint(0, cfg.vocab_size, (2, steps), generator=gen)
+    replay = TopkReplay(torch)
+    moe.torch = replay
+    try:
+        cpu = teacher_logits(torch, cfg, params, tokens, feed, "cpu")
+        replay.at = 0
+        reset_launches()
+        card = teacher_logits(torch, cfg, params, tokens, feed, DEVICE)
+    finally:
+        moe.torch = torch
+    check(replay.at == len(replay.seen), f"{cfg.name}: top-k calls differ")
+    routes = {"flash": dict(flash_kernel.ROUTES)}
+    check(routes["flash"] == {"tensor_core": cfg.num_layers, "simt": 0},
+          f"{cfg.name} bf16: flash routes {routes['flash']}")
+    if cfg.moe:
+        routes["moe_gmm"] = dict(gmm_kernel.ROUTES)
+        want = {"tensor_core": 2 * cfg.num_layers,
+                "mma_sync": 2 * cfg.num_layers * steps, "simt": 0}
+        check(routes["moe_gmm"] == want,
+              f"{cfg.name} bf16: moe_gmm routes {routes['moe_gmm']}")
+    worst = 0.0
+    for a, b in zip(card, cpu):
+        check(bool(torch.isfinite(a).all()), f"{cfg.name} bf16: non-finite")
+        ratio = float((a - b).abs().max()) / float(b.abs().max())
+        check(ratio <= 5e-2, f"{cfg.name} bf16: max |d| / max |logit| "
+              f"{ratio} > 5e-2")
+        worst = max(worst, ratio)
+    log(f"[{tag} card vs cpu] {cfg.name} bf16, head_dim 64: prefill 2 x 64 "
+        f"+ {steps} decode steps, logits within 5e-2 x max |logit| of the "
+        f"CPU bf16 model (worst max |d| / max |logit| {worst:.3e}); routes "
+        f"{routes}" + (f"; on the CPU's expert choices: the card's own "
+                       f"differ for {replay.flips} of {replay.tokens} "
+                       f"token-layers" if cfg.moe else ""))
+
+
 # ---------------------------------------------------------------------------
 # phase 7: MoE serving (qwen2-moe-a2.7b prefill + greedy decode)
 # ---------------------------------------------------------------------------
@@ -1567,7 +1735,8 @@ def check_wkv(torch, label, r, k, v, logw, u, s0=None):
 def phase_rwkv_kernels(torch, cfg, params, tokens):
     """wkv6_fwd at the inputs a real prefill hands it at layer 0 (T 2048,
     from zeros), at a ragged T (2047), at T 1 and at T 2048 from the
-    prefill's final state (non-zero), and in float32. Returns the readings
+    prefill's final state (non-zero), in float32, and at batch 1 with the
+    first half of each head's channels (N 32). Returns the readings
     of one prefill (32 launches of layer 0's shape: ms, plain and bound
     summed), each shape's beside them."""
     r, k, v, logw, u, s0 = capture_wkv(torch, cfg, params, tokens)
@@ -1587,6 +1756,11 @@ def phase_rwkv_kernels(torch, cfg, params, tokens):
     shapes["float32"], _ = check_wkv(torch, "prefill layer 0, float32",
                                      r.float(), k.float(), v.float(), logw,
                                      u)
+    n = cfg.head_dim // 2
+    shapes["B 1, N 32"], _ = check_wkv(
+        torch, f"layer 0, batch 1, N {n}",
+        *(t[:1, ..., :n].contiguous() for t in (r, k, v, logw)),
+        u[:, :n].contiguous())
     one = shapes["prefill"]
     return {"wkv6_fwd": {
         **{key: cfg.num_layers * one[key]
@@ -1670,6 +1844,12 @@ def main() -> int:
         phase_profile(torch, trainer, name,
                       statistics.median(step_ms[name]))
         trainer = None                   # each run's peak memory alone
+        if name == "gat":
+            torch.cuda.empty_cache()
+            phase_relaunch(lambda: GNNTrainer(
+                graph, CONFIGS[config], TrainConfig(), policy, caps=caps,
+                eval_caps=eval_caps, seed=0, device=DEVICE), losses[name],
+                name)
         torch.cuda.empty_cache()
     phase_paired(torch, lambda cache: GNNTrainer(
         graph, CONFIGS["graphsage"], TrainConfig(), policy, caps=caps,
@@ -1692,6 +1872,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_serve_card_vs_cpu(torch, "gemma3-1b", "6")
+    phase_bf16_card_vs_cpu(torch, "gemma3-1b", "6")
 
     cfg, params, tokens = serve_model(torch, MOE, "7")
     readings.update(phase_moe_kernels(torch, cfg, params, tokens))
@@ -1711,6 +1892,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_serve_card_vs_cpu(torch, MOE, "7")
+    phase_bf16_card_vs_cpu(torch, MOE, "7")
 
     cfg, params, tokens = serve_model(torch, RWKV, "8")
     readings[RWKV_SERVE] = phase_rwkv_kernels(torch, cfg, params, tokens)

@@ -30,37 +30,64 @@
 // reference writes it, reaches e^{80} (logw >= -5 in the model, C = 16);
 // it stays inside float32 only with exact float32 math. So every product
 // is a float32 fmaf and every exp is expf (no fast-math, no tensor cores:
-// bf16 or TF32 factors of that size would lose the result).
+// bf16 or TF32 factors of that size would lose the result). The factor
+// k e^{last - cum} is taken as (k e^{-cum}) e^{last}: both factors are
+// normal floats (e^{-80} and e^{80} at the extremes) and their product is
+// at most |k|.
 //
 // What bounds it on an H100. At rwkv6-7b's prefill (B 4, T 2048, H 64,
 // N 64, bf16 r/k/v) one launch moves 474.0 MB (r/k/v 201.3, logw 134.2,
-// out 134.2, s_final 4.2): 0.1415 ms at 3.35 TB/s. Counting the whole
-// 16 x 16 score tile and its product with v, it does 10.74 GFLOP in
-// float32 (327,680 a chunk of a (batch, head)): 0.160 ms at 67 TFLOP/s.
-// But the tile's upper half is zero: the causal work is 4 N^2 (the
-// state's read and update) + 2 (C + 1) N (a row of the tile, diagonal
-// included, and its product with v) + N^2 / C (the state's decay once a
-// chunk) = 18,816 flops a step, 9.865 GFLOP a launch: 0.1472 ms.
-// Operations bound it, at 0.1472 ms. The design:
-//  - One block of 256 threads per (batch, head): 256 blocks, two on each
-//    SM, all resident at once. The loop over chunks inside the block takes
-//    the place of the TPU's sequential grid axis.
-//  - The state lives in registers: thread (row group g, column m) holds
-//    S[16 g .. 16 g + 15][m]. Its update needs only that thread's rows and
-//    the chunk's decayed keys and values, so no thread reads another's
-//    state. The output's sum over n is taken over each thread's 16 rows
-//    and then across the four row groups of a column by warp shuffles
-//    (lanes 8 apart hold the same column), which leave each lane four of
-//    the chunk's 16 rows.
-//  - Per chunk, shared memory holds logw and v, the decayed factors
-//    r e^{cum_prev}, k e^{-cum}, k e^{last - cum} (rows padded by 4 floats
-//    so that float4 reads of 8 different rows hit distinct banks), the
-//    16 x 16 score tile and e^{last}: 27 KB a block.
-//  - The next chunk's r, k, v and logw are loaded into registers while the
-//    current chunk computes.
-// There are no atomics and the order of every sum is fixed, so a relaunch
-// is bit-identical. The function launches on the caller's stream,
-// allocates nothing, and returns cudaGetLastError() of the launch.
+// out 134.2, s_final 4.2): 0.1415 ms at 3.35 TB/s. The causal work is
+// 4 N^2 (the state's read and update) + 2 (C + 1) N (a row of the score
+// tile, diagonal included, and its product with v) + N^2 / C (the state's
+// decay once a chunk) = 18,816 flops a step, 9.865 GFLOP a launch: 0.1472
+// ms at 67 TFLOP/s float32. Operations bound it; 87 % of them are the
+// state's two products, out += (r e^{cum_prev}) S and S += (k e^{last -
+// cum})^T v, which depend on the chunk before. Three limits of the SM
+// sit close behind the FMA rate: each scheduler issues one instruction a
+// clock, so every instruction besides an FMA costs an FMA's slot; shared
+// memory returns 128 bytes a clock (an LDS.128 of a warp moves 512), so a
+// thread has to do 16 FMAs for each float4 it reads there; and a loop of
+// several thousand unrolled instructions runs past the instruction cache.
+//
+// The design: a block of 384 threads serves two (batch, head) pairs; each
+// pair has four producer and two consumer warps, which hand chunks over
+// through a ring of two stages in shared memory guarded by named barriers
+// (bar.arrive by the writer, bar.sync by the reader; nothing block-wide in
+// the loop). Warps 0-7 produce and 8-11 consume, so each of the SM's four
+// schedulers runs two producer warps (one of which builds a score tile)
+// and one consumer warp. The loops stay short: the consumer's body is
+// about 1,150 instructions with a rolled loop over four output blocks and
+// another over the chunk's 16 steps (fully unrolled, the same work ran
+// slower).
+//  - Producer, thread (column n, half) with 8 consecutive rows of the
+//    chunk: loads chunk c + 1's r, k, v, logw into registers while it
+//    prepares chunk c: the prefix sum of logw down the column (the second
+//    half starts from the first half's total, taken by a shuffle, so the
+//    sum runs in the sequential order of the reference's cumsum), the
+//    decayed factors with two expf an element, the diagonal r u k summed
+//    over n by shuffles and over the four warps in a fixed order. Two of
+//    the four warps then take the causal 16 x 16 score tile: ten 4 x 4
+//    tiles, each over four slices of n (one lane each) summed by two
+//    shuffle rounds. The stage receives r e^{cum_prev}, k e^{last - cum},
+//    v, e^{last} and the score tile; FULL is arrived on.
+//  - Consumer, thread (row group g = lane / 8, column block) holds the
+//    state of 16 rows (float4 groups 4 q + g) by 4 columns in registers:
+//    every float4 it reads feeds 16 FMAs, and the 8 lanes of a quarter
+//    warp read the same factors. Per chunk it waits on FULL, then for each
+//    block a of four output rows takes the state's share over its 16 rows
+//    plus the chunk's own share over the four steps j = 4 g .. 4 g + 3 (A
+//    v), and sums the four row groups by two shuffle rounds (row b of the
+//    block is taken as 4 a + (b ^ g), so that each round keeps the lower
+//    half with no select) while the next block computes; lane g writes row
+//    4 a + g. Then it decays and updates the state, each step's factors
+//    loaded during the step before, and arrives on the stage's EMPTY
+//    barrier, on which the producer waits before it writes that stage
+//    again.
+// Shared memory: 17.5 KB a stage, 70 KB a block. There are no atomics and
+// the order of every sum is fixed, so a relaunch is bit-identical. The
+// function launches on the caller's stream, allocates nothing, and returns
+// cudaGetLastError() of the launch.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -72,8 +99,38 @@ using bf16 = __nv_bfloat16;
 
 constexpr int kC = 16;          // chunk length (the reference's CHUNK)
 constexpr int kN = 64;          // largest head size
-constexpr int kThreads = 256;
-constexpr int kLD = kN + 4;     // padded row of the decayed factors
+constexpr int kHeads = 2;       // (batch, head) pairs a block serves
+constexpr int kProdWarps = 4;   // per pair
+constexpr int kConsWarps = 2;   // per pair
+constexpr int kProducers = 32 * kProdWarps;
+constexpr int kPerHead = 32 * (kProdWarps + kConsWarps);
+constexpr int kThreads = kHeads * kPerHead;
+constexpr int kStages = 2;
+constexpr unsigned kAll = 0xffffffffu;
+
+// named barriers (0 is __syncthreads): FULL and EMPTY per pair and stage,
+// one among a pair's producers
+__device__ __forceinline__ int full_bar(int hs, int s) {
+  return 1 + hs * kStages + s;
+}
+__device__ __forceinline__ int empty_bar(int hs, int s) {
+  return 1 + (kHeads + hs) * kStages + s;
+}
+__device__ __forceinline__ int prod_bar(int hs) {
+  return 1 + 2 * kHeads * kStages + hs;
+}
+static_assert(1 + 2 * kHeads * kStages + kHeads <= 16, "named barriers");
+
+struct Stage {
+  float qd[kC][kN];     // r e^{cum_prev}
+  float kr[kC][kN];     // k e^{last - cum}
+  float kd[kC][kN];     // k e^{-cum} (producer only)
+  float v[kC][kN];
+  float a[kC][kC];      // the score tile, zero above the diagonal
+  float wl[kN];         // e^{last}
+  float dp[kProdWarps][kC];   // the diagonal's sums over each warp's n
+};
+constexpr size_t kSmem = sizeof(Stage) * kStages * kHeads;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
@@ -92,209 +149,443 @@ __device__ __forceinline__ float dot4(float4 a, float4 b, float acc) {
   return fmaf(a.w, b.w, acc);
 }
 
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+__device__ __forceinline__ void bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+__device__ __forceinline__ void bar_arrive(int id, int n) {
+  asm volatile("bar.arrive %0, %1;" ::"r"(id), "r"(n) : "memory");
+}
+
+struct Args {
+  const float* logw;
+  const float* u;
+  const float* s0;
+  float* out;
+  float* s_final;
+  int64_t base;   // element offset of (b, t = 0, h, n = 0)
+  int64_t step;   // elements between time steps, H * N
+  int T_len, h, N, bh, hs, nchunks;
+};
+
 template <typename T>
-__global__ void __launch_bounds__(kThreads, 2)
-    wkv6_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k,
-                      const T* __restrict__ v, const float* __restrict__ logw,
-                      const float* __restrict__ u,
-                      const float* __restrict__ s0, float* __restrict__ out,
-                      float* __restrict__ s_final, int T_len, int H, int N) {
-  __shared__ __align__(16) float lw_s[kC][kN];
-  __shared__ __align__(16) float v_s[kC][kN];
-  __shared__ __align__(16) float ruk_s[kC][kN];   // r u k, for A's diagonal
-  __shared__ __align__(16) float qd_s[kC][kLD];   // r e^{cum_prev}
-  __shared__ __align__(16) float kd_s[kC][kLD];   // k e^{-cum}
-  __shared__ __align__(16) float kr_s[kC][kLD];   // k e^{last - cum}
-  __shared__ __align__(16) float a_s[kC][kC + 1];
-  __shared__ __align__(16) float wl_s[kN];        // e^{last}
+__device__ __forceinline__ void producer(Stage* st, int pi,
+                                         const T* __restrict__ r,
+                                         const T* __restrict__ k,
+                                         const T* __restrict__ v,
+                                         const Args& p) {
+  const int l = threadIdx.x & 31;
+  const int hf = l >> 4;                 // rows 8 hf .. 8 hf + 7
+  const int n = 16 * pi + (l & 15);      // column
+  const bool nok = n < p.N;
+  const float un = nok ? p.u[p.h * p.N + n] : 0.f;
 
-  const int bh = blockIdx.x;                      // b * H + h
-  const int b = bh / H, h = bh % H;
-  const int tid = threadIdx.x;
-  // loads and decays: column n, rows qr + 4 e
-  const int n = tid % kN, qr = tid / kN;
-  // state and output: column m, rows 16 g .. 16 g + 15 (g: lanes 8 apart)
-  const int lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 3;
-  const int m = warp * 8 + (lane & 7);
+  // zero the score tiles: those above the diagonal are never written
+  for (int s = 0; s < kStages; ++s)
+    for (int x = 32 * pi + l; x < kC * kC; x += kProducers)
+      st[s].a[x / kC][x % kC] = 0.f;
 
-  const int64_t step = static_cast<int64_t>(H) * N;   // between time steps
-  const int64_t base = (static_cast<int64_t>(b) * T_len * H + h) * N;
-  const float un = n < N ? u[h * N + n] : 0.f;
-
-  float S[16];
-#pragma unroll
-  for (int q = 0; q < 16; ++q) {
-    const int row = g * 16 + q;
-    S[q] = (s0 != nullptr && row < N && m < N)
-               ? s0[(static_cast<int64_t>(bh) * N + row) * N + m]
-               : 0.f;
-  }
-
-  // this thread's elements of the chunk starting at t0, as loaded
-  T pr[4], pk[4], pv[4];
-  float pw[4];
+  T pr[8], pk[8], pv[8];
+  float pw[8];
   auto fetch = [&](int t0) {
+    const int t1 = t0 + 8 * hf;
+    const int64_t off = p.base + static_cast<int64_t>(t1) * p.step + n;
+    if (nok && t1 + 8 <= p.T_len) {       // all 8 rows inside T
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int t = t0 + qr + 4 * e;
+      for (int e = 0; e < 8; ++e) {
+        const int64_t o = off + e * p.step;
+        pr[e] = r[o];
+        pk[e] = k[o];
+        pv[e] = v[o];
+        pw[e] = p.logw[o];
+      }
+      return;
+    }
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
       pr[e] = pk[e] = pv[e] = zero_of<T>();
       pw[e] = 0.f;
-      if (t < T_len && n < N) {
-        const int64_t off = base + t * step + n;
-        pr[e] = r[off];
-        pk[e] = k[off];
-        pv[e] = v[off];
-        pw[e] = logw[off];
+      if (nok && t1 + e < p.T_len) {
+        const int64_t o = off + e * p.step;
+        pr[e] = r[o];
+        pk[e] = k[o];
+        pv[e] = v[o];
+        pw[e] = p.logw[o];
       }
     }
   };
   fetch(0);
 
-  const int nchunks = (T_len + kC - 1) / kC;
-  for (int c = 0; c < nchunks; ++c) {
-    const int t0 = c * kC;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      lw_s[qr + 4 * e][n] = pw[e];
-      v_s[qr + 4 * e][n] = to_f32(pv[e]);
-    }
-    __syncthreads();
+  // the diagonal's shuffle sum leaves lane l the row 8 hf + dr
+  const int dr = 4 * ((l >> 3) & 1) + 2 * ((l >> 2) & 1) + ((l >> 1) & 1);
+  // the score tile, by two of the four warps (0 and 1 for the first pair,
+  // 2 and 3 for the second, so that each scheduler runs one of them): lane
+  // = 4 x 4 tile t (of five) x slice sl of n; tile t of warp pi is (I, J)
+  // = nibble t of these words
+  const int tile = l >> 2, sl = l & 3;
+  const unsigned tI = (pi & 1) ? 0x22211u : 0x33330u;
+  const unsigned tJ = (pi & 1) ? 0x21010u : 0x32100u;
+  const int I = (tI >> (4 * tile)) & 15, J = (tJ >> (4 * tile)) & 15;
+  const bool tiles = (pi >> 1) == p.hs && tile < 5;
 
-    // decays: the prefix sum of logw down column n, kept at this thread's
-    // rows, then the three decayed factors of its four elements
-    float cum = 0.f, cum_at[4] = {0.f, 0.f, 0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < kC; ++i) {
-      cum += lw_s[i][n];
-      if ((i & 3) == qr) cum_at[i >> 2] = cum;
-    }
-    const float last = cum;
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = qr + 4 * e;
-      const float rr = to_f32(pr[e]), kk = to_f32(pk[e]);
-      qd_s[i][n] = rr * expf(cum_at[e] - pw[e]);
-      kd_s[i][n] = kk * expf(-cum_at[e]);
-      kr_s[i][n] = kk * expf(last - cum_at[e]);
-      ruk_s[i][n] = rr * un * kk;
-    }
-    if (qr == 0) wl_s[n] = expf(last);
-    if (c + 1 < nchunks) fetch(t0 + kC);   // in flight while this chunk runs
-    __syncthreads();
-
-    // the score tile: thread (i, j), zero above the diagonal
-    {
-      const int i = tid >> 4, j = tid & 15;
-      float acc = 0.f;
-      if (j < i) {
-#pragma unroll
-        for (int c4 = 0; c4 < kN; c4 += 4)
-          acc = dot4(*reinterpret_cast<const float4*>(&qd_s[i][c4]),
-                     *reinterpret_cast<const float4*>(&kd_s[j][c4]), acc);
-      } else if (j == i) {
-#pragma unroll
-        for (int c4 = 0; c4 < kN; c4 += 4) {
-          const float4 x = *reinterpret_cast<const float4*>(&ruk_s[i][c4]);
-          acc += x.x;
-          acc += x.y;
-          acc += x.z;
-          acc += x.w;
-        }
-      }
-      a_s[i][j] = acc;
-    }
-    __syncthreads();
-
-    // the state's share of each output row, over this thread's 16 rows
-    float p[kC];
-#pragma unroll
-    for (int i = 0; i < kC; ++i) {
-      const float4* q4 = reinterpret_cast<const float4*>(&qd_s[i][g * 16]);
-      float acc = 0.f;
-#pragma unroll
-      for (int qq = 0; qq < 4; ++qq)
-        acc = dot4(q4[qq], make_float4(S[4 * qq], S[4 * qq + 1],
-                                       S[4 * qq + 2], S[4 * qq + 3]),
-                   acc);
-      p[i] = acc;
-    }
-    // ... summed over the four row groups: lanes 16 apart swap halves of
-    // the 16 rows, then lanes 8 apart halves of those; lane (g, m) ends
-    // with rows 4 g .. 4 g + 3
-    const bool hi1 = (lane & 16) != 0, hi2 = (lane & 8) != 0;
-    float p8[8], p4[4];
+  for (int c = 0; c < p.nchunks; ++c) {
+    const int s = c % kStages;
+    Stage& X = st[s];
+    float lw[8], rr[8], kk[8], vv[8];
 #pragma unroll
     for (int e = 0; e < 8; ++e) {
-      const float send = hi1 ? p[e] : p[e + 8];
-      const float keep = hi1 ? p[e + 8] : p[e];
-      p8[e] = keep + __shfl_xor_sync(0xffffffffu, send, 16);
+      lw[e] = pw[e];
+      rr[e] = to_f32(pr[e]);
+      kk[e] = to_f32(pk[e]);
+      vv[e] = to_f32(pv[e]);
     }
+    if (c + 1 < p.nchunks) fetch((c + 1) * kC);   // in flight from here
+
+    // the prefix sum down column n, in the sequential order
+    float cum[8], run = 0.f;
 #pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const float send = hi2 ? p8[e] : p8[e + 4];
-      const float keep = hi2 ? p8[e + 4] : p8[e];
-      p4[e] = keep + __shfl_xor_sync(0xffffffffu, send, 8);
+    for (int e = 0; e < 8; ++e) {
+      run += lw[e];
+      cum[e] = run;
+    }
+    const float first = __shfl_sync(kAll, run, l & 15);
+    if (hf) {
+      run = first;
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        run += lw[e];
+        cum[e] = run;
+      }
+    }
+    const float wl = expf(__shfl_sync(kAll, run, (l & 15) | 16));
+    float qd[8], kd[8], ruk[8];
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      qd[e] = rr[e] * expf(cum[e] - lw[e]);
+      kd[e] = kk[e] * expf(-cum[e]);
+      ruk[e] = rr[e] * un * kk[e];
     }
 
-    // plus the chunk's own share, A v; write the rows inside T
-    float vj[kC];
-#pragma unroll
-    for (int j = 0; j < kC; ++j) vj[j] = v_s[j][m];
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int i = 4 * g + e;
-      float acc = p4[e];
-#pragma unroll
-      for (int j = 0; j < kC; ++j) acc = fmaf(a_s[i][j], vj[j], acc);
-      const int t = t0 + i;
-      if (t < T_len && m < N) out[base + t * step + m] = acc;
-    }
-
-    // the state: decay, then add the chunk's keys times values
+    // the diagonal: sum r u k over this warp's 16 columns (lanes 8, 4, 2, 1
+    // apart hold the same rows), halving the rows each round
+    float d4[4], d2[2], d1;
     {
-      const float4* w4 = reinterpret_cast<const float4*>(&wl_s[g * 16]);
+      const bool hi = (l & 8) != 0;
 #pragma unroll
-      for (int qq = 0; qq < 4; ++qq) {
-        const float4 w = w4[qq];
-        S[4 * qq] *= w.x;
-        S[4 * qq + 1] *= w.y;
-        S[4 * qq + 2] *= w.z;
-        S[4 * qq + 3] *= w.w;
+      for (int e = 0; e < 4; ++e) {
+        const float send = hi ? ruk[e] : ruk[e + 4];
+        const float keep = hi ? ruk[e + 4] : ruk[e];
+        d4[e] = keep + __shfl_xor_sync(kAll, send, 8);
+      }
+    }
+    {
+      const bool hi = (l & 4) != 0;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const float send = hi ? d4[e] : d4[e + 2];
+        const float keep = hi ? d4[e + 2] : d4[e];
+        d2[e] = keep + __shfl_xor_sync(kAll, send, 4);
+      }
+    }
+    {
+      const bool hi = (l & 2) != 0;
+      const float send = hi ? d2[0] : d2[1];
+      const float keep = hi ? d2[1] : d2[0];
+      d1 = keep + __shfl_xor_sync(kAll, send, 2);
+    }
+    d1 += __shfl_xor_sync(kAll, d1, 1);   // a + b == b + a: both lanes agree
+
+    if (c >= kStages) bar_sync(empty_bar(p.hs, s), kPerHead);
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const int i = 8 * hf + e;
+      X.qd[i][n] = qd[e];
+      X.kd[i][n] = kd[e];
+      X.kr[i][n] = kd[e] * wl;
+      X.v[i][n] = vv[e];
+    }
+    if (!hf) X.wl[n] = wl;
+    if (!(l & 1)) X.dp[pi][8 * hf + dr] = d1;
+    bar_sync(prod_bar(p.hs), kProducers);
+
+    // the score tile (I, J) over n = 4 (4 c4 + sl) .. + 3; entry 4 a + b
+    // of acc is row 4 I + (a ^ sl), column 4 J + b, so that two shuffle
+    // rounds leave lane sl row 4 I + sl
+    if (tiles) {
+      float acc[16];
+#pragma unroll
+      for (int e = 0; e < 16; ++e) acc[e] = 0.f;
+#pragma unroll 1
+      for (int c4 = 0; c4 < 4; ++c4) {
+        const int col = 4 * (4 * c4 + sl);
+        float4 q[4], kx[4];
+#pragma unroll
+        for (int a = 0; a < 4; ++a) q[a] = ld4(&X.qd[4 * I + (a ^ sl)][col]);
+#pragma unroll
+        for (int b = 0; b < 4; ++b) kx[b] = ld4(&X.kd[4 * J + b][col]);
+#pragma unroll
+        for (int a = 0; a < 4; ++a)
+#pragma unroll
+          for (int b = 0; b < 4; ++b)
+            acc[4 * a + b] = dot4(q[a], kx[b], acc[4 * a + b]);
+      }
+      constexpr unsigned kTiles = 0x000fffffu;   // lanes of the five tiles
+#pragma unroll
+      for (int e = 0; e < 8; ++e)
+        acc[e] += __shfl_xor_sync(kTiles, acc[e + 8], 2);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[e] += __shfl_xor_sync(kTiles, acc[e + 4], 1);
+      const int i = 4 * I + sl;
+      const float diag =
+          ((X.dp[0][i] + X.dp[1][i]) + X.dp[2][i]) + X.dp[3][i];
+      float o[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const int j = 4 * J + b;
+        o[b] = j < i ? acc[b] : (j == i ? diag : 0.f);
+      }
+      *reinterpret_cast<float4*>(&X.a[i][4 * J]) =
+          make_float4(o[0], o[1], o[2], o[3]);
+    }
+    bar_arrive(full_bar(p.hs, s), kPerHead);
+  }
+}
+
+__device__ __forceinline__ void consumer(Stage* st, int ci, const Args& p) {
+  const int l = threadIdx.x & 31;
+  // row group g = l / 8: the 8 lanes of a quarter warp read one address
+  // of the factors, which the shared memory serves in fewer clocks than
+  // several addresses
+  const int g = l >> 3;
+  const int m0 = 4 * (8 * ci + (l & 7));     // columns m0 .. m0 + 3
+  const bool vec_out = (p.N % 4) == 0 && m0 + 4 <= p.N;
+  // the state: S[q][s4][cc] = S[16 q + 4 g + s4][m0 + cc]
+  float S[4][4][4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int s4 = 0; s4 < 4; ++s4)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int row = 16 * q + 4 * g + s4, m = m0 + cc;
+        S[q][s4][cc] =
+            (p.s0 != nullptr && row < p.N && m < p.N)
+                ? p.s0[(static_cast<int64_t>(p.bh) * p.N + row) * p.N + m]
+                : 0.f;
+      }
+
+  for (int c = 0; c < p.nchunks; ++c) {
+    const int s = c % kStages;
+    const Stage& X = st[s];
+    const int t0 = c * kC;
+    bar_sync(full_bar(p.hs, s), kPerHead);
+
+    // this thread's share of the chunk's own term: steps j = 4 g + jj
+    float4 vg[4];
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) vg[jj] = ld4(&X.v[4 * g + jj][m0]);
+    // the output, four rows at a time: entry b of o is row 4 a + (b ^ g).
+    // The first factor rows of the next block are loaded while a block
+    // computes, and a block's sums over the row groups run beside the next
+    // block's products
+    float4 xn[4];
+#pragma unroll
+    for (int b = 0; b < 4; ++b) xn[b] = ld4(&X.qd[b ^ g][4 * g]);
+    auto block = [&](int a, float (&o)[4][4]) {
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) o[b][cc] = 0.f;
+      float4 xq[4][4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        xq[0][b] = xn[b];
+#pragma unroll
+        for (int q = 1; q < 4; ++q)
+          xq[q][b] = ld4(&X.qd[4 * a + (b ^ g)][16 * q + 4 * g]);
+      }
+      float4 at[4];
+#pragma unroll
+      for (int b = 0; b < 4; ++b) at[b] = ld4(&X.a[4 * a + (b ^ g)][4 * g]);
+      if (a + 1 < 4) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b)
+          xn[b] = ld4(&X.qd[4 * (a + 1) + (b ^ g)][4 * g]);
       }
 #pragma unroll
-      for (int j = 0; j < kC; ++j) {
-        const float4* k4 = reinterpret_cast<const float4*>(&kr_s[j][g * 16]);
+      for (int q = 0; q < 4; ++q)
 #pragma unroll
-        for (int qq = 0; qq < 4; ++qq) {
-          const float4 a = k4[qq];
-          S[4 * qq] = fmaf(a.x, vj[j], S[4 * qq]);
-          S[4 * qq + 1] = fmaf(a.y, vj[j], S[4 * qq + 1]);
-          S[4 * qq + 2] = fmaf(a.z, vj[j], S[4 * qq + 2]);
-          S[4 * qq + 3] = fmaf(a.w, vj[j], S[4 * qq + 3]);
+        for (int b = 0; b < 4; ++b) {
+          const float x[4] = {xq[q][b].x, xq[q][b].y, xq[q][b].z,
+                              xq[q][b].w};
+#pragma unroll
+          for (int s4 = 0; s4 < 4; ++s4)
+#pragma unroll
+            for (int cc = 0; cc < 4; ++cc)
+              o[b][cc] = fmaf(x[s4], S[q][s4][cc], o[b][cc]);
+        }
+#pragma unroll
+      for (int b = 0; b < 4; ++b) {
+        const float av[4] = {at[b].x, at[b].y, at[b].z, at[b].w};
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          o[b][0] = fmaf(av[jj], vg[jj].x, o[b][0]);
+          o[b][1] = fmaf(av[jj], vg[jj].y, o[b][1]);
+          o[b][2] = fmaf(av[jj], vg[jj].z, o[b][2]);
+          o[b][3] = fmaf(av[jj], vg[jj].w, o[b][3]);
+        }
+      }
+    };
+    // ... summed over the four row groups: lanes 16 apart (g ^ 2) hold
+    // entries 2, 3 of each other's entries 0, 1, lanes 8 apart (g ^ 1)
+    // entry 1 of entry 0; lane (g, m0) ends with row 4 a + g, written if
+    // inside T
+    auto finish = [&](int a, float (&o)[4][4]) {
+#pragma unroll
+      for (int b = 0; b < 2; ++b)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc)
+          o[b][cc] += __shfl_xor_sync(kAll, o[b + 2][cc], 16);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc)
+        o[0][cc] += __shfl_xor_sync(kAll, o[1][cc], 8);
+      const int t = t0 + 4 * a + g;
+      if (t < p.T_len) {
+        float* dst = p.out + p.base + t * p.step + m0;
+        if (vec_out) {
+          *reinterpret_cast<float4*>(dst) =
+              make_float4(o[0][0], o[0][1], o[0][2], o[0][3]);
+        } else {
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc)
+            if (m0 + cc < p.N) dst[cc] = o[0][cc];
+        }
+      }
+    };
+    float o[4][4], prev[4][4];
+    block(0, prev);
+#pragma unroll 1
+    for (int a = 1; a < 4; ++a) {
+      block(a, o);
+      finish(a - 1, prev);
+#pragma unroll
+      for (int b = 0; b < 4; ++b)
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) prev[b][cc] = o[b][cc];
+    }
+    finish(3, prev);
+
+    // the state: decay, then add the chunk's keys times values
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const float4 d = ld4(&X.wl[16 * q + 4 * g]);
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        S[q][0][cc] *= d.x;
+        S[q][1][cc] *= d.y;
+        S[q][2][cc] *= d.z;
+        S[q][3][cc] *= d.w;
+      }
+    }
+    // ... the next step's key factors and values loaded while this one
+    // computes
+    float4 vn = ld4(&X.v[0][m0]), kn[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) kn[q] = ld4(&X.kr[0][16 * q + 4 * g]);
+#pragma unroll 2
+    for (int j = 0; j < kC; ++j) {
+      const float vc[4] = {vn.x, vn.y, vn.z, vn.w};
+      float4 x[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) x[q] = kn[q];
+      if (j + 1 < kC) {
+        vn = ld4(&X.v[j + 1][m0]);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) kn[q] = ld4(&X.kr[j + 1][16 * q + 4 * g]);
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) {
+          S[q][0][cc] = fmaf(x[q].x, vc[cc], S[q][0][cc]);
+          S[q][1][cc] = fmaf(x[q].y, vc[cc], S[q][1][cc]);
+          S[q][2][cc] = fmaf(x[q].z, vc[cc], S[q][2][cc]);
+          S[q][3][cc] = fmaf(x[q].w, vc[cc], S[q][3][cc]);
         }
       }
     }
-    __syncthreads();   // before the next chunk overwrites shared memory
+    // the producer waits on this only for a chunk it has still to write
+    if (c + kStages < p.nchunks) bar_arrive(empty_bar(p.hs, s), kPerHead);
   }
 
 #pragma unroll
-  for (int q = 0; q < 16; ++q) {
-    const int row = g * 16 + q;
-    if (row < N && m < N)
-      s_final[(static_cast<int64_t>(bh) * N + row) * N + m] = S[q];
-  }
+  for (int q = 0; q < 4; ++q)
+#pragma unroll
+    for (int s4 = 0; s4 < 4; ++s4)
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const int row = 16 * q + 4 * g + s4, m = m0 + cc;
+        if (row < p.N && m < p.N)
+          p.s_final[(static_cast<int64_t>(p.bh) * p.N + row) * p.N + m] =
+              S[q][s4][cc];
+      }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+    wkv6_chunk_kernel(const T* __restrict__ r, const T* __restrict__ k,
+                      const T* __restrict__ v, const float* __restrict__ logw,
+                      const float* __restrict__ u,
+                      const float* __restrict__ s0, float* __restrict__ out,
+                      float* __restrict__ s_final, int BH, int T_len, int H,
+                      int N) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int warp = threadIdx.x >> 5;
+  const bool produce = warp < kHeads * kProdWarps;
+  Args p;
+  // warps 0-3 and 8-9 serve the first pair, 4-7 and 10-11 the second
+  p.hs = produce ? warp / kProdWarps
+                 : (warp - kHeads * kProdWarps) / kConsWarps;
+  p.bh = blockIdx.x * kHeads + p.hs;             // b * H + h
+  if (p.bh >= BH) return;   // an odd B * H: that pair's warps have no work
+  const int b = p.bh / H;
+  p.h = p.bh % H;
+  p.logw = logw;
+  p.u = u;
+  p.s0 = s0;
+  p.out = out;
+  p.s_final = s_final;
+  p.step = static_cast<int64_t>(H) * N;
+  p.base = (static_cast<int64_t>(b) * T_len * H + p.h) * N;
+  p.T_len = T_len;
+  p.N = N;
+  p.nchunks = (T_len + kC - 1) / kC;
+  Stage* st = reinterpret_cast<Stage*>(smem) + p.hs * kStages;
+  if (produce)
+    producer<T>(st, warp % kProdWarps, r, k, v, p);
+  else
+    consumer(st, warp % kConsWarps, p);
 }
 
 template <typename T>
 int launch(const void* r, const void* k, const void* v, const void* logw,
            const void* u, const void* s0, void* out, void* s_final, int BH,
            int T_len, int H, int N, cudaStream_t stream) {
-  wkv6_chunk_kernel<T><<<BH, kThreads, 0, stream>>>(
+  const cudaError_t attr = cudaFuncSetAttribute(
+      wkv6_chunk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(kSmem));
+  if (attr != cudaSuccess) return static_cast<int>(attr);
+  const int blocks = (BH + kHeads - 1) / kHeads;
+  wkv6_chunk_kernel<T><<<blocks, kThreads, kSmem, stream>>>(
       static_cast<const T*>(r), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const float*>(logw),
       static_cast<const float*>(u), static_cast<const float*>(s0),
-      static_cast<float*>(out), static_cast<float*>(s_final), T_len, H, N);
+      static_cast<float*>(out), static_cast<float*>(s_final), BH, T_len, H,
+      N);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -306,7 +597,8 @@ extern "C" int wkv6_fwd(const void* r, const void* k, const void* v,
                         int64_t H, int64_t N, int64_t bf16_inputs,
                         cudaStream_t stream) {
   if (B == 0 || H == 0) return 0;
-  // one block per (batch, head) in grid.x; t * H * N is taken in 64 bits
+  // two (batch, head) pairs per block in grid.x; t * H * N is taken in
+  // 64 bits
   if (B < 0 || H < 0 || T < 1 || N < 1 || N > kN || B * H > 0x7fffffffLL ||
       T > (1LL << 30))
     return static_cast<int>(cudaErrorInvalidValue);

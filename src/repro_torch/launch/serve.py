@@ -71,8 +71,10 @@ def generate(cfg: ModelConfig, params, tokens, n_new: int, *,
 
     Runs on `device` (the card unless given): the parameters are cast to
     the compute dtype there once (`transformer.cast_params`, no copy if
-    they already are). `temperature > 0` samples from `generator` (on
-    `device`); greedy decoding takes the first maximal logit. Prefill ms
+    they already are). The first token is always the argmax of the
+    prefill's last logits, as in the reference; at `temperature > 0` each
+    decode step then samples from `generator` (on `device`), otherwise it
+    takes the first maximal logit. Prefill ms
     and decode ms per step are host clock around work that ends in a
     device synchronise."""
     dev = resolve_device(device)
@@ -93,7 +95,7 @@ def generate(cfg: ModelConfig, params, tokens, n_new: int, *,
     del pcache
     cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
 
-    tok = _next_token(logits[:, -1], temperature, generator)
+    tok = torch.argmax(logits[:, -1], dim=-1, keepdim=True)
     out = [tok]
     _sync(dev)
     t0 = time.perf_counter()

@@ -31,7 +31,7 @@ from torch import nn
 
 from repro_torch.configs import GNNConfig
 from repro_torch.core.minibatch import MiniBatch
-from repro_torch.kernels.gather_agg.ops import gather_agg
+from repro_torch.kernels.gather_agg.ops import gather_agg, gather_rows
 from repro_torch.kernels.gather_cached.ops import gather_cached
 from repro_torch.models.lm.common import dense_init
 
@@ -147,7 +147,7 @@ def _masked_mean(x_tab, src_idx, edge_mask):
 
 
 def sage_layer(p: SageLayer, x_tab, src_idx, self_idx, edge_mask):
-    h_self = x_tab[self_idx]
+    h_self = gather_rows(x_tab, self_idx)
     h_nbr = _masked_mean(x_tab, src_idx, edge_mask)
     return h_self @ p.w_self + h_nbr @ p.w_neigh + p.b
 
@@ -166,7 +166,8 @@ def gcn_layer(p: GcnLayer, x_tab, src_idx, self_idx, edge_mask,
     c_dst = torch.rsqrt(deg_dst.to(torch.float32) + 1.0)
     w = m * c_src * (deg_dst[:, None] / cnt) * c_dst[:, None]
     agg = gather_agg(x_tab, src_idx, w).to(x_tab.dtype)
-    h_self = x_tab[self_idx] * (c_dst * c_dst)[:, None].to(x_tab.dtype)
+    h_self = gather_rows(x_tab, self_idx) \
+        * (c_dst * c_dst)[:, None].to(x_tab.dtype)
     return (agg + h_self) @ p.w + p.b
 
 
@@ -180,8 +181,8 @@ def gat_layer(p: GatLayer, x_tab, src_idx, self_idx, edge_mask):
     # per-source attention logits: scores are linear in z, so gather the
     # (n_src, H) scalars instead of (n_dst, r, H, dh) projected rows
     s_src = (z * p.a_src).sum(dim=-1)
-    z_self = z[self_idx]                              # (n_dst, H, dh)
-    e_src = s_src[src_idx]                            # (n_dst, r, H)
+    z_self = gather_rows(z, self_idx)                 # (n_dst, H, dh)
+    e_src = gather_rows(s_src, src_idx)               # (n_dst, r, H)
     e_dst = (z_self * p.a_dst).sum(dim=-1)
     e_self = (z_self * p.a_src).sum(dim=-1) + e_dst
     e = nn.functional.leaky_relu(e_src + e_dst[:, None], 0.2)

@@ -208,3 +208,71 @@ def test_backward_plan_feeds_the_kernel_loops(case, chunk):
                                impl="pallas"), jnp.asarray(x))[1](
         jnp.asarray(g))[0])
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+# ---------------------------------------------------------------------------
+# gather_rows: x[idx] with the deterministic fanout-1 backward
+# ---------------------------------------------------------------------------
+# (n_src, idx shape, trailing shape of x): SAGE's / GCN's self gather
+# (n_dst,) of (n_src, F), GAT's z_self (n_dst,) of (n_src, H, dh) and
+# e_src (n_dst, r) of (n_src, H)
+ROW_CASES = [(30, (50,), (16,)), (12, (40,), (4, 5)), (9, (20, 6), (4,)),
+             (1, (7,), (3,))]
+
+
+def _rows_case(n_src, idx_shape, tail, seed):
+    """Random rows and indices, half of them pointing at the last row (the
+    padding slot every masked position of a batch names), one below and
+    one past the range (clipped)."""
+    rng = np.random.default_rng((seed, 23))
+    x = rng.normal(size=(n_src, *tail)).astype(np.float32)
+    idx = rng.integers(0, n_src, idx_shape).astype(np.int32)
+    flat = idx.reshape(-1)
+    flat[: flat.size // 2] = n_src - 1
+    flat[-1], flat[-2] = -2, n_src + 3
+    g = rng.normal(size=(*idx_shape, *tail)).astype(np.float32)
+    return x, idx, g
+
+
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_gather_rows_matches_index_select_autograd(case):
+    """Forward bit-equal to `index_select`; the gradient equal to its
+    autograd within rtol 1e-5 (sums over repeated rows in another order)."""
+    x, idx, g = _rows_case(*case, seed=0)
+    n_src = x.shape[0]
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = ops.gather_rows(xt, torch.from_numpy(idx))
+    (dx,) = torch.autograd.grad(out, xt, torch.from_numpy(g))
+    xr = torch.from_numpy(x).requires_grad_(True)
+    clipped = torch.from_numpy(np.clip(idx, 0, n_src - 1)).long()
+    want = torch.index_select(xr.reshape(n_src, -1), 0,
+                              clipped.reshape(-1)).reshape(out.shape)
+    (want_dx,) = torch.autograd.grad(want, xr, torch.from_numpy(g))
+    assert out.shape == idx.shape + x.shape[1:]
+    assert torch.equal(out.detach(), want.detach())
+    torch.testing.assert_close(dx, want_dx, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_gather_rows_grad_matches_jax(case):
+    """The same numpy inputs through `jax.grad` of `x[idx]` (the
+    reference's jnp gather, `repro/models/gnn/models.py`): forward equal,
+    dx within rtol 1e-5."""
+    x, idx, g = _rows_case(*case, seed=1)
+    clipped = np.clip(idx, 0, x.shape[0] - 1)
+    want, vjp = jax.vjp(lambda a: a[jnp.asarray(clipped)], jnp.asarray(x))
+    (want_dx,) = vjp(jnp.asarray(g))
+    xt = torch.from_numpy(x).requires_grad_(True)
+    out = ops.gather_rows(xt, torch.from_numpy(idx))
+    (dx,) = torch.autograd.grad(out, xt, torch.from_numpy(g))
+    np.testing.assert_array_equal(out.detach().numpy(), np.asarray(want))
+    np.testing.assert_allclose(dx.numpy(), np.asarray(want_dx), rtol=1e-5,
+                               atol=1e-6)
+
+
+def test_gather_rows_needs_no_backward_for_a_constant_table():
+    """A table without gradient (layer 0's feature matrix) gives an output
+    without gradient: no backward, no launch."""
+    x, idx, _ = _rows_case(*ROW_CASES[0], seed=2)
+    out = ops.gather_rows(torch.from_numpy(x), torch.from_numpy(idx))
+    assert not out.requires_grad

@@ -23,6 +23,7 @@ from repro_torch.kernels.moe_gmm.ref import moe_gmm_ref
 from repro_torch.kernels.rwkv6_chunk import kernel as wkv_kernel
 from repro_torch.kernels.rwkv6_chunk.ref import wkv6_fwd_ref
 from repro_torch.launch.serve import generate
+from repro_torch.models.lm import moe as moe_module
 from repro_torch.models.lm import transformer
 from repro_torch.train.gnn_loop import GNNTrainer
 
@@ -183,6 +184,56 @@ def test_gcn_gat_card_and_cpu_steps_agree(cuda, model):
         np.testing.assert_allclose(float(lg), float(lc), rtol=1e-4)
     assert kernel.LAUNCHES["gather_agg_bwd_dw"] == \
         (10 if model == "gat" else 0)
+    # bwd_dx per step: GCN the aggregate and the self gather of layer 1;
+    # GAT the aggregate, z_self and e_src at both layers
+    assert kernel.LAUNCHES["gather_agg_bwd_dx"] == \
+        5 * (6 if model == "gat" else 2)
+
+
+# (n_src, idx shape, trailing shape): SAGE's self gather, GAT's z_self and
+# e_src, and a run of a hundred thousand indices on the padding row
+ROW_SHAPES = [(300, (1000,), (256,)), (200, (500,), (4, 64)),
+              (200, (500, 10), (4,)), (1000, (100_000,), (32,))]
+
+
+@pytest.mark.parametrize("shape", ROW_SHAPES)
+def test_gather_rows_on_the_card_matches_the_cpu(cuda, shape):
+    """gather_rows on the card: the forward equal to the CPU's, the
+    gradient within rtol 1e-5 of the CPU's (fixed-order segmented sums
+    against index_add_'s edge order), bit-identical over two backwards,
+    and exactly one gather_agg_bwd_dx launch per backward."""
+    from repro_torch.kernels.gather_agg.ops import gather_rows
+    n_src, idx_shape, tail = shape
+    rng = np.random.default_rng((n_src, len(idx_shape)))
+    x = rng.normal(size=(n_src, *tail)).astype(np.float32)
+    idx = rng.integers(0, n_src, idx_shape)
+    flat = idx.reshape(-1)
+    flat[: flat.size // 2] = n_src - 1       # the batch's padding slots
+    g = rng.normal(size=(*idx_shape, *tail)).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        xt = torch.as_tensor(x, device=dev).requires_grad_(True)
+        it = torch.as_tensor(idx, device=dev)
+        gt = torch.as_tensor(g, device=dev)
+        out = gather_rows(xt, it)
+        before = kernel.LAUNCHES["gather_agg_bwd_dx"]
+        (dx,) = torch.autograd.grad(out, xt, gt)
+        (dx2,) = torch.autograd.grad(gather_rows(xt, it), xt, gt)
+        launched = kernel.LAUNCHES["gather_agg_bwd_dx"] - before
+        assert launched == (0 if dev == "cpu" else 2)
+        assert torch.equal(dx, dx2)
+        grads[str(dev)] = (out.detach().cpu(), dx.cpu())
+    (oc, dc), (og, dg) = grads["cpu"], grads[str(cuda)]
+    assert torch.equal(oc, og)
+    # a row of dx sums one cotangent row per index on it, in another order
+    # on each device: the two sums differ by at most 2 n eps sum |g|
+    xa = torch.as_tensor(x).requires_grad_(True)
+    (scale,) = torch.autograd.grad(gather_rows(xa, torch.as_tensor(idx)),
+                                   xa, torch.as_tensor(np.abs(g)))
+    n = int(np.bincount(idx.reshape(-1)).max())
+    bound = 2 * n * torch.finfo(torch.float32).eps * scale
+    assert bool(((dg - dc).abs() <= bound).all()), \
+        float(((dg - dc).abs() / bound.clamp(min=1e-30)).max())
 
 
 # (N, C, M, F, kind): the reddit feature width (float2), a multiple of 4
@@ -707,6 +758,94 @@ def test_moe_generate_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(gpu.ids.cpu(), cpu.ids)
 
 
+class _TopkReplay:
+    """Stands in for `torch` inside `models/lm/moe.py`: its first run
+    records each layer's top-k expert choices, a later run takes the same
+    choices (its own probabilities gathered at them) and counts the tokens
+    whose own choice differs. Routing is discontinuous: two devices whose
+    hidden states differ by bf16 rounding pick other experts for
+    near-ties, so the logits are held on the same choices."""
+
+    def __init__(self):
+        self.seen, self.at, self.flips, self.tokens = [], None, 0, 0
+
+    def __getattr__(self, name):
+        return getattr(torch, name)
+
+    def topk(self, probs, k, dim=-1):
+        v, i = torch.topk(probs, k, dim=dim)
+        if self.at is None:
+            self.seen.append(i.cpu())
+            return v, i
+        want = self.seen[self.at].to(i.device)
+        self.at += 1
+        differ = (torch.sort(i, dim)[0] != torch.sort(want, dim)[0]).any(dim)
+        self.flips += int(differ.sum())
+        self.tokens += differ.numel()
+        return torch.gather(probs, dim, want), want
+
+
+def _teacher_logits(cfg, params, tokens, feed, device):
+    """Prefill `tokens`, then one decode step per column of `feed` (the
+    same tokens on every device, so that no argmax tie can send two
+    devices down other paths) against a cache in the compute dtype: the
+    last logits of the prefill and of each step, float32 on the CPU."""
+    params = transformer.cast_params(cfg, params, device)
+    dt = getattr(torch, cfg.dtype)
+    with torch.no_grad():
+        logits, pcache = transformer.prefill(
+            cfg, params, {"tokens": tokens.to(device)})
+        B, P = tokens.shape
+        cache = transformer.fill_cache(cfg, transformer.init_cache(
+            cfg, B, P + feed.shape[1], dt, device), pcache)
+        out = [logits[:, -1]]
+        for t in range(feed.shape[1]):
+            logits, cache = transformer.decode_step(
+                cfg, params, cache, feed[:, t:t + 1].to(device), P + t)
+            out.append(logits[:, -1])
+    return [o.float().cpu() for o in out]
+
+
+@pytest.mark.parametrize("arch", ["gemma3-1b", "qwen2-moe-a2.7b"])
+def test_bf16_serving_on_the_tensor_core_routes_matches_the_cpu(cuda, arch):
+    """The reduced model in bf16 at head_dim 64, so that the prefill's
+    flash launches take the tensor-core kernel, and (qwen2-moe-a2.7b) a
+    prefill of 2 x 64 tokens, whose expert capacity 40 > 16 takes the
+    grouped matmul's tensor-core kernel; decode's capacity of 8 takes
+    mma_sync. Prefill and 8 decode steps' logits within 5e-2 x max |logit|
+    of the CPU bf16 model on the same parameters, tokens and expert
+    choices (`_TopkReplay`), the bound the CPU tests hold against JAX in
+    bf16."""
+    cfg = LM_CONFIGS[arch].reduced().scaled(head_dim=64)
+    assert cfg.dtype == "bfloat16"
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    gen = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 64), generator=gen)
+    feed = torch.randint(0, cfg.vocab_size, (2, 8), generator=gen)
+    replay = _TopkReplay()
+    moe_module.torch = replay
+    try:
+        cpu = _teacher_logits(cfg, params, tokens, feed, "cpu")
+        replay.at = 0
+        flash_kernel.reset_launches()
+        gmm_kernel.reset_launches()
+        card = _teacher_logits(cfg, params, tokens, feed, cuda)
+    finally:
+        moe_module.torch = torch
+    assert flash_kernel.ROUTES == {"tensor_core": cfg.num_layers,
+                                   "simt": 0}
+    if cfg.moe:
+        assert gmm_kernel.ROUTES == {"tensor_core": 2 * cfg.num_layers,
+                                     "mma_sync": 2 * cfg.num_layers * 8,
+                                     "simt": 0}
+    assert replay.at == len(replay.seen)
+    for a, b in zip(card, cpu):
+        assert bool(torch.isfinite(a).all())
+        err, scale = float((a - b).abs().max()), float(b.abs().max())
+        assert err <= 5e-2 * scale, (err, scale)
+
+
 def _wkv_inputs(B, T, H, N, dtype, state, device):
     """r, k, v unit normal in `dtype`; logw = clip(-exp(z), -5, -1e-4) as
     the model clamps it, both ends of the clip occurring; u 0.1 x normal;
@@ -726,16 +865,19 @@ def _wkv_inputs(B, T, H, N, dtype, state, device):
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("state", [False, True])
-@pytest.mark.parametrize("N", [16, 64])
-@pytest.mark.parametrize("T", [1, 15, 16, 47, 2048])
+@pytest.mark.parametrize("N", [16, 32, 48, 64])
+@pytest.mark.parametrize("T", [1, 15, 16, 17, 47, 2047, 2048])
 def test_wkv6_matches_plain_version(cuda, T, N, state, dtype):
     """wkv6_fwd against its plain version (the chunked form on float32
     casts, the scan where 16 does not divide T) on the card, output and
     final state: max error within 2e-5 * max |plain| for float32 and for
     bf16 inputs alike (both sides work in float32 from the same values;
     the factored exps reach e^80, so float32 rounding scales with the
-    largest values); bit-identical relaunch; one count per launch."""
-    B, H = (1, 2) if T == 2048 else (2, 3)
+    largest values); bit-identical relaunch; one count per launch. N 32
+    and 48 leave columns of the kernel's 64 empty, T 17 and 2047 a ragged
+    last chunk, and B 1 x H 8 (the long sequences) far fewer blocks than
+    SMs."""
+    B, H = (1, 8) if T >= 2047 else (2, 3)
     dt = getattr(torch, dtype)
     r, k, v, logw, u, s0 = _wkv_inputs(B, T, H, N, dt, state, cuda)
     before = wkv_kernel.LAUNCHES["wkv6_fwd"]

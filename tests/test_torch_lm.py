@@ -259,13 +259,35 @@ def test_generate_greedy_ids_match_a_jax_greedy_loop(f32_params):
 
 
 def test_sampling_draws_from_the_generator(f32_params):
+    """Decode samples from the generator: equal seeds give equal ids, two
+    seeds differ after the first token (which is the argmax, drawn from
+    no generator)."""
     params = transformer.params_from_jax(f32_params, device="cpu")
     tokens = torch.from_numpy(prompts(4, F32.vocab_size))
     runs = [serve.generate(F32, params, tokens, 4, temperature=100.0,
                            generator=torch.Generator().manual_seed(s),
                            device="cpu").ids for s in (5, 5, 6)]
-    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0],
-                                                             runs[2])
+    assert torch.equal(runs[0], runs[1])
+    assert torch.equal(runs[0][:, 0], runs[2][:, 0])
+    assert not torch.equal(runs[0][:, 1:], runs[2][:, 1:])
+
+
+def test_first_token_is_the_argmax_at_any_temperature(f32_params):
+    """As in the reference (`repro/launch/serve.py`), the first token is
+    the argmax of the prefill's last logits, also at temperature 100,
+    where a draw would almost never pick it."""
+    params = transformer.params_from_jax(f32_params, device="cpu")
+    tokens = torch.from_numpy(prompts(4, F32.vocab_size))
+    with torch.no_grad():
+        logits, _ = transformer.prefill(
+            F32, transformer.cast_params(F32, params, "cpu"),
+            {"tokens": tokens})
+    want = torch.argmax(logits[:, -1], dim=-1)
+    for seed in (5, 6, 7):
+        ids = serve.generate(F32, params, tokens, 2, temperature=100.0,
+                             generator=torch.Generator().manual_seed(seed),
+                             device="cpu").ids
+        assert torch.equal(ids[:, 0], want)
 
 
 def test_serve_cli_runs_reduced_on_the_cpu(capsys):
