@@ -30,7 +30,15 @@ run, exit code != 0):
               (`embedding_bag`, `index_select`, and for bwd_dx `index_add_`
               of the pre-multiplied rows, which is atomic and so not
               deterministic), and the bound (compulsory
-              bytes at 3.35 TB/s, flops at 67 TFLOP/s float32)
+              bytes at 3.35 TB/s, flops at 67 TFLOP/s float32). bwd_dx is
+              checked per launch as the step makes it (SAGE: the aggregate
+              and the self rows of layers 1 and 2; GAT: the folded
+              aggregate, z_self and e_src of all three layers): through the
+              layer's plan (one sort, shared by the aggregate and e_src) or,
+              for the self rows, on the sort-free sorted path; bit-equal to
+              the CPU plain version on every row of at most 64 edges,
+              within tolerance on longer ones; its ms split into the
+              kernel's and the plan's (counted once per layer)
   4. train    GraphSAGE (20 steps), cached GraphSAGE (10 steps), GCN and
               GAT (10 steps each), each followed by one `evaluate` of 3
               validation batches, on the reddit-602 graph with the same
@@ -48,7 +56,10 @@ run, exit code != 0):
               each run under torch.profiler: CUDA kernels by device time
               per step and the device's idle share of an unprofiled step
               (no PyTorch `indexing_backward` kernel may show: every row
-              gather's backward is the bwd_dx kernel); a second GAT trainer
+              gather's backward is the bwd_dx kernel), bwd_dx's own kernels
+              and its sorts per step (2 for SAGE, cached SAGE and GCN, 3
+              for GAT: one plan per layer whose input needs dx, also
+              counted over each run); a second GAT trainer
               from the same seed repeats the run's first 3 losses bit for
               bit; last, a fresh uncached and a fresh cached GraphSAGE trainer
               take 10 steps in turns on the same batches (the cache's cost
@@ -177,6 +188,17 @@ RUNS = {"graphsage": ("graphsage", 20, 4, 0, False),
         "graphsage_cached": ("graphsage", 10, 4, 0, True),
         "gcn": ("gcn", 10, 4, 0, False),
         "gat": ("gat", 10, 9, 3, False)}
+# bwd_dx plans (one sort each) per train step: one per layer whose input
+# needs dx (SAGE's and GCN's layer 0 reads the feature matrix); the self
+# rows' backward sorts nothing
+PLANS_PER_STEP = {"graphsage": 2, "graphsage_cached": 2, "gcn": 2, "gat": 3}
+# the CUDA kernels of a bwd_dx call (one cooperative kernel for a small
+# call, else the rows and combine kernels) and of its plan (the ids to
+# sort, CUB's radix sort, the run offsets)
+DX_KERNELS = ("bwd_dx_kernel", "bwd_dx_rows_kernel", "bwd_dx_combine_kernel",
+              "bwd_dx_iota_kernel", "bwd_dx_plan_kernel")
+# every CUB radix sort (torch.sort's and a plan's) launches one of these
+SORT_KERNEL = "RadixSortHistogramKernel"
 # LM serving: the reference's prefill_32k shape (32 x 32768,
 # `src/repro/configs/base.py:146-151`) cut to batch 4 x prompt 2048 to fit
 # this script's time limit, then 32 greedy tokens
@@ -325,16 +347,25 @@ def typical_batch(trainer):
     return batch
 
 
-def self_gather(torch, i, tag, x, idx, g):
-    """The bwd_dx launch of `gather_rows(x, idx)`'s backward: fanout 1,
-    unit weights, x viewed as (n_src, F)."""
+def self_gather(torch, i, tag, x, idx, g, plan=None):
+    """The bwd_dx launch of a row gather's backward: fanout 1, unit
+    weights, x viewed as (n_src, F); `gather_sorted_rows` (the self rows,
+    no plan) or `gather_rows` through the layer's `plan`."""
     M = idx.numel()
     return {"layer": f"{i} {tag}", "x": x.reshape(x.shape[0], -1),
             "idx": torch.clamp(idx.reshape(M, 1).to(torch.int32), 0,
                                x.shape[0] - 1).contiguous(),
-            "w": torch.ones((M, 1), device=x.device),
-            "g": g.reshape(M, -1), "needs_fwd": False, "needs_dx": True,
-            "needs_dw": False}
+            "w": None, "g": g.reshape(M, -1), "needs_fwd": False,
+            "needs_dx": True, "needs_dw": False, "plan": plan}
+
+
+def dx_plan(torch, key, idx, n_src, heads=1):
+    """What the main path hands bwd_dx as its plan: the layer's `DxPlan`
+    of src_pos (`key` names it: built once per layer, shared by the
+    launches that name the same key), folded to `heads`."""
+    return {"key": key, "idx": torch.clamp(idx.to(torch.int32), 0,
+                                           n_src - 1).contiguous(),
+            "n_src": n_src, "heads": heads}
 
 
 def main_path_layers(torch, trainer, batch):
@@ -342,8 +373,9 @@ def main_path_layers(torch, trainer, batch):
     from a real batch: layer 0 gathers from the global feature matrix
     through composed ids; layers 1 and 2 from hidden activations (random
     values of the real width, from a seeded generator), whose self rows'
-    gather (`gather_rows`) also takes a bwd_dx launch. GCN's calls have
-    the same shapes, with degree-normalised weights."""
+    gather (`gather_sorted_rows`, no plan) also takes a bwd_dx launch; the
+    aggregate's takes the layer's plan. GCN's calls have the same shapes,
+    with degree-normalised weights."""
     gen = torch.Generator(device=trainer.device).manual_seed(0)
     layers = []
     x = trainer.feats
@@ -363,7 +395,8 @@ def main_path_layers(torch, trainer, batch):
                         device=trainer.device)
         layers.append({"layer": i, "x": x, "idx": idx.contiguous(),
                        "w": w.contiguous(), "g": g, "needs_fwd": True,
-                       "needs_dx": i > 0, "needs_dw": False})
+                       "needs_dx": i > 0, "needs_dw": False,
+                       "plan": dx_plan(torch, f"sage {i}", idx, x.shape[0])})
         if i > 0:
             layers.append(self_gather(torch, i, "self", x, block.self_pos,
                                       torch.randn_like(g)))
@@ -378,8 +411,10 @@ def gat_layers(torch, trainer, batch, cfg):
     neighbours and its self slot (masked slots exactly 0), as `gat_layer`
     makes it. g is the cotangent of the (n_dst*H, dh) out; every layer
     differentiates zf (z = x W, at layer 0 too) and alpha, and takes two
-    more bwd_dx launches for its row gathers z_self = z[self_pos] and
-    e_src = s_src[src_pos] (`gather_rows`)."""
+    more bwd_dx launches for its row gathers z_self = z[self_pos]
+    (`gather_sorted_rows`, no plan) and e_src = s_src[src_pos]
+    (`gather_rows`); e_src and the aggregate (folded to H heads) share the
+    layer's one plan of src_pos."""
     gen = torch.Generator(device=trainer.device).manual_seed(1)
     H = cfg.gat_heads
     dims = [cfg.in_dim] + [cfg.hidden_dim] * (cfg.num_layers - 1) \
@@ -400,9 +435,11 @@ def gat_layers(torch, trainer, batch, cfg):
         w = torch.softmax(e, dim=-1)[:, :, :r].reshape(n_dst * H, r)
         g = torch.randn((n_dst * H, dh), generator=gen,
                         device=trainer.device)
+        plan = dx_plan(torch, f"gat {i}", block.src_pos, n_src)
         layers.append({"layer": i, "x": zf, "idx": idx.contiguous(),
                        "w": w.contiguous(), "g": g, "needs_fwd": True,
-                       "needs_dx": True, "needs_dw": True})
+                       "needs_dx": True, "needs_dw": True,
+                       "plan": {**plan, "heads": H}})
         layers.append(self_gather(
             torch, i, "z_self", zf.reshape(n_src, H * dh), block.self_pos,
             torch.randn((n_dst, H * dh), generator=gen,
@@ -411,7 +448,7 @@ def gat_layers(torch, trainer, batch, cfg):
             torch, i, "e_src", torch.randn((n_src, H), generator=gen,
                                            device=trainer.device),
             block.src_pos, torch.randn((n_dst, r, H), generator=gen,
-                                       device=trainer.device)))
+                                       device=trainer.device), plan))
         n_src = n_dst
     return layers
 
@@ -456,41 +493,81 @@ def check_fwd(torch, L):
                     f"(embedding_bag err {lib_err:.3e})"}
 
 
+_PLANS = {}      # phase 3: the plan of each (path, layer), built once
+
+
+def dx_launch(torch, L):
+    """The bwd_dx call the main path makes for entry L, as a closure, and
+    the plan ms it adds (the first entry of a plan's key only)."""
+    from repro_torch.kernels.gather_agg import kernel
+    idx, w, g = L["idx"], L["w"], L["g"]
+    n_src = L["x"].shape[0]
+    spec = L.get("plan")
+    if spec is None:
+        return (lambda: kernel.gather_agg_bwd_dx_sorted(idx, w, g, n_src),
+                0.0, "sorted (no plan)")
+    plan_ms = 0.0
+    if spec["key"] not in _PLANS:
+        _PLANS[spec["key"]] = kernel.bwd_dx_plan(spec["idx"], spec["n_src"])
+        plan_ms = cuda_ms(torch, lambda: kernel.bwd_dx_plan(spec["idx"],
+                                                            spec["n_src"]))
+    plan = _PLANS[spec["key"]].folded(spec["heads"])
+    return (lambda: kernel.gather_agg_bwd_dx(idx, w, g, n_src, plan),
+            plan_ms, f"plan {spec['key']!r} x {spec['heads']} heads")
+
+
 def check_dx(torch, L):
+    """bwd_dx as the main path calls it, against the CPU plain version
+    (index_add_ in edge order): rows of at most BWD_CHUNK edges bit for
+    bit, longer ones within a tolerance that grows with the edges on the
+    row; bit-identical relaunch. ms = the kernel's ms + the plan's ms at
+    the plan's first launch (one plan per layer)."""
     from repro_torch.kernels.gather_agg import kernel, ref
     idx, w, g = L["idx"], L["w"], L["g"]
     n_src, F = L["x"].shape
     n_dst, r = idx.shape
-    # kernel vs plain (index_add_, atomics in another order). A dx row sums
-    # one product per weighted edge into it, so the float32 rounding grows
-    # with the most such edges on one row.
-    dx = kernel.gather_agg_bwd_dx(idx, w, g, n_src)
-    want = ref.gather_agg_bwd_dx_ref(idx, w, g, n_src)
-    err = (dx - want).abs().max().item()
-    terms = int(torch.bincount(idx[w != 0].long()).max())
+    call, plan_ms, how = dx_launch(torch, L)
+    dx = call()
+    want = ref.gather_agg_bwd_dx_ref(idx.cpu(), None if w is None else
+                                     w.cpu(), g.cpu(), n_src)
+    got = dx.cpu()
+    err = (got - want).abs().max().item()
+    count = torch.bincount(idx.reshape(-1).long().cpu(), minlength=n_src)
+    short = count <= kernel.BWD_CHUNK
+    weighted = idx.reshape(-1) if w is None else idx[w != 0]
+    terms = int(torch.bincount(weighted.long()).max())
     tol = max(1e-5, 1e-7 * terms)
-    check(torch.isfinite(dx).all().item(), "bwd_dx: non-finite")
-    check(torch.allclose(dx, want, rtol=tol, atol=tol),
+    check(torch.isfinite(got).all().item(), "bwd_dx: non-finite")
+    check(torch.equal(got[short], want[short]),
+          f"bwd_dx differs from the CPU on rows of <= {kernel.BWD_CHUNK} "
+          f"edges ({int((got[short] != want[short]).sum())} elements)")
+    check(torch.allclose(got, want, rtol=tol, atol=tol),
           f"bwd_dx max abs err {err} (tol {tol})")
-    check(torch.equal(dx, kernel.gather_agg_bwd_dx(idx, w, g, n_src)),
-          "bwd_dx differs between launches")
-    b_ms, b_by = _bound_ms(n_dst * F * 4 + idx.numel() * 8 + n_src * F * 4,
-                           2.0 * n_dst * r * F)
+    check(torch.equal(dx, call()), "bwd_dx differs between launches")
+    del got, want
+    # compulsory bytes: g, idx (and w) read once, dx written once
+    b_ms, b_by = _bound_ms(n_dst * F * 4 + idx.numel() * (4 if w is None
+                                                          else 8)
+                           + n_src * F * 4, 2.0 * n_dst * r * F)
     # the library call: one index_add_ of the rows w g, multiplied
     # beforehand (atomics: neither deterministic nor ordered)
-    contrib = (w[..., None] * g[:, None, :]).reshape(-1, F)
+    contrib = (g if w is None else
+               (w[..., None] * g[:, None, :])).reshape(-1, F)
     flat, acc = idx.reshape(-1).long(), torch.zeros_like(dx)
+    k_ms = cuda_ms(torch, call)
     return {"max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
-            "ms": cuda_ms(torch, lambda: kernel.gather_agg_bwd_dx(
-                idx, w, g, n_src)),
+            "ms": k_ms + plan_ms, "kernel_ms": k_ms, "plan_ms": plan_ms,
             "plain_ms": cuda_ms(torch, lambda: ref.gather_agg_bwd_dx_ref(
                 idx, w, g, n_src)),
             "library_ms": cuda_ms(torch, lambda: acc.index_add_(
                 0, flat, contrib)),
-            "note": f"dx {n_src}x{F} edges {n_dst}x{r} (at most {terms} on "
-                    f"a row; tol {tol:.1e}; ms with the sort glue; "
-                    f"library: index_add_ of the pre-multiplied rows, "
-                    f"atomic, not deterministic)"}
+            "note": f"dx {n_src}x{F} edges {n_dst}x{r}, {how} (at most "
+                    f"{terms} weighted edges on a row, "
+                    f"{int((~short).sum())} rows over {kernel.BWD_CHUNK}; "
+                    f"bit-equal to the CPU on the {int(short.sum())} others;"
+                    f" tol {tol:.1e}); kernel_ms {k_ms:.4f} plan_ms "
+                    f"{plan_ms:.4f}; library: index_add_ of the "
+                    f"pre-multiplied rows, atomic, not deterministic"}
 
 
 def check_dw(torch, L):
@@ -615,15 +692,22 @@ def phase_kernels(torch, path, layers, checks=CHECKS):
             t = totals.setdefault(name, {
                 "ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0,
                 "max_abs_err": 0.0, "bound_by": set(),
-                "library_ms": None if got["library_ms"] is None else 0.0})
-            for k in ("ms", "plain_ms", "bound_ms"):
-                t[k] += got[k]
+                "library_ms": None if got["library_ms"] is None else 0.0,
+                **{k: 0.0 for k in ("kernel_ms", "plan_ms") if k in got}})
+            for k in ("ms", "plain_ms", "bound_ms", "kernel_ms", "plan_ms"):
+                if k in got:
+                    t[k] += got[k]
             if got["library_ms"] is not None:
                 t["library_ms"] += got["library_ms"]
             t["max_abs_err"] = max(t["max_abs_err"], got["max_abs_err"])
             t["bound_by"].add(got["bound_by"])
-    for t in totals.values():
+    for name, t in totals.items():
         t["bound_by"] = "/".join(sorted(t["bound_by"]))
+        if "plan_ms" in t:
+            log(f"[3 kernels] {name} {path} per step: ms {t['ms']:.4f} = "
+                f"kernels {t['kernel_ms']:.4f} + plans {t['plan_ms']:.4f}"
+                f"  library_ms {t['library_ms']:.4f}  plain_ms "
+                f"{t['plain_ms']:.4f}  bound_ms {t['bound_ms']:.4f}")
     return totals
 
 
@@ -694,6 +778,12 @@ def phase_train(torch, graph, trainer, name, reference=None):
             "gather_cached_fwd": steps + n_eval if cached else 0,
             "flash_attention_fwd": 0, "moe_gmm_fwd": 0, "wkv6_fwd": 0}
     check(launches == want, f"{name}: launches {launches} != {want}")
+    from repro_torch.kernels.gather_agg import kernel
+    plans = kernel.PLANS["gather_agg_bwd_dx"]
+    log(f"[4 train] {name}: bwd_dx plans (sorts) {plans} = "
+        f"{plans / steps:g} a step")
+    check(plans == PLANS_PER_STEP[name] * steps,
+          f"{name}: {plans} bwd_dx plans != {PLANS_PER_STEP[name]} a step")
     if cached:
         meter = trainer.cache_meter
         # the valid input nodes of the run's batches, rebuilt (the build
@@ -785,6 +875,35 @@ def phase_profile(torch, trainer, name, step_ms: float, steps: int = 3,
             f"{n / steps:6.1f} calls/step  {key[:110]}")
     slow = [key for key, _, _ in dev if "indexing_backward" in key]
     check(not slow, f"{name}: PyTorch's index backward ran: {slow}")
+    # bwd_dx's own kernels, and its sorts: a step's radix sorts less the
+    # batch build's (profiled alone), one per plan
+    dx = [(k, t, n) for k, t, n in dev if any(d in k for d in DX_KERNELS)]
+    for key, t, n in dx:
+        log(f"[4 profile] {name}: bwd_dx {t / steps / 1e3:8.3f} ms/step  "
+            f"{n / steps:6.1f} calls/step  {key[:90]}")
+    dx_ms = sum(t for _, t, _ in dx) / steps / 1e3
+    plan_calls = sum(n for k, _, n in dx if DX_KERNELS[4] in k) / steps
+
+    def sorts(prof):
+        return sum(n for k, _, n in prof if SORT_KERNEL in k)
+
+    stream = trainer.stream
+    build, _ = profile_kernels(torch, lambda: stream.build(
+        stream.root_batches(0)[1], 0, 1))
+    from repro_torch.kernels.gather_agg import kernel
+    idx = stream.build(stream.root_batches(0)[1], 0, 1).blocks[-1].src_pos
+    n = int(idx.max()) + 1
+    plan, _ = profile_kernels(torch, lambda: kernel.bwd_dx_plan(idx, n))
+    dx_sorts = sorts(dev) / steps - sorts(build)
+    log(f"[4 profile] {name}: bwd_dx kernels {dx_ms:.3f} ms/step "
+        f"({dx_ms / busy_ms:.3f} of the kernel time), plans "
+        f"{plan_calls:g}/step; radix sorts {sorts(dev) / steps:g}/step = "
+        f"batch build {sorts(build)} + bwd_dx plans {dx_sorts:g} (one "
+        f"plan alone: {sorts(plan)})")
+    check(sorts(plan) == 1 and plan_calls == PLANS_PER_STEP[name] and
+          dx_sorts == PLANS_PER_STEP[name],
+          f"{name}: {plan_calls} plans and {dx_sorts} plan sorts a step, "
+          f"want {PLANS_PER_STEP[name]}")
 
 
 def phase_relaunch(trainer_of, losses, name, steps: int = 3):

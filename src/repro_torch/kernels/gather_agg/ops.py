@@ -14,21 +14,65 @@ Each kernel wrapper takes its plain version for CPU tensors only.
 the same deterministic scatter-add kernel at fanout 1 with unit weights
 (as `gather_cached`'s backward calls it), in place of PyTorch's index
 backward, which walks each run of equal indices serially.
+`gather_sorted_rows(x, idx)` is the same for an index the caller states is
+non-decreasing (a level's self rows): its backward needs no sort.
+
+A `DxPlan` of an index is the backward's sort of it, made at the first
+backward on the card that needs it and shared by every op handed the same
+`DxPlan`: a layer's aggregate, its row gather over the same index, and
+(`folded`) GAT's head-folded aggregate.
 """
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
+from repro_torch.kernels.gather_agg import kernel
 from repro_torch.kernels.gather_agg.kernel import (gather_agg_bwd_dw,
                                                    gather_agg_bwd_dx,
+                                                   gather_agg_bwd_dx_sorted,
                                                    gather_agg_fwd)
+
+
+class DxPlan:
+    """The bwd_dx plan of `idx` over `n_src` rows, built lazily (one sort,
+    no host sync) the first time a backward on the card asks for it, then
+    reused; never built for a CPU index, whose plain versions need none.
+    `folded(H)` is the same plan serving the head-folded index
+    `idx * H + h` over n_src * H rows."""
+
+    def __init__(self, idx: torch.Tensor, n_src: int):
+        self.idx, self.n_src, self.heads = idx, n_src, 1
+        self._built = [None]            # shared with every folded view
+
+    def folded(self, heads: int) -> "DxPlan":
+        view = DxPlan.__new__(DxPlan)
+        view.idx, view.n_src, view.heads = self.idx, self.n_src, heads
+        view._built = self._built
+        return view
+
+    def get(self) -> Optional[kernel.BwdDxPlan]:
+        if self.idx.device.type == "cpu":
+            return None
+        if self._built[0] is None:
+            idx = torch.clamp(self.idx.to(torch.int32), 0, self.n_src - 1)
+            self._built[0] = kernel.bwd_dx_plan(idx.contiguous(),
+                                                self.n_src)
+        plan = self._built[0]
+        return plan if self.heads == 1 else plan.folded(self.heads)
+
+
+def _plan_of(plan: Optional[DxPlan]) -> Optional[kernel.BwdDxPlan]:
+    return None if plan is None else plan.get()
 
 
 class _GatherAgg(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, idx, w):
+    def forward(ctx, x, idx, w, plan):
         ctx.save_for_backward(x, idx, w)
         ctx.n_src = x.shape[0]
+        ctx.plan = plan
         return gather_agg_fwd(x, idx, w)
 
     @staticmethod
@@ -37,29 +81,33 @@ class _GatherAgg(torch.autograd.Function):
         g = g.contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = gather_agg_bwd_dx(idx, w, g, ctx.n_src).to(x.dtype)
+            dx = gather_agg_bwd_dx(idx, w, g, ctx.n_src,
+                                   _plan_of(ctx.plan)).to(x.dtype)
         if ctx.needs_input_grad[2]:
             dw = gather_agg_bwd_dw(x, idx, g).to(w.dtype)
-        return dx, None, dw
+        return dx, None, dw, None
 
 
-def gather_agg(x: torch.Tensor, idx: torch.Tensor,
-               w: torch.Tensor) -> torch.Tensor:
+def gather_agg(x: torch.Tensor, idx: torch.Tensor, w: torch.Tensor,
+               plan: Optional[DxPlan] = None) -> torch.Tensor:
     """Fused `out[i] = sum_j w[i,j] * x[idx[i,j]]`; differentiable in x, w.
 
     x: (n_src, F) float32; idx: (n_dst, r) int (clipped to [0, n_src));
-    w: (n_dst, r) float. Returns (n_dst, F) float32.
+    w: (n_dst, r) float. Returns (n_dst, F) float32. `plan`: the `DxPlan`
+    of idx (or one `folded` to it), shared with other ops over the same
+    index; without one, dx's backward sorts idx itself.
     """
     idx = torch.clamp(idx.to(torch.int32), 0, x.shape[0] - 1).contiguous()
     return _GatherAgg.apply(x.contiguous(), idx,
-                            w.to(torch.float32).contiguous())
+                            w.to(torch.float32).contiguous(), plan)
 
 
 class _GatherRows(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, idx):
+    def forward(ctx, x, idx, plan, nondecreasing):
         ctx.save_for_backward(idx)
         ctx.x_shape = x.shape
+        ctx.plan, ctx.nondecreasing = plan, nondecreasing
         flat = x.reshape(x.shape[0], -1).index_select(0, idx.reshape(-1))
         return flat.reshape(*idx.shape, *x.shape[1:])
 
@@ -67,20 +115,37 @@ class _GatherRows(torch.autograd.Function):
     def backward(ctx, g):
         (idx,) = ctx.saved_tensors
         M = idx.numel()
-        dx = gather_agg_bwd_dx(
-            idx.reshape(M, 1),
-            torch.ones((M, 1), dtype=torch.float32, device=g.device),
-            g.reshape(M, ctx.x_shape[1:].numel()).to(torch.float32)
-            .contiguous(), ctx.x_shape[0])
-        return dx.reshape(ctx.x_shape).to(g.dtype), None
+        dtype = g.dtype
+        g = g.reshape(M, ctx.x_shape[1:].numel()).to(torch.float32) \
+            .contiguous()
+        if ctx.nondecreasing:
+            dx = gather_agg_bwd_dx_sorted(idx.reshape(M, 1), None, g,
+                                          ctx.x_shape[0])
+        else:
+            dx = gather_agg_bwd_dx(idx.reshape(M, 1), None, g,
+                                   ctx.x_shape[0], _plan_of(ctx.plan))
+        return dx.reshape(ctx.x_shape).to(dtype), None, None, None
 
 
-def gather_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def gather_rows(x: torch.Tensor, idx: torch.Tensor,
+                plan: Optional[DxPlan] = None) -> torch.Tensor:
     """`x[idx]` along the first axis, differentiable in x through the
     deterministic fanout-1 scatter-add (`gather_agg_bwd_dx`, fixed order,
     no atomics) on CUDA and its plain version on the CPU.
 
     x: (n_src, ...) float32; idx: int of any shape, clipped to
-    [0, n_src) as `gather_agg` clips. Returns idx.shape + x.shape[1:]."""
+    [0, n_src) as `gather_agg` clips. Returns idx.shape + x.shape[1:].
+    `plan`: the `DxPlan` of idx, shared with other ops over the same
+    index; without one the backward sorts idx itself."""
     idx = torch.clamp(idx.to(torch.int32), 0, x.shape[0] - 1).contiguous()
-    return _GatherRows.apply(x.contiguous(), idx)
+    return _GatherRows.apply(x.contiguous(), idx, plan, False)
+
+
+def gather_sorted_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """`gather_rows` for an index whose flat values are non-decreasing (a
+    level's self rows: `_positions` maps a sorted level into its sorted
+    superset). Its backward sorts nothing (`gather_agg_bwd_dx_sorted`);
+    an index that breaks the promise fails in the backward, on the card
+    with a launch error and on the CPU with ValueError."""
+    idx = torch.clamp(idx.to(torch.int32), 0, x.shape[0] - 1).contiguous()
+    return _GatherRows.apply(x.contiguous(), idx, None, True)

@@ -17,10 +17,13 @@ def gather_agg_ref(x, idx, w):
 
 
 def gather_agg_bwd_dx_ref(idx, w, g, n_src: int):
-    """dx[idx[i, j]] += w[i, j] * g[i], into zeros of shape (n_src, F).
-    On the CPU `index_add_` adds in edge order, which is the reference's
-    stable by-source order within every row; on CUDA it uses atomics."""
+    """dx[idx[i, j]] += w[i, j] * g[i], into zeros of shape (n_src, F);
+    w None means unit weights. On the CPU `index_add_` adds in edge order,
+    which is the reference's stable by-source order within every row; on
+    CUDA it uses atomics."""
     F = g.shape[1]
+    if w is None:
+        w = torch.ones(idx.shape, dtype=torch.float32, device=g.device)
     contrib = (w.to(torch.float32)[..., None]
                * g.to(torch.float32)[:, None, :]).reshape(-1, F)
     dx = torch.zeros((n_src, F), dtype=torch.float32, device=g.device)

@@ -31,7 +31,9 @@ from torch import nn
 
 from repro_torch.configs import GNNConfig
 from repro_torch.core.minibatch import MiniBatch
-from repro_torch.kernels.gather_agg.ops import gather_agg, gather_rows
+from repro_torch.kernels.gather_agg.ops import (DxPlan, gather_agg,
+                                                gather_rows,
+                                                gather_sorted_rows)
 from repro_torch.kernels.gather_cached.ops import gather_cached
 from repro_torch.models.lm.common import dense_init
 
@@ -139,21 +141,24 @@ def params_to_jax(model: GNN) -> Dict:
                        for layer in model.layers]}
 
 
-def _masked_mean(x_tab, src_idx, edge_mask):
+def _masked_mean(x_tab, src_idx, edge_mask, plan=None):
     """(n_dst, r)-indexed mean over valid neighbor slots -> (n_dst, F)."""
     m = edge_mask.to(torch.float32)
     w = m / torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)
-    return gather_agg(x_tab, src_idx, w).to(x_tab.dtype)
+    return gather_agg(x_tab, src_idx, w, plan).to(x_tab.dtype)
 
 
-def sage_layer(p: SageLayer, x_tab, src_idx, self_idx, edge_mask):
-    h_self = gather_rows(x_tab, self_idx)
-    h_nbr = _masked_mean(x_tab, src_idx, edge_mask)
+def sage_layer(p: SageLayer, x_tab, src_idx, self_idx, edge_mask,
+               plan: Optional[DxPlan] = None):
+    """`plan`: the `DxPlan` of src_idx, if the caller shares it. self_idx
+    must be non-decreasing (a block's self positions are)."""
+    h_self = gather_sorted_rows(x_tab, self_idx)
+    h_nbr = _masked_mean(x_tab, src_idx, edge_mask, plan)
     return h_self @ p.w_self + h_nbr @ p.w_neigh + p.b
 
 
 def gcn_layer(p: GcnLayer, x_tab, src_idx, self_idx, edge_mask,
-              deg_src_edge, deg_dst):
+              deg_src_edge, deg_dst, plan: Optional[DxPlan] = None):
     """Symmetric-normalised aggregation with self loops (global degrees).
 
     All normalisers fold into the per-edge weight: mask * rsqrt(deg_src+1)
@@ -165,24 +170,27 @@ def gcn_layer(p: GcnLayer, x_tab, src_idx, self_idx, edge_mask,
     c_src = torch.rsqrt(deg_src_edge.to(torch.float32) + 1.0)
     c_dst = torch.rsqrt(deg_dst.to(torch.float32) + 1.0)
     w = m * c_src * (deg_dst[:, None] / cnt) * c_dst[:, None]
-    agg = gather_agg(x_tab, src_idx, w).to(x_tab.dtype)
-    h_self = gather_rows(x_tab, self_idx) \
+    agg = gather_agg(x_tab, src_idx, w, plan).to(x_tab.dtype)
+    h_self = gather_sorted_rows(x_tab, self_idx) \
         * (c_dst * c_dst)[:, None].to(x_tab.dtype)
     return (agg + h_self) @ p.w + p.b
 
 
-def gat_layer(p: GatLayer, x_tab, src_idx, self_idx, edge_mask):
+def gat_layer(p: GatLayer, x_tab, src_idx, self_idx, edge_mask,
+              plan: Optional[DxPlan] = None):
     """The reference's head-folded path (`impl == "pallas"`): row s*H + h
     of `zf` is head h of source s, so one `gather_agg` call reduces all
-    heads, and alpha's gradient flows through the dw kernel."""
+    heads, and alpha's gradient flows through the dw kernel. `plan` (the
+    `DxPlan` of src_idx) serves both backwards over src_idx: e_src's and,
+    folded to H heads, the aggregate's."""
     H, dh = p.a_src.shape
     n_dst, r = src_idx.shape
     z = (x_tab @ p.w).reshape(-1, H, dh)              # (n_src, H, dh)
     # per-source attention logits: scores are linear in z, so gather the
     # (n_src, H) scalars instead of (n_dst, r, H, dh) projected rows
     s_src = (z * p.a_src).sum(dim=-1)
-    z_self = gather_rows(z, self_idx)                 # (n_dst, H, dh)
-    e_src = gather_rows(s_src, src_idx)               # (n_dst, r, H)
+    z_self = gather_sorted_rows(z, self_idx)          # (n_dst, H, dh)
+    e_src = gather_rows(s_src, src_idx, plan)         # (n_dst, r, H)
     e_dst = (z_self * p.a_dst).sum(dim=-1)
     e_self = (z_self * p.a_src).sum(dim=-1) + e_dst
     e = nn.functional.leaky_relu(e_src + e_dst[:, None], 0.2)
@@ -196,7 +204,9 @@ def gat_layer(p: GatLayer, x_tab, src_idx, self_idx, edge_mask):
     idx2 = src_idx[:, None, :] * H + heads[None, :, None]
     w2 = a_nbr.transpose(1, 2)                        # (n_dst, H, r)
     out = gather_agg(zf, idx2.reshape(n_dst * H, r),
-                     w2.reshape(n_dst * H, r)).reshape(n_dst, H, dh)
+                     w2.reshape(n_dst * H, r),
+                     None if plan is None else plan.folded(H)
+                     ).reshape(n_dst, H, dh)
     out = out + a_self[..., None] * z_self
     out = out.reshape(n_dst, H * dh) + p.b
     if p.w_out is not None:
@@ -254,8 +264,10 @@ def apply_gnn(cfg: GNNConfig, params: GNN, batch: MiniBatch, x,
             self_idx = gid[block.self_pos]
         else:
             src_idx, self_idx = block.src_pos, block.self_pos
+        # one backward sort of src_idx per layer, shared by its ops
+        plan = DxPlan(src_idx, x.shape[0])
         if cfg.model == "sage":
-            x = sage_layer(p, x, src_idx, self_idx, block.edge_mask)
+            x = sage_layer(p, x, src_idx, self_idx, block.edge_mask, plan)
         elif cfg.model == "gcn":
             # per-level degrees gathered from the global degree array;
             # blocks[i] maps level (L-i) -> (L-i-1)
@@ -264,9 +276,9 @@ def apply_gnn(cfg: GNNConfig, params: GNN, batch: MiniBatch, x,
             deg_dst = degrees[torch.clamp(batch.levels[L - i - 1],
                                           max=n - 1)]
             x = gcn_layer(p, x, src_idx, self_idx, block.edge_mask,
-                          d_src[block.src_pos], deg_dst)
+                          d_src[block.src_pos], deg_dst, plan)
         else:
-            x = gat_layer(p, x, src_idx, self_idx, block.edge_mask)
+            x = gat_layer(p, x, src_idx, self_idx, block.edge_mask, plan)
         x = x * block.dst_mask[:, None].to(x.dtype)
         if i < L - 1:
             x = torch.relu(x)

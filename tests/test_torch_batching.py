@@ -166,3 +166,31 @@ def test_batch_rebuilt_at_same_cursor_is_identical(tiny_t, dev_graphs):
             assert torch.equal(getattr(ba, f), getattr(bb, f))
     # a different cursor draws differently
     assert not torch.equal(first[1].levels[-1], first[2].levels[-1])
+
+
+@pytest.mark.parametrize("policy", ["rand", "norand", "comm_rand"])
+def test_self_positions_are_non_decreasing(tiny_t, dev_graphs, policy):
+    """The self rows' backward takes the sort-free path, whose promise is
+    a non-decreasing index: every block's `self_pos` (a sorted level mapped
+    into its sorted superset), and layer 0's composed `gid[self_pos]`
+    (node ids are sorted), on every batch of an epoch and on batches with
+    padded roots (all on the last slot), truncating caps included."""
+    _, gt = dev_graphs
+    N = tiny_t.num_nodes
+    for caps in ((768, 1152), (384, 512)):
+        st = BatchStream(tiny_t, make_policy(policy), B, FANOUTS, caps,
+                         seed=5, device_graph=gt, device="cpu")
+        roots = list(st.root_batches(0))
+        padded = np.full(B, -1, np.int64)
+        padded[:100] = roots[0][:100]
+        roots.append(padded)
+        assert any((r < 0).any() for r in roots)
+        for pos, r in enumerate(roots):
+            batch = st.build(r, 0, pos)
+            gid = torch.clamp(batch.node_ids, max=N - 1)
+            for i, block in enumerate(batch.blocks):
+                idx = gid[block.self_pos] if i == 0 else block.self_pos
+                for name, t in (("self_pos", block.self_pos),
+                                ("self index", idx)):
+                    assert bool((t[1:] >= t[:-1]).all()), \
+                        (policy, caps, pos, i, name)

@@ -146,68 +146,252 @@ def test_nan_in_cotangent_propagates_through_masked_edges():
     assert np.isnan(dx).any()
 
 
-def _bwd_dx_kernel_loops(g, plan, n_src):
-    """The CUDA backward's two loops, written out: each chunk of a row's
-    sorted edges is summed in order; a one-chunk row is the result, a
-    longer row sums its chunk partials in chunk order."""
-    p = {k: (v.numpy() if isinstance(v, torch.Tensor) else v)
-         for k, v in vars(plan).items()}
-    dx = np.zeros((n_src, g.shape[1]), np.float32)
-    for s in range(n_src):
-        a, b = p["row_start"][s], p["row_end"][s]
-        starts = list(range(a, b, p["chunk"])) or [a]
-        parts = []
-        for c0 in starts:
-            acc = np.zeros(g.shape[1], np.float32)
-            for e in range(c0, min(c0 + p["chunk"], b)):
-                acc = acc + np.float32(p["w_sorted"][e]) * \
-                    g[p["dst_sorted"][e]]
-            parts.append(acc)
-        if len(parts) == 1:
-            dx[s] = parts[0]
-            continue
-        acc = np.zeros(g.shape[1], np.float32)
-        for part in parts:
-            acc = acc + part
-        dx[s] = acc
+def _emulate_bwd_dx(g, keys, order, row_ptr, w, n, r, H, chunk):
+    """The CUDA backward's three launches (`csrc/gather_agg.cu`), written
+    out at window width `chunk`: every run of at most `chunk` edges is
+    summed from 0 in sorted order into its row (empty rows as zeros);
+    longer runs are cut at the multiples of `chunk` of the sorted edges
+    into pieces with two static slots per window, then summed in window
+    order, `chunk` pieces per group, and the groups in order. Without
+    `row_ptr` a row finds its run by binary search in `keys`, without
+    `order` the sorted position is the edge id. Rows no launch writes stay
+    NaN."""
+    keys = np.asarray(keys)
+    E, F = keys.size, g.shape[1]
+    wf = None if w is None else np.asarray(w, np.float32).reshape(-1)
+
+    def run(s):
+        if row_ptr is not None:
+            return int(row_ptr[s]), int(row_ptr[s + 1])
+        return (int(np.searchsorted(keys, s, "left")),
+                int(np.searchsorted(keys, s, "right")))
+
+    def sum_edges(a, b, h):
+        acc = np.zeros(F, np.float32)
+        for e in range(a, b):
+            f = int(e if order is None else order[e])
+            i = f // r
+            d = i * H + h
+            wt = np.float32(1.0) if wf is None else wf[d * r + f - i * r]
+            acc = acc + wt * g[d]
+        return acc
+
+    n_win = -(-E // chunk)
+    dx = np.full((n * H, F), np.nan, np.float32)
+    part = np.full((2 * n_win * H, F), np.nan, np.float32)
+
+    def piece(q):
+        h, ts = q % H, q // H
+        t = ts >> 1
+        p0, p1 = t * chunk, min(t * chunk + chunk, E)
+        s = keys[p0]
+        if ts & 1:
+            if keys[p1 - 1] == s:
+                return None
+            s = keys[p1 - 1]
+        a, b = run(s)
+        return (int(s), a, b, t, h) if b - a > chunk else None
+
+    def slot(a, u, h):
+        return (2 * u + (1 if a > u * chunk else 0)) * H + h
+
+    def sum_slots(slots):
+        acc = np.zeros(F, np.float32)
+        for k in slots:
+            acc = acc + part[k]
+        return acc
+
+    tasks = range(2 * n_win * H)
+    for q in tasks:                          # launch 1: pieces ...
+        P = piece(q)
+        if P is not None:
+            s, a, b, t, h = P
+            part[q] = sum_edges(max(a, t * chunk), min(b, t * chunk + chunk),
+                                h)
+    for s_out in range(n * H):               # ... and rows
+        a, b = run(s_out // H)
+        if b - a <= chunk:
+            dx[s_out] = sum_edges(a, b, s_out % H)
+    for level in (1, 2):                     # launches 2 and 3
+        for q in tasks:
+            P = piece(q)
+            if P is None:
+                continue
+            s, a, b, t, h = P
+            t0 = a // chunk
+            nw = (b - 1) // chunk - t0 + 1
+            if level == 1 and (t - t0) % chunk == 0:
+                acc = sum_slots(slot(a, u, h)
+                                for u in range(t, min(t + chunk, t0 + nw)))
+                if nw <= chunk:
+                    dx[s * H + h] = acc
+                else:
+                    part[q] = acc
+            elif level == 2 and t == t0 and nw > chunk:
+                dx[s * H + h] = sum_slots(
+                    slot(a, t0 + k * chunk, h)
+                    for k in range(-(-nw // chunk)))
     return dx
+
+
+def _run_lengths(idx, n):
+    return np.bincount(np.asarray(idx).reshape(-1), minlength=n)
 
 
 @pytest.mark.parametrize("chunk", [4, 64])
 @pytest.mark.parametrize("case", ["repeated", "masked_rows", "odd_f10"])
 def test_backward_plan_feeds_the_kernel_loops(case, chunk):
-    """The sort/searchsorted/chunk glue the CUDA backward consumes, run on
-    the CPU: stable by-source order, chunk and scratch offsets within their
-    static bounds, and the kernel's loops over them equal the reference's
-    scatter-add."""
+    """The index-only plan the CUDA backward consumes, built on the CPU:
+    the keys in stable by-source order, the edge id of each position and
+    each row's run offsets; the kernel's launches over it (at window
+    width `chunk`) equal the reference's scatter-add, and rows of at most
+    `chunk` edges equal the CPU plain version bit for bit."""
     x, idx, w = _case(case)
     n_src = x.shape[0]
     idx = np.clip(idx, 0, n_src - 1)
     g = np.random.default_rng((3, 11)).normal(
         size=(idx.shape[0], x.shape[1])).astype(np.float32)
-    plan = kernel.bwd_dx_plan(torch.as_tensor(idx), torch.as_tensor(w),
-                              n_src, chunk=chunk)
+    plan = kernel.bwd_dx_plan(torch.as_tensor(idx), n_src)
     order = np.argsort(idx.reshape(-1), kind="stable")
-    np.testing.assert_array_equal(plan.dst_sorted.numpy(),
-                                  order // idx.shape[1])
-    np.testing.assert_array_equal(plan.w_sorted.numpy(),
-                                  w.reshape(-1)[order])
-    count = np.bincount(idx.reshape(-1), minlength=n_src)
-    np.testing.assert_array_equal(
-        (plan.row_end - plan.row_start).numpy(), count)
-    nch = np.maximum(1, -(-count // chunk))
-    np.testing.assert_array_equal(plan.chunk_first.numpy(),
-                                  np.cumsum(nch) - nch)
-    assert nch.sum() <= plan.n_chunks_max
-    assert nch[nch > 1].sum() <= plan.n_partial_max
+    np.testing.assert_array_equal(plan.order.numpy(), order)
+    np.testing.assert_array_equal(plan.keys.numpy(), idx.reshape(-1)[order])
+    count = _run_lengths(idx, n_src)
+    np.testing.assert_array_equal(plan.row_ptr.numpy(),
+                                  np.concatenate([[0], np.cumsum(count)]))
+    assert plan.n_src == n_src and plan.r == idx.shape[1]
+    assert plan.heads == 1 and plan.folded(4).heads == 4
     if chunk == 4 and case == "repeated":
-        assert (nch > 1).any()               # the two-level path is covered
-    got = _bwd_dx_kernel_loops(g, plan, n_src)
+        assert count.max() > 4 * chunk       # both combine levels run
+    got = _emulate_bwd_dx(g, plan.keys.numpy(), plan.order.numpy(),
+                          plan.row_ptr.numpy(), w, n_src, idx.shape[1], 1,
+                          chunk)
     want = np.asarray(jax.vjp(
         lambda a: gather_agg_j(a, jnp.asarray(idx), jnp.asarray(w),
                                impl="pallas"), jnp.asarray(x))[1](
         jnp.asarray(g))[0])
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    plain = ref.gather_agg_bwd_dx_ref(torch.as_tensor(idx),
+                                      torch.as_tensor(w), torch.as_tensor(g),
+                                      n_src).numpy()
+    short = count <= chunk
+    np.testing.assert_array_equal(got[short], plain[short])
+
+
+def _gat_index(seed, n_src, n_dst, r, H):
+    """src_pos-like (n_dst, r) positions (a padding row on the last slot)
+    and GAT's head-folded index idx2 = src * H + h, (n_dst * H, r)."""
+    rng = np.random.default_rng((seed, 31))
+    src = rng.integers(0, n_src, (n_dst, r)).astype(np.int32)
+    src[n_dst // 2:] = n_src - 1
+    heads = np.arange(H, dtype=np.int32)
+    idx2 = (src[:, None, :] * H + heads[None, :, None]).reshape(n_dst * H, r)
+    return src, idx2
+
+
+@pytest.mark.parametrize("H", [1, 4])
+def test_folded_plan_is_a_stable_argsort_of_the_folded_index(H):
+    """GAT's head-folded aggregate reuses the plan of src_pos: row s*H + h
+    walks s's run with destination i*H + h and weight (i*H + h, j). That
+    is, edge for edge, the order a stable argsort of idx2 gives, and the
+    launches over the folded plan equal the reference's gradient."""
+    n_src, n_dst, r = 9, 20, 5
+    src, idx2 = _gat_index(0, n_src, n_dst, r, H)
+    plan = kernel.bwd_dx_plan(torch.as_tensor(src), n_src).folded(H)
+    keys, order, row_ptr = (plan.keys.numpy(), plan.order.numpy(),
+                            plan.row_ptr.numpy())
+    order2 = np.argsort(idx2.reshape(-1), kind="stable")
+    keys2 = idx2.reshape(-1)[order2]
+    for s in range(n_src):
+        for h in range(H):
+            f = order[row_ptr[s]:row_ptr[s + 1]]
+            i, j = f // r, f % r
+            got = (i * H + h) * r + j        # the flat edge of idx2 walked
+            np.testing.assert_array_equal(got, order2[keys2 == s * H + h])
+    rng = np.random.default_rng((1, 31))
+    dh = 3
+    zf = rng.normal(size=(n_src * H, dh)).astype(np.float32)
+    w2 = rng.random((n_dst * H, r)).astype(np.float32)
+    g = rng.normal(size=(n_dst * H, dh)).astype(np.float32)
+    got = _emulate_bwd_dx(g, keys, order, row_ptr, w2, n_src, r, H, 4)
+    want = np.asarray(jax.vjp(
+        lambda a: gather_agg_j(a, jnp.asarray(idx2), jnp.asarray(w2),
+                               impl="jnp"), jnp.asarray(zf))[1](
+        jnp.asarray(g))[0])
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def test_e_src_plan_is_the_src_pos_plan():
+    """GAT's e_src = s_src[src_pos] flattens src_pos to (M, 1): a plan of
+    the flat index is the plan of src_pos, position for position, so the
+    layer's one plan serves e_src's backward (fanout 1, unit weights),
+    which then equals jax's gradient of the reference's gather."""
+    n_src, n_dst, r, H = 11, 30, 4, 4
+    src, _ = _gat_index(2, n_src, n_dst, r, H)
+    plan = kernel.bwd_dx_plan(torch.as_tensor(src), n_src)
+    flat = kernel.bwd_dx_plan(torch.as_tensor(src.reshape(-1, 1)), n_src)
+    for f in ("keys", "order", "row_ptr"):
+        assert torch.equal(getattr(plan, f), getattr(flat, f)), f
+    rng = np.random.default_rng((3, 31))
+    s_src = rng.normal(size=(n_src, H)).astype(np.float32)
+    g = rng.normal(size=(n_dst, r, H)).astype(np.float32)
+    got = _emulate_bwd_dx(g.reshape(-1, H), plan.keys.numpy(),
+                          plan.order.numpy(), plan.row_ptr.numpy(), None,
+                          n_src, 1, 1, 4)
+    want = np.asarray(jax.vjp(lambda a: a[jnp.asarray(src)],
+                              jnp.asarray(s_src))[1](jnp.asarray(g))[0])
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("impl", IMPLS)
+@pytest.mark.parametrize("chunk", [4, 64])
+def test_sorted_path_runs_match_reference_vjp(chunk, impl):
+    """The self rows' path: a non-decreasing index (rows empty, single,
+    repeated, and the padding slot's long run at the end), no plan, each
+    run found by binary search in the index itself. Its launches equal
+    jax.vjp of the reference's `gather_agg` at fanout 1 with unit weights,
+    and the CPU plain version bit for bit on rows of at most `chunk`."""
+    rng = np.random.default_rng((5, 31))
+    n_src, F = 40, 6
+    idx = np.sort(rng.integers(0, n_src - 1, 70)).astype(np.int32)
+    idx = np.concatenate([idx, np.full(150, n_src - 1, np.int32)])
+    x = rng.normal(size=(n_src, F)).astype(np.float32)
+    g = rng.normal(size=(idx.size, F)).astype(np.float32)
+    got = _emulate_bwd_dx(g, idx, None, None, None, n_src, 1, 1, chunk)
+    ones = jnp.ones((idx.size, 1), jnp.float32)
+    want = np.asarray(jax.vjp(
+        lambda a: gather_agg_j(a, jnp.asarray(idx[:, None]), ones,
+                               impl=impl), jnp.asarray(x))[1](
+        jnp.asarray(g))[0])
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+    plain = kernel.gather_agg_bwd_dx_sorted(
+        torch.as_tensor(idx[:, None]), None, torch.as_tensor(g),
+        n_src).numpy()
+    short = _run_lengths(idx, n_src) <= chunk
+    np.testing.assert_array_equal(got[short], plain[short])
+
+
+def test_sorted_rows_refuse_an_unsorted_index_on_the_cpu():
+    """The sorted path's promise is checked where it is used: the
+    backward of `gather_sorted_rows` over an unsorted index raises (on
+    the card the kernel traps); its forward is `x[idx]` either way."""
+    x = torch.randn(6, 3, requires_grad=True)
+    idx = torch.tensor([0, 2, 1, 5], dtype=torch.int32)
+    out = ops.gather_sorted_rows(x, idx)
+    assert torch.equal(out, x.detach()[idx.long()])
+    with pytest.raises(ValueError, match="non-decreasing"):
+        out.sum().backward()
+    (dx,) = torch.autograd.grad(ops.gather_sorted_rows(x, idx.sort()[0])
+                                .sum(), x)
+    want = torch.tensor([1.0, 1.0, 1.0, 0.0, 0.0, 1.0])[:, None].expand(6, 3)
+    assert torch.equal(dx, want)
+
+
+def test_cpu_index_builds_no_plan():
+    """The CPU path keeps the plain versions: a `DxPlan` of a CPU index
+    builds nothing, folded or not."""
+    plan = ops.DxPlan(torch.zeros((3, 2), dtype=torch.int32), 4)
+    assert plan.get() is None and plan.folded(4).get() is None
+    assert plan._built == [None]
 
 
 # ---------------------------------------------------------------------------

@@ -236,6 +236,170 @@ def test_gather_rows_on_the_card_matches_the_cpu(cuda, shape):
         float(((dg - dc).abs() / bound.clamp(min=1e-30)).max())
 
 
+def _dx_case(n_src, n_dst, r, f, seed, sorted_idx=False):
+    """A bwd_dx input with the shapes of a batch: empty source rows, rows
+    of one to 64 edges, a row of exactly 64 and one of 65, and the padding
+    row (the last) owning every edge of the second half of the destination
+    rows (thousands: more than 64 windows of 64), with zero weights on
+    some edges."""
+    rng = np.random.default_rng((seed, f))
+    idx = rng.integers(0, n_src // 2, (n_dst, r))
+    flat = idx.reshape(-1)
+    flat[:64] = n_src // 2                    # 64 edges on one row
+    flat[64:129] = n_src // 2 + 1             # 65 edges: two windows
+    idx[n_dst // 2:] = n_src - 1              # the padding row
+    if sorted_idx:
+        idx = np.sort(idx.reshape(-1)).reshape(n_dst, r)
+    w = rng.random((n_dst, r)).astype(np.float32)
+    w[rng.random((n_dst, r)) < 0.2] = 0.0
+    g = rng.normal(size=(n_dst, f)).astype(np.float32)
+    return idx.astype(np.int32), w, g
+
+
+def _check_dx_against_cpu(dx, idx, w, g, n_src):
+    """Rows of at most 64 edges equal the CPU plain version (index_add_ in
+    edge order) bit for bit; longer ones within check_dx's tolerance."""
+    want = ref.gather_agg_bwd_dx_ref(torch.as_tensor(idx),
+                                     None if w is None else
+                                     torch.as_tensor(w),
+                                     torch.as_tensor(g), n_src)
+    got = dx.cpu()
+    count = np.bincount(idx.reshape(-1), minlength=n_src)
+    short = torch.as_tensor(count <= 64)
+    assert short.sum() < n_src and (~short).sum() >= 2
+    assert torch.equal(got[short], want[short])
+    tol = max(1e-5, 1e-7 * int(count.max()))
+    torch.testing.assert_close(got[~short], want[~short], rtol=tol, atol=tol)
+
+
+# F: GAT's e_src (4 heads), its last layer's head width (10), its hidden
+# head width (64), SAGE's hidden width (256), the reddit feature width
+# (602, float2) and an odd width (scalar loads)
+DX_WIDTHS = [4, 10, 64, 256, 602, 33]
+
+
+@pytest.mark.parametrize("n_dst", [1200, 3000])
+@pytest.mark.parametrize("f", DX_WIDTHS)
+def test_bwd_dx_is_bit_equal_to_the_cpu_on_short_rows(cuda, f, n_dst):
+    """The redesigned bwd_dx against the CPU plain version: bit-equal on
+    every row of at most 64 edges (empty rows zero), within tolerance on
+    the long ones; a relaunch bit-identical; one count per call, with a
+    plan built once and passed in, or built by the call. 12,000 edges run
+    as one cooperative launch, 30,000 as three."""
+    n_src, r = 300, 10
+    idx, w, g = _dx_case(n_src, n_dst, r, f, 0)
+    it, wt, gt = (torch.as_tensor(a, device=cuda) for a in (idx, w, g))
+    before = kernel.LAUNCHES["gather_agg_bwd_dx"]
+    plans = kernel.PLANS["gather_agg_bwd_dx"]
+    dx = kernel.gather_agg_bwd_dx(it, wt, gt, n_src)
+    plan = kernel.bwd_dx_plan(it, n_src)
+    again = kernel.gather_agg_bwd_dx(it, wt, gt, n_src, plan)
+    assert kernel.LAUNCHES["gather_agg_bwd_dx"] == before + 2
+    assert kernel.PLANS["gather_agg_bwd_dx"] == plans + 2
+    assert dx.shape == (n_src, f) and dx.dtype == torch.float32
+    assert torch.equal(dx, again)
+    _check_dx_against_cpu(dx, idx, w, g, n_src)
+
+
+@pytest.mark.parametrize("H", [1, 4])
+def test_folded_plan_on_the_card_matches_the_cpu(cuda, H):
+    """GAT's head-folded aggregate through the plan of src_pos folded to H
+    heads equals the CPU plain version over idx2 = src * H + h (bit for
+    bit on short rows), and e_src's fanout-1 backward through the same
+    plan equals the CPU's too."""
+    n_src, n_dst, r, dh = 200, 800, 10, 64
+    src, w, _ = _dx_case(n_src, n_dst, r, 1, 1)
+    heads = np.arange(H, dtype=np.int32)
+    idx2 = (src[:, None, :] * H + heads[None, :, None]).reshape(n_dst * H, r)
+    rng = np.random.default_rng((2, H))
+    w2 = rng.random((n_dst * H, r)).astype(np.float32)
+    g2 = rng.normal(size=(n_dst * H, dh)).astype(np.float32)
+    plan = kernel.bwd_dx_plan(torch.as_tensor(src, device=cuda), n_src)
+    dx = kernel.gather_agg_bwd_dx(
+        torch.as_tensor(idx2, device=cuda), torch.as_tensor(w2, device=cuda),
+        torch.as_tensor(g2, device=cuda), n_src * H, plan.folded(H))
+    _check_dx_against_cpu(dx, idx2, w2, g2, n_src * H)
+    ge = rng.normal(size=(n_dst * r, H)).astype(np.float32)
+    flat = src.reshape(-1, 1)
+    de = kernel.gather_agg_bwd_dx(torch.as_tensor(flat, device=cuda), None,
+                                  torch.as_tensor(ge, device=cuda), n_src,
+                                  plan)
+    _check_dx_against_cpu(de, flat, None, ge, n_src)
+    with pytest.raises(ValueError):            # a plan of another index
+        kernel.gather_agg_bwd_dx(torch.as_tensor(idx2, device=cuda),
+                                 torch.as_tensor(w2, device=cuda),
+                                 torch.as_tensor(g2, device=cuda),
+                                 n_src * H, plan.folded(H + 1))
+
+
+@pytest.mark.parametrize("n_dst", [10_000, 40_000])
+@pytest.mark.parametrize("f", DX_WIDTHS)
+def test_sorted_path_equals_the_general_path(cuda, f, n_dst):
+    """A non-decreasing index through the sort-free path equals the
+    general path (a stable sort of sorted keys is the identity, so every
+    sum runs in the same order), bit for bit, with unit weights and with
+    weights; both against the CPU; relaunch bit-identical; one cooperative
+    launch (10,000 edges) and three (40,000)."""
+    n_src, r = 300, 1
+    idx, w, g = _dx_case(n_src, n_dst, r, f, 3, sorted_idx=True)
+    it, wt, gt = (torch.as_tensor(a, device=cuda) for a in (idx, w, g))
+    plans = kernel.PLANS["gather_agg_bwd_dx"]
+    for weights, w_np in ((None, None), (wt, w)):
+        fast = kernel.gather_agg_bwd_dx_sorted(it, weights, gt, n_src)
+        assert torch.equal(fast, kernel.gather_agg_bwd_dx_sorted(
+            it, weights, gt, n_src))
+        assert torch.equal(fast, kernel.gather_agg_bwd_dx(it, weights, gt,
+                                                          n_src))
+        _check_dx_against_cpu(fast, idx, w_np, g, n_src)
+    assert kernel.PLANS["gather_agg_bwd_dx"] == plans + 2  # general only
+
+
+UNSORTED = """
+import sys, torch
+sys.path.insert(0, "src")
+from repro_torch.kernels.gather_agg import kernel
+idx = torch.tensor([[0], [3], [1], [2]], dtype=torch.int32, device="cuda")
+g = torch.ones((4, 8), device="cuda")
+dx = kernel.gather_agg_bwd_dx_sorted(idx, None, g, 4)
+torch.cuda.synchronize()
+print("no error", dx.sum().item())
+"""
+
+
+def test_an_unsorted_index_on_the_sorted_path_fails_loudly(cuda):
+    """The sorted path traps on keys out of order: the launch fails (in a
+    child process, since a trap poisons its CUDA context), and no dx comes
+    back."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", UNSORTED], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode != 0, proc.stdout
+    assert "no error" not in proc.stdout
+    assert "error" in proc.stderr.lower(), proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("model,plans,dx", [("sage", 2, 4), ("gcn", 2, 4),
+                                            ("gat", 3, 9)])
+def test_a_step_builds_one_plan_per_layer_with_dx(cuda, model, plans, dx):
+    """One train step of a 3-layer model sorts each index its backward
+    needs once: SAGE and GCN 2 plans (layer 0's input needs no dx), GAT 3
+    (its aggregate and e_src share the layer's plan); the self rows sort
+    nothing. bwd_dx launches stay 4 and 9 a step."""
+    g = prepare(synthetic.load("tiny"), oracle=True)
+    cfg = GNNConfig("t", model, 3, 32, g.feat_dim, g.num_classes,
+                    fanout=(5, 5, 5), dropout=0.0)
+    tr = GNNTrainer(g, cfg, TrainConfig(batch_size=256), "comm_rand",
+                    device=cuda)
+    tr.train_steps(1)
+    kernel.reset_launches()
+    tr.train_steps(2)
+    assert kernel.PLANS["gather_agg_bwd_dx"] == 2 * plans
+    assert kernel.LAUNCHES["gather_agg_bwd_dx"] == 2 * dx
+
+
 # (N, C, M, F, kind): the reddit feature width (float2), a multiple of 4
 # (float4), an odd width (float), more ids than rows; every id a hit or a
 # miss
