@@ -24,13 +24,21 @@ run, exit code != 0):
               batch's input level (`node_ids`, the plan above): max error
               against the plain version (exactly 0 for the cached gather,
               a copy, whose autograd backward is also held against the
-              plain one), bit-determinism over two launches, and ms (CUDA
+              plain one, and for fwd, held bit for bit against the plain
+              version that adds in its order, `gather_agg_ref_ordered`),
+              bit-determinism over two launches, and ms (CUDA
               events around 10 back-to-back calls, median of 5) beside the
-              plain version, one equivalent PyTorch call where there is one
-              (`embedding_bag`, `index_select`, and for bwd_dx `index_add_`
-              of the pre-multiplied rows, which is atomic and so not
-              deterministic), and the bound (compulsory
-              bytes at 3.35 TB/s, flops at 67 TFLOP/s float32). bwd_dx is
+              plain version, the equivalent PyTorch calls where there are
+              any (fwd: `embedding_bag` and a CSR `torch.sparse.mm`, the
+              faster counted; dw: `torch.sparse.sampled_addmm`;
+              `index_select`; for bwd_dx `index_add_` of the pre-multiplied
+              rows, which is atomic and so not deterministic), and the
+              bound (compulsory bytes at 3.35 TB/s, flops at 67 TFLOP/s
+              float32). At layer 0 of SAGE and GAT, `[3 reuse]` times fwd
+              (and GAT's dw) at the real index, with no reuse (a distinct
+              row per edge), with all reuse (idx % 4096) and with the
+              destination rows permuted: where the layer stands between
+              the L2 cache's floors. bwd_dx is
               checked per launch as the step makes it (SAGE: the aggregate
               and the self rows of layers 1 and 2; GAT: the folded
               aggregate, z_self and e_src of all three layers): through the
@@ -329,6 +337,20 @@ def cuda_ms(torch, fn, reps: int = 10, rounds: int = 5,
     return statistics.median(times)
 
 
+def host_ms(torch, fn, reps: int = 100) -> float:
+    """Host time per call: `reps` back-to-back calls on the host clock with
+    no synchronise between them (the launches queue up). A kernel whose
+    `cuda_ms` is no larger than this is waiting on the host."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    dt = (time.perf_counter() - t0) / reps * 1e3
+    torch.cuda.synchronize()
+    return dt
+
+
 def typical_batch(trainer):
     """The batch of median footprint among five spread over epoch 0: the
     caps fit the largest batches, and a comm_rand batch's real node count
@@ -461,36 +483,96 @@ def _bound_ms(n_bytes: float, flops: float,
                                  "operations")
 
 
+def csr_of(torch, idx, values, n_src):
+    """The CSR matrix (n_dst, n_src) whose row i holds `values[i, j]` at
+    column idx[i, j]: the index as it is (repeated and unsorted columns),
+    built outside any timed call."""
+    n_dst, r = idx.shape
+    crow = torch.arange(0, n_dst * r + 1, r, dtype=torch.int32,
+                        device=idx.device)
+    return torch.sparse_csr_tensor(crow, idx.reshape(-1),
+                                   values.reshape(-1), (n_dst, n_src),
+                                   check_invariants=False)
+
+
 def check_fwd(torch, L):
+    """Bit for bit against the plain version that adds in the kernel's own
+    order (`gather_agg_ref_ordered`); its difference from the unordered
+    plain version (`gather_agg_ref`) is printed. Library calls: one
+    `embedding_bag` and one CSR `torch.sparse.mm` (cuSPARSE SpMM); the
+    faster is `library_ms`."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels.gather_agg import kernel, ref
     x, idx, w = L["x"], L["idx"], L["w"]
     n_dst, r = idx.shape
     F = x.shape[1]
-    # kernel vs plain; sums in another order -> 1e-5
     out = kernel.gather_agg_fwd(x, idx, w)
-    want = ref.gather_agg_ref(x, idx, w)
+    want = ref.gather_agg_ref_ordered(x, idx, w)
     err = (out - want).abs().max().item()
+    plain_err = (out - ref.gather_agg_ref(x, idx, w)).abs().max().item()
     check(torch.isfinite(out).all().item(), "fwd: non-finite")
-    check(torch.allclose(out, want, rtol=1e-5, atol=1e-5),
-          f"fwd max abs err {err}")
+    check(torch.equal(out, want),
+          f"fwd differs from the ordered plain version (max abs err {err})")
     check(torch.equal(out, kernel.gather_agg_fwd(x, idx, w)),
           "fwd differs between launches")
     idx64 = idx.long()
     lib = Fn.embedding_bag(idx64, x, per_sample_weights=w, mode="sum")
     lib_err = (lib - want).abs().max().item()
+    A = csr_of(torch, idx, w, x.shape[0])
+    spmm_err = (torch.sparse.mm(A, x) - want).abs().max().item()
     rows = torch.unique(idx).numel()
     b_ms, b_by = _bound_ms(rows * F * 4 + idx.numel() * 8 + n_dst * F * 4,
                            2.0 * n_dst * r * F)
-    t_l = cuda_ms(torch, lambda: Fn.embedding_bag(
-        idx64, x, per_sample_weights=w, mode="sum"))
+    libs = {"embedding_bag": cuda_ms(torch, lambda: Fn.embedding_bag(
+                idx64, x, per_sample_weights=w, mode="sum")),
+            "sparse.mm": cuda_ms(torch, lambda: torch.sparse.mm(A, x))}
+    h_ms = host_ms(torch, lambda: kernel.gather_agg_fwd(x, idx, w))
     return {"max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
             "ms": cuda_ms(torch, lambda: kernel.gather_agg_fwd(x, idx, w)),
             "plain_ms": cuda_ms(torch, lambda: ref.gather_agg_ref(x, idx, w)),
-            "library_ms": t_l,
+            "library_ms": min(libs.values()), "libraries": libs,
             "note": f"x {x.shape[0]}x{F} idx {n_dst}x{r} rows read {rows}  "
-                    f"(embedding_bag err {lib_err:.3e})"}
+                    f"host_ms {h_ms:.4f}  "
+                    f"bit-equal to the ordered plain version (unordered: "
+                    f"{plain_err:.3e}); embedding_bag {libs['embedding_bag']:.4f}"
+                    f" ms (err {lib_err:.3e}), CSR sparse.mm "
+                    f"{libs['sparse.mm']:.4f} ms (err {spmm_err:.3e})"}
+
+
+def reuse_probe(torch, L, kinds):
+    """What the L2 cache is worth to fwd (and dw) at a layer's shapes: ms at
+    (a) the real index, (b) no reuse (every edge on its own row of a table
+    of n_dst * r rows, in random order), (c) all reuse (idx % 4096: rows
+    that fit the L2), (d) the destination rows randomly permuted (what the
+    level order is worth). Nothing is checked: it reads where a layer
+    stands between its floors."""
+    from repro_torch.kernels.gather_agg import kernel
+    x, idx, w, g = L["x"], L["idx"], L["w"], L["g"]
+    n_dst, r = idx.shape
+    gen = torch.Generator(device=x.device).manual_seed(5)
+    table = torch.randn((n_dst * r, x.shape[1]), generator=gen,
+                        device=x.device)
+    perm = torch.randperm(n_dst, generator=gen, device=x.device)
+    cases = {
+        "(a) real": (x, idx, w, g),
+        "(b) no reuse": (table, torch.randperm(
+            n_dst * r, generator=gen, device=x.device).to(torch.int32)
+            .reshape(n_dst, r), w, g),
+        "(c) idx % 4096": (x, (idx % 4096).contiguous(), w, g),
+        "(d) rows permuted": (x, idx[perm].contiguous(), w[perm].contiguous(),
+                              g[perm].contiguous())}
+    got = {}
+    for name, kind in (("gather_agg_fwd", "fwd"), ("gather_agg_bwd_dw", "dw")):
+        if kind not in kinds:
+            continue
+        got[name] = {
+            case: cuda_ms(torch, (lambda a=a: kernel.gather_agg_fwd(
+                a[0], a[1], a[2])) if kind == "fwd" else
+                (lambda a=a: kernel.gather_agg_bwd_dw(a[0], a[1], a[3])))
+            for case, a in cases.items()}
+    del table
+    return got
 
 
 _PLANS = {}      # phase 3: the plan of each (path, layer), built once
@@ -573,7 +655,9 @@ def check_dx(torch, L):
 def check_dw(torch, L):
     """Each dw entry is an F-term dot summed in another order than the
     plain version's: the two differ by at most
-    2 * F * eps * sum_k |g[i, k] * x[idx[i, j], k]| (`scale` below)."""
+    2 * F * eps * sum_k |g[i, k] * x[idx[i, j], k]| (`scale` below). The
+    library call: `torch.sparse.sampled_addmm` (cuSPARSE SDDMM) of the
+    index's pattern with g and x^T, beta 0."""
     from repro_torch.kernels.gather_agg import kernel, ref
     x, idx, g = L["x"], L["idx"], L["g"]
     n_dst, r = idx.shape
@@ -588,15 +672,24 @@ def check_dw(torch, L):
           f"bwd_dw max abs err {err}")
     check(torch.equal(dw, kernel.gather_agg_bwd_dw(x, idx, g)),
           "bwd_dw differs between launches")
+    A = csr_of(torch, idx, torch.ones(idx.shape, device=x.device),
+               x.shape[0])
+    xt = x.t()
+    sddmm = torch.sparse.sampled_addmm(A, g, xt, beta=0.0)
+    sddmm_err = (sddmm.values().reshape(n_dst, r) - want).abs().max().item()
     rows = torch.unique(idx).numel()
     b_ms, b_by = _bound_ms(n_dst * F * 4 + rows * F * 4 + idx.numel() * 8,
                            2.0 * n_dst * r * F)
+    h_ms = host_ms(torch, lambda: kernel.gather_agg_bwd_dw(x, idx, g))
     return {"max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
             "ms": cuda_ms(torch, lambda: kernel.gather_agg_bwd_dw(x, idx, g)),
             "plain_ms": cuda_ms(torch, lambda: ref.gather_agg_bwd_dw_ref(
                 x, idx, g)),
-            "library_ms": None,
-            "note": f"zf {x.shape[0]}x{F} idx {n_dst}x{r} rows read {rows}"}
+            "library_ms": cuda_ms(torch, lambda: torch.sparse.sampled_addmm(
+                A, g, xt, beta=0.0)),
+            "note": f"zf {x.shape[0]}x{F} idx {n_dst}x{r} rows read {rows}  "
+                    f"host_ms {h_ms:.4f}  "
+                    f"library: sampled_addmm (err {sddmm_err:.3e})"}
 
 
 def cached_layer(torch, trainer, batch, plan):
@@ -677,6 +770,11 @@ def phase_kernels(torch, path, layers, checks=CHECKS):
     {kernel: readings summed over the layers (max_abs_err: the largest)}."""
     totals = {}
     for L in layers:
+        if L["layer"] == 0 and checks is CHECKS:
+            kinds = ("fwd", "dw") if L["needs_dw"] else ("fwd",)
+            for name, ms in reuse_probe(torch, L, kinds).items():
+                log(f"[3 reuse] {name} {path} layer 0 ms: " + "  ".join(
+                    f"{case} {t:.4f}" for case, t in ms.items()))
         for name, fn, key in checks:
             if key is not None and not L[key]:
                 continue
@@ -699,10 +797,23 @@ def phase_kernels(torch, path, layers, checks=CHECKS):
                     t[k] += got[k]
             if got["library_ms"] is not None:
                 t["library_ms"] += got["library_ms"]
+            for lib, ms in got.get("libraries", {}).items():
+                t.setdefault("libraries", {}).setdefault(lib, 0.0)
+                t["libraries"][lib] += ms
             t["max_abs_err"] = max(t["max_abs_err"], got["max_abs_err"])
             t["bound_by"].add(got["bound_by"])
     for name, t in totals.items():
         t["bound_by"] = "/".join(sorted(t["bound_by"]))
+        if "plan_ms" not in t:
+            libs = "  ".join(f"{k} {v:.4f}" for k, v in
+                             t.get("libraries", {}).items())
+            log(f"[3 kernels] {name} {path} per step: ms {t['ms']:.4f}  "
+                f"library_ms "
+                + ("null" if t["library_ms"] is None
+                   else f"{t['library_ms']:.4f}")
+                + (f" ({libs})" if libs else "")
+                + f"  plain_ms {t['plain_ms']:.4f}  bound_ms "
+                f"{t['bound_ms']:.4f}")
         if "plan_ms" in t:
             log(f"[3 kernels] {name} {path} per step: ms {t['ms']:.4f} = "
                 f"kernels {t['kernel_ms']:.4f} + plans {t['plan_ms']:.4f}"
@@ -887,20 +998,25 @@ def phase_profile(torch, trainer, name, step_ms: float, steps: int = 3,
     def sorts(prof):
         return sum(n for k, _, n in prof if SORT_KERNEL in k)
 
+    def most_sorts(fn, tries: int = 3):
+        # a short profile now and then loses kernel records (seen: the
+        # batch build's 3 sorts read as 2, a plan's 1 as 0); a lost record
+        # only lowers a count, so the largest of a few profiles is the count
+        return max(sorts(profile_kernels(torch, fn)[0]) for _ in range(tries))
+
     stream = trainer.stream
-    build, _ = profile_kernels(torch, lambda: stream.build(
-        stream.root_batches(0)[1], 0, 1))
+    build = most_sorts(lambda: stream.build(stream.root_batches(0)[1], 0, 1))
     from repro_torch.kernels.gather_agg import kernel
     idx = stream.build(stream.root_batches(0)[1], 0, 1).blocks[-1].src_pos
     n = int(idx.max()) + 1
-    plan, _ = profile_kernels(torch, lambda: kernel.bwd_dx_plan(idx, n))
-    dx_sorts = sorts(dev) / steps - sorts(build)
+    plan = most_sorts(lambda: kernel.bwd_dx_plan(idx, n))
+    dx_sorts = sorts(dev) / steps - build
     log(f"[4 profile] {name}: bwd_dx kernels {dx_ms:.3f} ms/step "
         f"({dx_ms / busy_ms:.3f} of the kernel time), plans "
         f"{plan_calls:g}/step; radix sorts {sorts(dev) / steps:g}/step = "
-        f"batch build {sorts(build)} + bwd_dx plans {dx_sorts:g} (one "
-        f"plan alone: {sorts(plan)})")
-    check(sorts(plan) == 1 and plan_calls == PLANS_PER_STEP[name] and
+        f"batch build {build} + bwd_dx plans {dx_sorts:g} (one "
+        f"plan alone: {plan})")
+    check(plan == 1 and plan_calls == PLANS_PER_STEP[name] and
           dx_sorts == PLANS_PER_STEP[name],
           f"{name}: {plan_calls} plans and {dx_sorts} plan sorts a step, "
           f"want {PLANS_PER_STEP[name]}")

@@ -8,14 +8,33 @@
 //     out[i, :] = sum_j w[i, j] * x[idx[i, j], :]      (j = 0 .. r-1)
 // What bounds it on an H100: device-memory bytes. Each output row reads r
 // whole source rows (2408 bytes each at F = 602) and does 2 flops per
-// float read, far below the card's ~20 flops/byte float32 ridge. Design:
-// one block per destination row; the row's r indices and weights are
-// staged once in shared memory; the threads stride over F so that a warp
-// reads consecutive addresses of each gathered row (coalesced), with the
-// widest vector load (float4 / float2 / float) that F and the base
-// pointers allow — F = 602 is not a multiple of 4, so it takes float2.
-// The sum runs in j order with separate multiply and add, the order the
-// TPU kernel accumulates in, and never materialises (n_dst, r, F).
+// float read, far below the card's ~20 flops/byte float32 ridge. The rows
+// a call gathers are read ~4.6 times each, but the L2 cache (50 MB) holds
+// too few of them for the order of the destination rows to matter:
+// GraphSAGE's layer 0 gathers 390 MB of distinct rows, drawn at random
+// within communities, the largest of which holds 77 % of the synthetic
+// Reddit graph (431 MB of features); timing it with the rows permuted or
+// sorted by their first source gives the level order's time. So the
+// design is about keeping enough row loads in flight. A group of G lanes
+// (a power of two, each lane holding kAggFloats floats of a row: 16 lanes
+// at F = 64, 4 at F = 10, a whole warp at F >= 128) owns a destination row
+// and 256-thread blocks hold 256 / G rows; a row wider than a warp's tile
+// (F = 602: 301 float2 in 5 tiles of 64) is cut into tiles owned by
+// neighbouring warps, so that all of its bytes are asked for at once. The
+// row's indices and weights are read by the group's lanes in one
+// coalesced load and broadcast by shuffle (no shared memory, no barrier);
+// each lane loads the vectors of kAggEdges (5) edges, then adds them.
+// More edges in flight per lane (10) cost registers and resident blocks,
+// and measured slower than 5 at 6 blocks per SM (40 registers). A batch
+// whose edges all name one row loads it once and adds it to each: a
+// destination row that the batch pads to its cap names the padding row r
+// times (weight 0), and such rows are 13 % of a full batch's rows and up
+// to 96 % of a small one's. Loads are
+// the widest vector (float4 / float2 / float) that F and the base
+// pointers allow. The sum runs in j order from 0 with separate multiply
+// and add, so the output equals gather_agg_ref_ordered bit for bit and
+// never materialises (n_dst, r, F). Masked edges (w = 0) are read and
+// summed, so a NaN in x propagates as in the reference.
 //
 // gather_agg_bwd_dx replaces gather_agg_bwd_dx_pallas (kernel.py:101):
 //     dx[s, :] = sum over edges e with idx_e == s of w_e * g[dst_e, :]
@@ -74,14 +93,18 @@
 // the gradient of the per-edge weights, live only when they carry one
 // (GAT's attention weights). It is bound by bytes: it reads g once, each
 // gathered x row, idx, and writes dw, for 2 flops per float of x. Design:
-// one warp per destination row. For each j the lanes stride over the row
-// in the widest aligned vectors, reading g[i] (which stays in L1 from one
-// j to the next) and x[idx[i, j]], sum their products in order, and reduce
-// the 32 partial sums with xor shuffles. Every sum runs in a fixed order
-// (lane-strided, then the shuffle tree), so relaunches are bit-identical,
-// with no atomics. The TPU kernel pads r to 128 lanes for its stores;
-// here the output is (n_dst, r). At F = 10 (GAT's last layer) most lanes
-// idle.
+// fwd's gather, padded rows included (one dot, copied to each edge). The
+// lane groups and tiles are fwd's; per batch of
+// kAggEdges edges a lane holds its slice of g[i] (loaded once per tile)
+// and loads every edge's slice of x together, keeping one partial dot per
+// edge (fused multiply-adds in column order); the group then reduces the
+// batch's partials in log2 G shuffle exchanges, halving the values each
+// lane holds at every step, and the lanes left holding them store
+// dw[i, j0 .. j0 + 5) together. Every sum runs in a fixed order (columns,
+// then the exchange tree), so relaunches are bit-identical, with no
+// atomics; against the plain version each entry is within
+// 2 F eps sum_k |g[i, k] x[idx[i, j], k]|. The TPU kernel pads r to 128
+// lanes for its stores; here the output is (n_dst, r).
 //
 // Every function launches on the caller's stream, allocates nothing, and
 // returns cudaGetLastError() of its launches.
@@ -95,8 +118,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kMaxThreads = 256;
 
 template <int V>
 __device__ __forceinline__ void load_vec(const float* p, float (&v)[V]) {
@@ -130,68 +151,233 @@ __device__ __forceinline__ void axpy(float (&acc)[V], float w,
   for (int k = 0; k < V; ++k) acc[k] = __fadd_rn(acc[k], __fmul_rn(w, x[k]));
 }
 
-template <int V>
-__global__ void fwd_kernel(const float* __restrict__ x,
-                           const int32_t* __restrict__ idx,
-                           const float* __restrict__ w,
-                           float* __restrict__ out,
-                           int64_t n_dst, int r, int64_t F) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  int32_t* s_idx = reinterpret_cast<int32_t*>(smem);
-  float* s_w = reinterpret_cast<float*>(s_idx + r);
-  const int64_t n_vec = F / V;
-  for (int64_t i = blockIdx.x; i < n_dst; i += gridDim.x) {
-    for (int j = threadIdx.x; j < r; j += blockDim.x) {
-      s_idx[j] = idx[i * r + j];
-      s_w[j] = w[i * r + j];
-    }
-    __syncthreads();
-    for (int64_t c = threadIdx.x; c < n_vec; c += blockDim.x) {
-      float acc[V];
+// the lanes of this thread's group of G
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  return G == 32 ? 0xffffffffu
+                 : ((1u << G) - 1) << (threadIdx.x & 31 & ~(G - 1));
+}
+
+// ---------------------------------------------------------------------------
+// gather_agg_fwd and gather_agg_bwd_dw: the same gather
+// ---------------------------------------------------------------------------
+constexpr int kAggThreads = 256;
+constexpr int kAggEdges = 5;    // edges whose rows a lane loads before it
+                                // adds; a row is walked in batches of this
+                                // many (the models' r = 10: two)
+constexpr int kAggPow2 = 8;     // kAggEdges rounded up to a power of two
+constexpr int kAggFloats = 4;   // floats of each gathered row a lane holds
+                                // per batch and column tile
+constexpr int kDwBlocks = 4;    // resident blocks per SM of bwd_dw_kernel
+                                // (64 registers)
+
+// ... and of fwd_kernel: 6 (40 registers) at float4 rows of 8 lanes or
+// more (the main path's F = 64 and 256), 5 (48) at float2 rows of a warp
+// (F = 602), which spill in 40; 4 (64) at the others
+__host__ __device__ constexpr int fwd_blocks(int V, int G) {
+  return V == 4 && G >= 8 ? 6 : V == 2 && G == 32 ? 5 : 4;
+}
+
+// Row i's edges [j0, j0 + m), m <= kAggEdges: lane gl of the group holds
+// the index and weight of edges j0 + gl + G * k, read in one coalesced
+// load per k (a warp's groups own consecutive rows, so consecutive
+// addresses); every lane reads them by shuffle.
+template <int G>
+struct EdgeBatch {
+  static constexpr int K = (kAggEdges + G - 1) / G;
+  int32_t idx[K];
+  float w[K];
+
+  __device__ __forceinline__ void load(const int32_t* __restrict__ ip,
+                                       const float* __restrict__ wp,
+                                       int m, int gl) {
 #pragma unroll
-      for (int k = 0; k < V; ++k) acc[k] = 0.0f;
-#pragma unroll 4
-      for (int j = 0; j < r; ++j) {
-        float v[V];
-        load_vec<V>(x + static_cast<int64_t>(s_idx[j]) * F + c * V, v);
-        axpy<V>(acc, s_w[j], v);
-      }
-      store_vec<V>(out + i * F + c * V, acc);
+    for (int k = 0; k < K; ++k) {
+      const int j = gl + G * k;
+      idx[k] = j < m ? __ldg(ip + j) : 0;
+      w[k] = (wp != nullptr && j < m) ? __ldg(wp + j) : 0.0f;
     }
-    __syncthreads();
+  }
+  // true in every lane of the group if all m edges name one source row
+  // (a padded destination row's edges all name the padding row)
+  __device__ __forceinline__ bool one_row(int m, int gl,
+                                          unsigned mask) const {
+    const int32_t s0 = __shfl_sync(mask, idx[0], 0, G);
+    bool same = true;
+#pragma unroll
+    for (int k = 0; k < K; ++k) same &= gl + G * k >= m || idx[k] == s0;
+    return (__ballot_sync(mask, same) & mask) == mask;
+  }
+  // the source row of edge j0 + e (e a constant after unrolling)
+  __device__ __forceinline__ int64_t src(int e, unsigned mask) const {
+    return __shfl_sync(mask, idx[e / G], e % G, G);
+  }
+  __device__ __forceinline__ float weight(int e, unsigned mask) const {
+    return __shfl_sync(mask, w[e / G], e % G, G);
+  }
+};
+
+// Loads the group's column tile (vectors c0 + G * q of each lane) of the
+// source rows of the batch's first n edges into v, all before any is used
+template <int V, int G, int U, int Q>
+__device__ __forceinline__ void load_rows(const float* __restrict__ x,
+                                          int64_t F, const EdgeBatch<G>& eb,
+                                          int n, int64_t c0, int64_t n_vec,
+                                          unsigned mask, float (&v)[U][Q][V]) {
+#pragma unroll
+  for (int e = 0; e < U; ++e) {
+    if (e < n) {
+      const float* row = x + eb.src(e, mask) * F;
+#pragma unroll
+      for (int q = 0; q < Q; ++q)
+        if (c0 + q * G < n_vec) load_vec<V>(row + (c0 + q * G) * V, v[e][q]);
+    }
   }
 }
 
-constexpr int kDwWarps = 8;                 // rows (warps) per block
-
-template <int V>
-__global__ void bwd_dw_kernel(const float* __restrict__ x,
-                              const int32_t* __restrict__ idx,
-                              const float* __restrict__ g,
-                              float* __restrict__ dw, int64_t n_dst, int r,
-                              int64_t F) {
-  const int lane = threadIdx.x & 31;
+// out[i, :] = sum_j w[i, j] * x[idx[i, j], :]. A group of G lanes owns
+// one column tile of one row: lane gl holds vectors c0 + gl + G * q
+// (q < Q), so that each load of the group reads consecutive addresses. A
+// row wider than one tile (G = 32) is cut into T tiles owned by
+// neighbouring groups, so that all of its bytes are asked for together.
+// For each batch of kAggEdges edges the group loads every edge's vectors
+// first and only then adds them, in j order from 0 (multiply, then add).
+template <int V, int G>
+__global__ void __launch_bounds__(kAggThreads, fwd_blocks(V, G))
+fwd_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
+           const float* __restrict__ w, float* __restrict__ out,
+           int64_t n_dst, int r, int64_t F, int T) {
+  constexpr int Q = kAggFloats / V;
+  constexpr int U = kAggEdges;
+  const int64_t task = static_cast<int64_t>(blockIdx.x) * (kAggThreads / G) +
+                       threadIdx.x / G;
+  const int64_t i = task / T;
+  if (i >= n_dst) return;                       // the whole group
+  const int gl = threadIdx.x % G;
+  const unsigned mask = group_mask<G>();
   const int64_t n_vec = F / V;
-  const int64_t n_warps = static_cast<int64_t>(gridDim.x) * kDwWarps;
-  for (int64_t i = static_cast<int64_t>(blockIdx.x) * kDwWarps +
-                   (threadIdx.x >> 5);
-       i < n_dst; i += n_warps) {            // warp-uniform
-    const float* gi = g + i * F;
-    for (int j = 0; j < r; ++j) {
-      const float* xr =
-          x + static_cast<int64_t>(__ldg(idx + i * r + j)) * F;
-      float acc = 0.0f;
-      for (int64_t c = lane; c < n_vec; c += 32) {
-        float gv[V], xv[V];
-        load_vec<V>(gi + c * V, gv);         // stays in L1 across j
-        load_vec<V>(xr + c * V, xv);
+  const int64_t c0 = (task - i * T) * (G * Q) + gl;
+  float acc[Q][V];
 #pragma unroll
-        for (int q = 0; q < V; ++q) acc = fmaf(gv[q], xv[q], acc);
+  for (int q = 0; q < Q; ++q)
+#pragma unroll
+    for (int k = 0; k < V; ++k) acc[q][k] = 0.0f;
+  for (int j0 = 0; j0 < r; j0 += U) {
+    const int m = r - j0 < U ? r - j0 : U;
+    EdgeBatch<G> eb;
+    eb.load(idx + i * r + j0, w + i * r + j0, m, gl);
+    float v[U][Q][V];
+    if (eb.one_row(m, gl, mask)) {
+      // one load serves every edge: the same bytes, the same sums
+      load_rows<V, G>(x, F, eb, 1, c0, n_vec, mask, v);
+#pragma unroll
+      for (int e = 0; e < U; ++e) {
+        if (e < m) {
+          const float we = eb.weight(e, mask);
+#pragma unroll
+          for (int q = 0; q < Q; ++q)
+            if (c0 + q * G < n_vec) axpy<V>(acc[q], we, v[0][q]);
+        }
       }
+      continue;
+    }
+    load_rows<V, G>(x, F, eb, m, c0, n_vec, mask, v);
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        acc += __shfl_xor_sync(0xffffffffu, acc, off);
-      if (lane == 0) dw[i * r + j] = acc;
+    for (int e = 0; e < U; ++e) {
+      if (e < m) {
+        const float we = eb.weight(e, mask);
+#pragma unroll
+        for (int q = 0; q < Q; ++q)
+          if (c0 + q * G < n_vec) axpy<V>(acc[q], we, v[e][q]);
+      }
+    }
+  }
+#pragma unroll
+  for (int q = 0; q < Q; ++q)
+    if (c0 + q * G < n_vec)
+      store_vec<V>(out + i * F + (c0 + q * G) * V, acc[q]);
+}
+
+// Sums each of a lane's C values t[0 .. C) over the G lanes of its group:
+// a halving exchange (the lane whose bit O is clear keeps the lower half
+// of the values, its partner the upper half, each adding the other's
+// copy, the clear lane's value first), then xor butterflies once one
+// value is left. Afterwards lane gl holds, in t[0 .. max(C / G, 1)), the
+// sums of values gl * C / G, ... (C >= G), or of value gl / (G / C).
+template <int G, int O, int C, int N>
+__device__ __forceinline__ void group_sum(float (&t)[N], int gl,
+                                          unsigned mask) {
+  if constexpr (O >= 1) {
+    const bool up = (gl & O) != 0;
+    constexpr int H = C > 1 ? C / 2 : 1;
+#pragma unroll
+    for (int k = 0; k < H; ++k) {
+      const float mine = C > 1 && up ? t[k + H] : t[k];
+      const float other = __shfl_xor_sync(
+          mask, C > 1 && !up ? t[k + H] : t[k], O, G);
+      t[k] = up ? __fadd_rn(other, mine) : __fadd_rn(mine, other);
+    }
+    group_sum<G, O / 2, H, N>(t, gl, mask);
+  }
+}
+
+// dw[i, j] = <g[i, :], x[idx[i, j], :]>. A group of G lanes owns one row
+// (all of its column tiles, in turn), with fwd_kernel's lanes: per batch
+// of kAggEdges edges and column tile it loads its slice of g[i] and every
+// edge's slice of x together, and keeps one partial dot per edge (fused
+// multiply-adds in column order); group_sum then reduces the batch's
+// partials over the group in log2 G exchanges, and the lanes holding the
+// results store dw[i, j0 ..] together.
+template <int V, int G>
+__global__ void __launch_bounds__(kAggThreads, kDwBlocks)
+bwd_dw_kernel(const float* __restrict__ x, const int32_t* __restrict__ idx,
+              const float* __restrict__ g, float* __restrict__ dw,
+              int64_t n_dst, int r, int64_t F) {
+  constexpr int Q = kAggFloats / V;
+  constexpr int U = kAggEdges;
+  constexpr int P = kAggPow2;
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * (kAggThreads / G) +
+                    threadIdx.x / G;
+  if (i >= n_dst) return;                       // the whole group
+  const int gl = threadIdx.x % G;
+  const unsigned mask = group_mask<G>();
+  const int64_t n_vec = F / V;
+  const float* gi = g + i * F;
+  for (int j0 = 0; j0 < r; j0 += U) {
+    const int m = r - j0 < U ? r - j0 : U;
+    EdgeBatch<G> eb;
+    eb.load(idx + i * r + j0, nullptr, m, gl);
+    float t[P];
+#pragma unroll
+    for (int e = 0; e < P; ++e) t[e] = 0.0f;
+    // one source row for all m edges: one dot, copied to each
+    const int n_rows = eb.one_row(m, gl, mask) ? 1 : m;
+    for (int64_t c0 = gl; c0 - gl < n_vec; c0 += G * Q) {
+      float gv[Q][V];
+#pragma unroll
+      for (int q = 0; q < Q; ++q)
+        if (c0 + q * G < n_vec) load_vec<V>(gi + (c0 + q * G) * V, gv[q]);
+      float v[U][Q][V];
+      load_rows<V, G>(x, F, eb, n_rows, c0, n_vec, mask, v);
+#pragma unroll
+      for (int e = 0; e < U; ++e)
+        if (e < n_rows)
+#pragma unroll
+          for (int q = 0; q < Q; ++q)
+            if (c0 + q * G < n_vec)
+#pragma unroll
+              for (int k = 0; k < V; ++k)
+                t[e] = fmaf(gv[q][k], v[e][q][k], t[e]);
+    }
+#pragma unroll
+    for (int e = 1; e < U; ++e)
+      if (n_rows == 1) t[e] = t[0];
+    group_sum<G, G / 2, P, P>(t, gl, mask);
+    constexpr int kHeld = P >= G ? P / G : 1;
+#pragma unroll
+    for (int k = 0; k < kHeld; ++k) {
+      const int e = P >= G ? gl * (P / G) + k : gl / (G / P);
+      if (e < m && (P >= G || gl % (G / P) == 0)) dw[i * r + j0 + e] = t[k];
     }
   }
 }
@@ -205,13 +391,68 @@ int vec_width(int64_t F, const void* a, const void* b) {
   return 1;
 }
 
-int threads_for(int64_t n_vec) {
-  int64_t t = ((n_vec + 31) / 32) * 32;
-  return static_cast<int>(t < kMaxThreads ? (t < 32 ? 32 : t) : kMaxThreads);
-}
-
 unsigned grid_for(int64_t rows) {
   return static_cast<unsigned>(rows < (1LL << 30) ? rows : (1LL << 30));
+}
+
+// lanes of a row: enough for kAggFloats / V vectors each, a power of two
+// up to 32
+int agg_lanes(int64_t F, int V) {
+  const int64_t q = kAggFloats / V;
+  const int64_t per_lane = (F / V + q - 1) / q;
+  int G = 1;
+  while (G < 32 && G < per_lane) G *= 2;
+  return G;
+}
+
+template <int V, int G>
+cudaError_t launch_agg(bool dw, const float* x, const int32_t* idx,
+                       const float* wg, float* out, int64_t n_dst, int r,
+                       int64_t F, cudaStream_t stream) {
+  constexpr int kGroups = kAggThreads / G;
+  // fwd: the column tiles of a row, each a task
+  const int64_t tile = static_cast<int64_t>(G) * (kAggFloats / V);
+  const int T = dw ? 1 : static_cast<int>((F / V + tile - 1) / tile);
+  const int64_t blocks = (n_dst * T + kGroups - 1) / kGroups;
+  if (blocks >= (1LL << 31)) return cudaErrorInvalidConfiguration;
+  const dim3 grid(static_cast<unsigned>(blocks));
+  if (dw) {
+    bwd_dw_kernel<V, G><<<grid, kAggThreads, 0, stream>>>(x, idx, wg, out,
+                                                          n_dst, r, F);
+  } else {
+    fwd_kernel<V, G><<<grid, kAggThreads, 0, stream>>>(x, idx, wg, out,
+                                                       n_dst, r, F, T);
+  }
+  return cudaGetLastError();
+}
+
+template <int V>
+cudaError_t launch_agg_v(bool dw, const float* x, const int32_t* idx,
+                         const float* wg, float* out, int64_t n_dst, int r,
+                         int64_t F, cudaStream_t stream) {
+  switch (agg_lanes(F, V)) {
+    case 1: return launch_agg<V, 1>(dw, x, idx, wg, out, n_dst, r, F, stream);
+    case 2: return launch_agg<V, 2>(dw, x, idx, wg, out, n_dst, r, F, stream);
+    case 4: return launch_agg<V, 4>(dw, x, idx, wg, out, n_dst, r, F, stream);
+    case 8: return launch_agg<V, 8>(dw, x, idx, wg, out, n_dst, r, F, stream);
+    case 16:
+      return launch_agg<V, 16>(dw, x, idx, wg, out, n_dst, r, F, stream);
+    default:
+      return launch_agg<V, 32>(dw, x, idx, wg, out, n_dst, r, F, stream);
+  }
+}
+
+// one launch of fwd_kernel (dw false: wg is w, out is (n_dst, F)) or of
+// bwd_dw_kernel (wg is g, out is dw (n_dst, r))
+cudaError_t launch_agg_any(bool dw, const float* x, const int32_t* idx,
+                           const float* wg, float* out, int64_t n_dst,
+                           int64_t r, int64_t F, cudaStream_t stream) {
+  const int V = vec_width(F, x, dw ? static_cast<const void*>(wg)
+                                   : static_cast<const void*>(out));
+  const int ri = static_cast<int>(r);
+  return V == 4   ? launch_agg_v<4>(dw, x, idx, wg, out, n_dst, ri, F, stream)
+         : V == 2 ? launch_agg_v<2>(dw, x, idx, wg, out, n_dst, ri, F, stream)
+                  : launch_agg_v<1>(dw, x, idx, wg, out, n_dst, ri, F, stream);
 }
 
 // ---------------------------------------------------------------------------
@@ -299,13 +540,6 @@ __device__ __forceinline__ uint32_t edge_dst(const DxArgs& A, int64_t e,
 template <int V>
 __host__ __device__ constexpr int edge_batch() {
   return V * kQT >= 8 ? 2 : 4;
-}
-
-// the lanes of this thread's group of G
-template <int G>
-__device__ __forceinline__ unsigned group_mask() {
-  return G == 32 ? 0xffffffffu
-                 : ((1u << G) - 1) << (threadIdx.x & 31 & ~(G - 1));
 }
 
 // out[:] = sum over sorted edges [a, b) of w_e * g[dst_e], in order from
@@ -718,19 +952,8 @@ extern "C" int gather_agg_fwd(const float* x, const int32_t* idx,
                               const float* w, float* out, int64_t n_dst,
                               int64_t r, int64_t F, cudaStream_t stream) {
   if (n_dst == 0 || F == 0) return 0;
-  const int V = vec_width(F, x, out);
-  const dim3 grid(grid_for(n_dst));
-  const dim3 block(threads_for(F / V));
-  const size_t smem = static_cast<size_t>(r) * (sizeof(int32_t) + sizeof(float));
-  const int ri = static_cast<int>(r);
-  if (V == 4) {
-    fwd_kernel<4><<<grid, block, smem, stream>>>(x, idx, w, out, n_dst, ri, F);
-  } else if (V == 2) {
-    fwd_kernel<2><<<grid, block, smem, stream>>>(x, idx, w, out, n_dst, ri, F);
-  } else {
-    fwd_kernel<1><<<grid, block, smem, stream>>>(x, idx, w, out, n_dst, ri, F);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_agg_any(false, x, idx, w, out, n_dst, r, F, stream));
 }
 
 // The plan of an index: its keys stably sorted with the edge ids beside
@@ -798,16 +1021,6 @@ extern "C" int gather_agg_bwd_dw(const float* x, const int32_t* idx,
                                  const float* g, float* dw, int64_t n_dst,
                                  int64_t r, int64_t F, cudaStream_t stream) {
   if (n_dst == 0 || r == 0) return 0;
-  const int V = vec_width(F, x, g);
-  const dim3 grid(grid_for((n_dst + kDwWarps - 1) / kDwWarps));
-  const dim3 block(32 * kDwWarps);
-  const int ri = static_cast<int>(r);
-  if (V == 4) {
-    bwd_dw_kernel<4><<<grid, block, 0, stream>>>(x, idx, g, dw, n_dst, ri, F);
-  } else if (V == 2) {
-    bwd_dw_kernel<2><<<grid, block, 0, stream>>>(x, idx, g, dw, n_dst, ri, F);
-  } else {
-    bwd_dw_kernel<1><<<grid, block, 0, stream>>>(x, idx, g, dw, n_dst, ri, F);
-  }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(
+      launch_agg_any(true, x, idx, g, dw, n_dst, r, F, stream));
 }

@@ -79,9 +79,9 @@ def _device_of(t: torch.Tensor) -> torch.device:
 
 
 def _stream(dev: torch.device) -> int:
-    """The raw handle of the current stream on `dev`. bwd_dx's calls read
-    it with `_cuda_getCurrentRawStream`: `torch.cuda.current_stream(dev)`
-    builds a Stream object, which costs more host time than a launch."""
+    """The raw handle of the current stream on `dev`, read with
+    `_cuda_getCurrentRawStream`: `torch.cuda.current_stream(dev)` builds a
+    Stream object, which costs more host time than a launch."""
     return torch._C._cuda_getCurrentRawStream(dev.index)
 
 
@@ -92,7 +92,9 @@ def _raise_on(rc: int, name: str) -> None:
 
 def gather_agg_fwd(x: torch.Tensor, idx: torch.Tensor,
                    w: torch.Tensor) -> torch.Tensor:
-    """out[i] = sum_j w[i, j] * x[idx[i, j]] -> (n_dst, F) float32.
+    """out[i] = sum_j w[i, j] * x[idx[i, j]] -> (n_dst, F) float32, each
+    row summed from 0 in j order, multiply then add: on the card equal to
+    `ref.gather_agg_ref_ordered` bit for bit.
 
     x: (n_src, F) float32; idx: (n_dst, r) int32 with every value in
     [0, n_src) (the caller clips, as `ops.gather_agg` does); w: (n_dst, r)
@@ -110,7 +112,7 @@ def gather_agg_fwd(x: torch.Tensor, idx: torch.Tensor,
     out = torch.empty((n_dst, F), dtype=torch.float32, device=dev)
     if n_dst == 0 or F == 0:
         return out
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     rc = _lib().gather_agg_fwd(x.data_ptr(), idx.data_ptr(), w.data_ptr(),
                                out.data_ptr(), n_dst, r, F, stream)
     _raise_on(rc, "gather_agg_fwd")
@@ -296,7 +298,7 @@ def gather_agg_bwd_dw(x: torch.Tensor, idx: torch.Tensor,
     dw = torch.empty((n_dst, r), dtype=torch.float32, device=dev)
     if n_dst == 0 or r == 0:
         return dw
-    stream = torch.cuda.current_stream(dev).cuda_stream
+    stream = _stream(dev)
     rc = _lib().gather_agg_bwd_dw(x.data_ptr(), idx.data_ptr(), g.data_ptr(),
                                   dw.data_ptr(), n_dst, r, x.shape[1],
                                   stream)

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the gather-aggregate kernels
 (`repro/kernels/gather_agg/ref.py`). The CPU path runs them, and
 `chip_smoke.py` holds each CUDA kernel against them on the card.
-`gather_agg_ref` materialises the (n_dst, r, F) gather the kernel avoids."""
+`gather_agg_ref` materialises the (n_dst, r, F) gather the kernel avoids;
+`gather_agg_ref_ordered` adds in the forward kernel's own order."""
 import torch
 
 
@@ -14,6 +15,20 @@ def gather_agg_ref(x, idx, w):
     """
     g = x[torch.clamp(idx.long(), 0, x.shape[0] - 1)].to(torch.float32)
     return (g * w.to(torch.float32)[..., None]).sum(dim=1)
+
+
+def gather_agg_ref_ordered(x, idx, w):
+    """`gather_agg_ref` summed as the CUDA kernel sums: from zeros, one
+    edge j at a time in order, the product rounded before the add (no
+    fused multiply-add), in float32. The kernel equals it bit for bit."""
+    xf = x.to(torch.float32)
+    ids = torch.clamp(idx.long(), 0, x.shape[0] - 1)
+    wf = w.to(torch.float32)
+    acc = torch.zeros((idx.shape[0], x.shape[1]), dtype=torch.float32,
+                      device=x.device)
+    for j in range(idx.shape[1]):
+        acc = acc + wf[:, j, None] * xf[ids[:, j]]
+    return acc
 
 
 def gather_agg_bwd_dx_ref(idx, w, g, n_src: int):

@@ -12,7 +12,8 @@ import numpy as np
 import pytest
 import torch
 
-from repro.kernels.gather_agg.kernel import gather_agg_bwd_dw_pallas
+from repro.kernels.gather_agg.kernel import (gather_agg_bwd_dw_pallas,
+                                             gather_agg_fwd_pallas)
 from repro.kernels.gather_agg.ops import gather_agg as gather_agg_j
 from repro.kernels.gather_agg.ref import gather_agg_ref as gather_agg_ref_j
 from repro_torch.kernels.gather_agg import kernel, ops, ref
@@ -57,6 +58,54 @@ def test_forward_matches_reference(case, impl):
                      torch.as_tensor(w)).numpy()
     assert got.dtype == np.float32 and got.shape == want.shape
     np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-6)
+
+
+def _ordered(x, idx, w):
+    return ref.gather_agg_ref_ordered(torch.as_tensor(x),
+                                      torch.as_tensor(idx),
+                                      torch.as_tensor(w))
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_ordered_plain_version_matches_the_plain_version(case):
+    """`gather_agg_ref_ordered`, the forward kernel's own order (the CUDA
+    kernel equals it bit for bit on the card), against `gather_agg_ref`,
+    the CPU main path: rtol = atol = 1e-6 (r float32 products summed in
+    another order)."""
+    x, idx, w = _case(case)
+    got = _ordered(x, idx, w)
+    want = ref.gather_agg_ref(torch.as_tensor(x), torch.as_tensor(idx),
+                              torch.as_tensor(w))
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    torch.testing.assert_close(got, want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_ordered_plain_version_adds_edge_by_edge(case):
+    """Bit for bit the float32 loop acc = acc + w[:, j] * x[idx[:, j]] from
+    zeros, each product rounded before its add (no fused multiply-add)."""
+    x, idx, w = _case(case)
+    rows = np.clip(idx, 0, x.shape[0] - 1)
+    acc = np.zeros((idx.shape[0], x.shape[1]), np.float32)
+    for j in range(idx.shape[1]):
+        acc = acc + (w[:, j, None] * x[rows[:, j]]).astype(np.float32)
+    np.testing.assert_array_equal(_ordered(x, idx, w).numpy(), acc)
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_ordered_plain_version_matches_pallas_interpret(case):
+    """`gather_agg_ref_ordered` against the reference's
+    `gather_agg_fwd_pallas` in interpret mode: rtol = atol = 1e-6. The two
+    add in the same order but are not bit-equal: on the CPU the interpret
+    run rounds each step as a fused multiply-add (it matched an FMA
+    emulation on every element at F 33, 64 and 602, and differed in the
+    last bits from multiply-then-add on about half of them)."""
+    x, idx, w = _case(case)
+    idx = np.clip(idx, 0, x.shape[0] - 1)
+    want = np.asarray(gather_agg_fwd_pallas(
+        jnp.asarray(x), jnp.asarray(idx), jnp.asarray(w), interpret=True))
+    np.testing.assert_allclose(_ordered(x, idx, w).numpy(), want,
+                               rtol=1e-6, atol=1e-6)
 
 
 @pytest.mark.parametrize("impl", IMPLS)

@@ -46,9 +46,10 @@ def cuda():
 
 @pytest.mark.parametrize("shape", SHAPES)
 def test_kernels_match_plain_versions(cuda, shape):
-    """Each kernel against its plain version on the card (sums in another
-    order: rtol = atol = 1e-5, more for dx rows that sum many edges);
-    bwd_dx bit-identical across launches."""
+    """Each kernel against its plain version on the card: fwd bit for bit
+    against the plain version that adds in its order; bwd_dx (sums in
+    another order) within rtol = atol = 1e-5, more for dx rows that sum
+    many edges, and bit-identical across launches."""
     n_src, n_dst, r, f = shape
     rng = np.random.default_rng((n_src, n_dst))
     x = torch.as_tensor(rng.normal(size=(n_src, f)), dtype=torch.float32,
@@ -62,8 +63,7 @@ def test_kernels_match_plain_versions(cuda, shape):
                         device=cuda)
     before = dict(kernel.LAUNCHES)
     out = kernel.gather_agg_fwd(x, idx, w)
-    torch.testing.assert_close(out, ref.gather_agg_ref(x, idx, w),
-                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(out, ref.gather_agg_ref_ordered(x, idx, w))
     dx = kernel.gather_agg_bwd_dx(idx, w, g, n_src)
     # a dx row sums one product per weighted edge into it, in another
     # order than index_add_'s atomics: rounding grows with that count
@@ -112,6 +112,117 @@ def test_dw_kernel_matches_plain_version(cuda, shape):
         float(((dw - want).abs() / bound).max())
     assert torch.equal(dw, kernel.gather_agg_bwd_dw(x, idx, g))
     assert kernel.LAUNCHES["gather_agg_bwd_dw"] == before + 2
+
+
+# fwd / dw at every lane-group width (F 1 and 4: one lane a row; 10: four;
+# 33 and 64: sixteen; 256 and 602: a warp, 602 in five column tiles), r
+# below, at and above the kernels' batches of 5 edges, from one row to
+# many blocks
+GRID = [(f, r, n) for f in (1, 4, 10, 33, 64, 256, 602)
+        for r in (1, 3, 10, 25) for n in (1, 7, 5000)]
+
+
+def _grid_case(f, r, n_dst, offset, device):
+    """(x, idx, w, g): x a contiguous view `offset` floats into a fresh
+    buffer (0: 16-byte aligned; 1: only 4-byte; 2: only 8-byte), so that
+    the kernels take every vector width; row 0 of w all masked; row 1's
+    edges all on one source row with their own weights, and the last
+    quarter of the rows padded as a batch pads them (every edge on the last
+    source row, weight 0): the kernels load such a row once per batch."""
+    rng = np.random.default_rng((f, r, n_dst, offset))
+    n_src = max(3, n_dst // 4)
+    buf = torch.as_tensor(rng.normal(size=n_src * f + 2),
+                          dtype=torch.float32, device=device)
+    x = buf[offset:offset + n_src * f].view(n_src, f)
+    assert x.data_ptr() % 16 == 4 * offset
+    idx = torch.as_tensor(rng.integers(0, n_src, (n_dst, r)),
+                          dtype=torch.int32, device=device)
+    w = torch.as_tensor(rng.random((n_dst, r)), dtype=torch.float32,
+                        device=device)
+    w[0] = 0.0
+    if n_dst > 1:
+        idx[1] = 1
+    idx[n_dst - n_dst // 4:] = n_src - 1
+    w[n_dst - n_dst // 4:] = 0.0
+    g = torch.as_tensor(rng.normal(size=(n_dst, f)), dtype=torch.float32,
+                        device=device)
+    return x, idx, w, g
+
+
+@pytest.mark.parametrize("f,r,n_dst", GRID)
+def test_fwd_is_bit_equal_to_the_ordered_plain_version(cuda, f, r, n_dst):
+    """fwd sums each row from 0 in j order, multiply then add: bit-equal to
+    `gather_agg_ref_ordered` at every base alignment, relaunched
+    bit-identically, one count per launch."""
+    for offset in (0, 1, 2):
+        x, idx, w, _ = _grid_case(f, r, n_dst, offset, cuda)
+        before = kernel.LAUNCHES["gather_agg_fwd"]
+        out = kernel.gather_agg_fwd(x, idx, w)
+        assert kernel.LAUNCHES["gather_agg_fwd"] == before + 1
+        assert torch.equal(out, ref.gather_agg_ref_ordered(x, idx, w)), \
+            (offset, float((out - ref.gather_agg_ref_ordered(x, idx, w))
+                           .abs().max()))
+        assert torch.equal(out, kernel.gather_agg_fwd(x, idx, w))
+
+
+@pytest.mark.parametrize("f,r,n_dst", GRID)
+def test_dw_is_within_its_bound_on_the_grid(cuda, f, r, n_dst):
+    """dw against its plain version within 2 F eps sum_k |g x| (as
+    `chip_smoke.py` holds it) at every base alignment, relaunched
+    bit-identically, one count per launch."""
+    eps = torch.finfo(torch.float32).eps
+    for offset in (0, 1, 2):
+        x, idx, _, g = _grid_case(f, r, n_dst, offset, cuda)
+        before = kernel.LAUNCHES["gather_agg_bwd_dw"]
+        dw = kernel.gather_agg_bwd_dw(x, idx, g)
+        assert kernel.LAUNCHES["gather_agg_bwd_dw"] == before + 1
+        want = ref.gather_agg_bwd_dw_ref(x, idx, g)
+        bound = 2 * f * eps * ref.gather_agg_bwd_dw_ref(x.abs(), idx,
+                                                        g.abs())
+        assert dw.shape == (n_dst, r)
+        assert ((dw - want).abs() <= bound).all(), offset
+        assert torch.equal(dw, kernel.gather_agg_bwd_dw(x, idx, g))
+
+
+@pytest.mark.parametrize("f", [10, 64, 602])
+def test_nan_in_a_masked_source_row_propagates(cuda, f):
+    """Masked edges (w = 0) are read and summed: a NaN in a source row that
+    only a masked edge names makes that destination row NaN in fwd (0 * NaN)
+    and that edge's dw NaN, as in the plain versions, and nothing else; a
+    NaN in the row that padded rows name reaches every padded row."""
+    x, idx, w, g = _grid_case(f, 10, 40, 0, cuda)
+    bad = x.shape[0] - 1
+    x = x.clone()
+    x[bad] = float("nan")
+    idx = torch.where(idx == bad, torch.zeros_like(idx), idx)
+    idx[5, 3], w[5, 3] = bad, 0.0
+    out = kernel.gather_agg_fwd(x, idx, w)
+    torch.testing.assert_close(out, ref.gather_agg_ref_ordered(x, idx, w),
+                               rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(out[5]).all() and int(torch.isnan(out).sum()) == f
+    dw = kernel.gather_agg_bwd_dw(x, idx, g)
+    assert torch.isnan(dw[5, 3]) and int(torch.isnan(dw).sum()) == 1
+    # padded rows 30..39 name row 0 only: a NaN there reaches all of them
+    x[0] = float("nan")
+    out = kernel.gather_agg_fwd(x, idx, w)
+    torch.testing.assert_close(out, ref.gather_agg_ref_ordered(x, idx, w),
+                               rtol=0, atol=0, equal_nan=True)
+    assert torch.isnan(out[30:]).all()
+    dw = kernel.gather_agg_bwd_dw(x, idx, g)
+    want = ref.gather_agg_bwd_dw_ref(x, idx, g)
+    assert torch.equal(torch.isnan(dw), torch.isnan(want))
+    assert torch.isnan(dw[30:]).all()
+
+
+def test_empty_calls_launch_nothing(cuda):
+    """No destination rows: empty outputs of the right shapes, no launch."""
+    x = torch.randn((5, 8), device=cuda)
+    idx = torch.zeros((0, 10), dtype=torch.int32, device=cuda)
+    before = dict(kernel.LAUNCHES)
+    out = kernel.gather_agg_fwd(x, idx, torch.zeros((0, 10), device=cuda))
+    dw = kernel.gather_agg_bwd_dw(x, idx, torch.zeros((0, 8), device=cuda))
+    assert out.shape == (0, 8) and dw.shape == (0, 10)
+    assert kernel.LAUNCHES == before
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
