@@ -167,6 +167,36 @@ run, exit code != 0):
               float32 on the card and on the CPU within rtol 1e-4, greedy
               ids equal
 
+  9. resume and the dynamic cache, on the reddit-602 graph after phase 5
+              (run between phases 5 and 6, while the graph is loaded):
+              (a) GraphSAGE 2 epochs (302 steps) with `cache` a dynamic
+              CLOCK state seeded from phase 4's plan (46,593 slots), the
+              static plan and the uncached run on the same batches: the
+              302 losses bit-identical across the three, epoch 0's hits
+              and misses equal between dynamic and static, both runs'
+              epoch-1 hit rates printed, launches exactly 3 fwd, 4 bwd_dx
+              and 1 cached gather a step and 2 `clock_refill` (one per
+              epoch boundary, words in shared memory); the first
+              boundary's refill again on its pre-refill state (spied):
+              equal to the trainer's, and to the plain walk and row copy
+              on a CPU copy, slot for slot and row for row; refill ms on
+              the host clock (synced), the walk kernel's and the sort's on
+              events, the admitted rows, the walk's steps, the plain
+              walk's ms, the bounds; (b) resume: checkpoints every 100
+              steps, a trainer stops at 100, a fresh one resumes and
+              crosses the refill to 230, a third resumes at 200 and runs
+              to 230: each one's losses equal (a)'s bit for bit, and its
+              weights and CLOCK state (rows too) at 230 equal (a)'s; a
+              save's and a restore's ms and MB; (c) chaos: a NaN burst at
+              steps 16-17 with GuardConfig(max_consecutive_skips=1) and a
+              checkpoint every 10 steps over 40 steps makes exactly one
+              rollback and (a)'s losses; `cache_corrupt` at epoch 0's
+              refill degrades to the uncached gather and the losses stay
+              the uncached run's; (d) phase 5's tiny run with the dynamic
+              cache saves on the card, a CPU trainer restores it (weights
+              and CLOCK state equal) and both take 5 more steps within
+              rtol 1e-4
+
 It prints the `{"kernels": [...]}` line before the last, and as the last
 line `{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
@@ -224,7 +254,7 @@ SERVE_PARAMS = {"gemma3-1b": 999_826_048, MOE: 14_316_308_480,
 # what one reading of each path sums over
 PER = {**{run: "train step" for run in RUNS}, SERVE: "prefill",
        MOE_SERVE: "prefill", MOE_DECODE: "decode step",
-       RWKV_SERVE: "prefill"}
+       RWKV_SERVE: "prefill", "graphsage_dynamic": "epoch-boundary refill"}
 DEVICE = "cuda"
 # the CUDA names of the flash kernels: the bf16 prefills must spend their
 # attention time in the tensor-core one and never in the SIMT one
@@ -241,6 +271,8 @@ REPLACES = {
     "flash_attention_fwd": "src/repro/kernels/flash_attention/kernel.py:65",
     "moe_gmm_fwd": "src/repro/kernels/moe_gmm/kernel.py:27",
     "wkv6_fwd": "src/repro/kernels/rwkv6_chunk/kernel.py:55",
+    "clock_refill": "src/repro/featcache/dynamic.py:184 (_refill_jit: a "
+                    "jitted lax.scan, not a Pallas kernel)",
 }
 SOURCES = {"gather_agg_fwd": "src/repro_torch/csrc/gather_agg.cu",
            "gather_agg_bwd_dx": "src/repro_torch/csrc/gather_agg.cu",
@@ -248,7 +280,8 @@ SOURCES = {"gather_agg_fwd": "src/repro_torch/csrc/gather_agg.cu",
            "gather_cached_fwd": "src/repro_torch/csrc/gather_cached.cu",
            "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
            "moe_gmm_fwd": "src/repro_torch/csrc/moe_gmm.cu",
-           "wkv6_fwd": "src/repro_torch/csrc/wkv6.cu"}
+           "wkv6_fwd": "src/repro_torch/csrc/wkv6.cu",
+           "clock_refill": "src/repro_torch/csrc/clock_refill.cu"}
 
 
 def log(msg: str) -> None:
@@ -262,12 +295,14 @@ def check(cond: bool, msg: str) -> None:
 
 def kernel_modules():
     """The wrapper modules of every kernel; each counts its launches."""
+    from repro_torch.kernels.clock_refill import kernel as walk_kernel
     from repro_torch.kernels.flash_attention import kernel as flash_kernel
     from repro_torch.kernels.gather_agg import kernel
     from repro_torch.kernels.gather_cached import kernel as cached_kernel
     from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
     from repro_torch.kernels.rwkv6_chunk import kernel as wkv_kernel
-    return (kernel, cached_kernel, flash_kernel, gmm_kernel, wkv_kernel)
+    return (kernel, cached_kernel, flash_kernel, gmm_kernel, wkv_kernel,
+            walk_kernel)
 
 
 def reset_launches() -> None:
@@ -887,7 +922,8 @@ def phase_train(torch, graph, trainer, name, reference=None):
             "gather_agg_bwd_dx": dx_per_step * steps,
             "gather_agg_bwd_dw": dw_per_step * steps,
             "gather_cached_fwd": steps + n_eval if cached else 0,
-            "flash_attention_fwd": 0, "moe_gmm_fwd": 0, "wkv6_fwd": 0}
+            "flash_attention_fwd": 0, "moe_gmm_fwd": 0, "wkv6_fwd": 0,
+            "clock_refill": 0}
     check(launches == want, f"{name}: launches {launches} != {want}")
     from repro_torch.kernels.gather_agg import kernel
     plans = kernel.PLANS["gather_agg_bwd_dx"]
@@ -1064,6 +1100,358 @@ def phase_card_vs_cpu(torch, g, model, cache=None):
     label = model if cache is None else f"{model} cache={cache}"
     log(f"[5 card vs cpu] {label}: {CPU_STEPS} steps on tiny: max "
         f"relative loss difference {worst:.3e} (limit 1e-4)")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: resume and the dynamic cache (reddit-602 GraphSAGE)
+# ---------------------------------------------------------------------------
+DYN = "graphsage_dynamic"
+RESUME_EVERY, RESUME_END = 100, 230     # checkpoints at 100 and 200
+CHAOS_STEPS, CHAOS_EVERY, CHAOS_BURST = 40, 10, (15, 2)
+
+
+class RefillSpy:
+    """Wraps `featcache.dynamic.refill` (the trainer calls it through the
+    module) and keeps every call's input state and result."""
+
+    def __init__(self):
+        from repro_torch.featcache import dynamic
+        self.mod, self.orig, self.calls = dynamic, dynamic.refill, []
+
+    def __enter__(self):
+        def spy(state, feats):
+            out = self.orig(state, feats)
+            self.calls.append((state, out))
+            return out
+        self.mod.refill = spy
+        return self
+
+    def __exit__(self, *exc):
+        self.mod.refill = self.orig
+
+
+def cache_fields(cache):
+    from repro_torch.featcache.dynamic import DynamicCacheState
+    return {f: getattr(cache, f).clone()
+            for f in DynamicCacheState.DATA_FIELDS}
+
+
+def same_fields(torch, a, b) -> bool:
+    return a.keys() == b.keys() and all(
+        a[f].dtype == b[f].dtype and torch.equal(a[f], b[f]) for f in a)
+
+
+def params_of(trainer):
+    return [p.detach().clone() for p in trainer.params.parameters()]
+
+
+def run_steps_tracked(trainer, n: int) -> list:
+    """Losses of global steps 1..n, stepping one `train_steps(1)` at a
+    time; a rollback rewinds the step counter and the replay overwrites."""
+    losses, iters = {}, 0
+    while trainer.global_step < n:
+        prev = trainer.global_step
+        (loss,) = trainer.train_steps(1)
+        if trainer.global_step == prev + 1:
+            losses[trainer.global_step] = loss
+        iters += 1
+        check(iters <= 4 * n, f"stuck at step {trainer.global_step}")
+    return [losses[i] for i in range(1, n + 1)]
+
+
+def check_refill(torch, pre, post, admitted, feats):
+    """The boundary refill again on its pre-refill state: the kernel's
+    output equals the trainer's and a relaunch's, and the plain version
+    on a CPU copy, slot for slot and row for row. Returns the reading."""
+    from repro_torch.kernels.clock_refill import kernel as walk_kernel
+    from repro_torch.kernels.clock_refill import ops as refill_ops
+    from repro_torch.kernels.clock_refill.ref import clock_refill_ref
+    args = (pre.cache, pre.pos, pre.slot_ids, pre.refbit, pre.slot_freq,
+            pre.freq, pre.hand, feats)
+    rows, walk, n = refill_ops.clock_refill(*args)
+    check(n == admitted and torch.equal(rows, post.cache) and
+          all(torch.equal(getattr(walk, f), getattr(post, f))
+              for f in ("pos", "slot_ids", "refbit", "hand")),
+          "the refill relaunched differs from the trainer's")
+    t0 = time.perf_counter()
+    rows_c, walk_c, n_c = refill_ops.clock_refill(*(a.cpu() for a in args))
+    plain_op_ms = (time.perf_counter() - t0) * 1e3
+    check(n_c == n, f"admitted {n} on the card, {n_c} on the CPU")
+    for f in walk._fields:
+        a, b = getattr(walk, f).cpu(), getattr(walk_c, f)
+        if f.startswith("adm"):
+            a, b = a[:n], b[:n]
+        check(torch.equal(a, b), f"clock_refill {f}: card != plain")
+    err = float((rows.cpu() - rows_c).abs().max())
+    check(err == 0.0, f"refilled rows differ from the plain version by {err}")
+    # timings: the whole refill (host clock, synced), its parts on events
+    from repro_torch.featcache import dynamic
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dynamic.refill(pre, feats)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    cand = refill_ops.refill_candidates(pre.pos, pre.freq, pre.capacity)
+    wargs = (pre.pos, pre.slot_ids, pre.refbit, pre.slot_freq, pre.hand,
+             *cand)
+    walk_ms = cuda_ms(torch, lambda: walk_kernel.clock_refill(*wargs),
+                      reps=2, rounds=3, warmup=1)
+    sort_ms = cuda_ms(torch, lambda: refill_ops.refill_candidates(
+        pre.pos, pre.freq, pre.capacity), reps=5, rounds=3)
+    cpu_wargs = [a.cpu() for a in wargs]
+    t0 = time.perf_counter()
+    clock_refill_ref(*cpu_wargs)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    steps = int(walk.steps)
+    N, C, F = pre.pos.shape[0], pre.capacity, feats.shape[1]
+    used = min(len(cand[0]), n + 1)          # candidates the walk read
+    walk_bytes = 4 * (2 * N + 6 * C + 2 * used + 2 * n + 2)
+    copy_bytes = 2 * n * F * 4               # read a feature row, write it
+    bound, by = _bound_ms(walk_bytes, steps)
+    log(f"[9 dynamic] refill at epoch 0's end: {n} of {C} slots admitted, "
+        f"walk steps {steps} ({steps / max(n, 1):.2f} a row); refill "
+        f"{statistics.median(ms):.3f} ms (host clock, synced; "
+        f"{[round(t, 3) for t in ms]}): candidate sort {sort_ms:.3f} ms, "
+        f"walk kernel {walk_ms:.3f} ms (events), the rest the admitted "
+        f"count's read and the row copy ({copy_bytes / 1e6:.1f} MB, bound "
+        f"{copy_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); plain walk on the "
+        f"CPU {plain_ms:.1f} ms (the whole plain refill {plain_op_ms:.1f} "
+        f"ms); walk bound {bound:.4f} ms ({by}); card = plain, slot for "
+        f"slot and row for row; relaunch bit-identical; words in "
+        f"{'shared' if walk_kernel.SMEM['shared'] else 'global'} memory")
+    return {"ms": walk_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None, "max_abs_err": err,
+            "refill_ms": statistics.median(ms), "sort_ms": sort_ms,
+            "admitted": n, "walk_steps": steps,
+            "row_copy_bound_ms": copy_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def phase_dynamic(torch, graph, policy, plan, caps, eval_caps):
+    """(a) two epochs of GraphSAGE with the dynamic CLOCK cache, seeded
+    from the phase-4 plan, beside the static plan and the uncached run on
+    the same batches; (b) resume from checkpoints at 100 and 200; (c) a
+    NaN burst and a corrupted refill. Returns (launches, reading)."""
+    import shutil
+    from repro_torch.configs import CONFIGS, TrainConfig
+    from repro_torch.kernels.clock_refill import kernel as walk_kernel
+    from repro_torch.resilience import FaultPlan, FaultSpec, GuardConfig
+    from repro_torch.resilience import faults
+    from repro_torch.train import checkpoint as ckpt
+    from repro_torch.train.gnn_loop import GNNTrainer
+
+    def make(cache, **kw):
+        return GNNTrainer(graph, CONFIGS["graphsage"], TrainConfig(), policy,
+                          caps=caps, eval_caps=eval_caps, seed=0,
+                          device=DEVICE, cache=cache, **kw)
+
+    def fresh():
+        return plan.to(DEVICE).to_dynamic()
+
+    t_phase = time.perf_counter()
+    # (a) -------------------------------------------------------------------
+    dyn = make(fresh())
+    nb = dyn.stream.num_batches(0)
+    steps = 2 * nb
+    torch.cuda.synchronize()
+    reset_launches()                             # counts start here
+    with RefillSpy() as spy:
+        t0 = time.perf_counter()
+        m0 = dyn.cache_meter.mark()
+        losses = dyn.train_steps(nb)
+        m1 = dyn.cache_meter.mark()
+        losses += dyn.train_steps(RESUME_END - nb)
+        at_end = (cache_fields(dyn.cache), params_of(dyn))
+        losses += dyn.train_steps(steps - RESUME_END)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = read_launches()                   # ... and are read here
+    m2 = dyn.cache_meter.mark()
+    want = {k: 0 for k in launches}
+    want.update(gather_agg_fwd=3 * steps, gather_agg_bwd_dx=4 * steps,
+                gather_cached_fwd=steps, clock_refill=2)
+    check(launches == want, f"{DYN}: launches {launches} != {want}")
+    check(len(spy.calls) == 2 and walk_kernel.SMEM["shared"] == 2,
+          f"{DYN}: {len(spy.calls)} refills, words {walk_kernel.SMEM}")
+    check(all(map(math.isfinite, losses)), f"{DYN}: non-finite loss")
+    log(f"[9 dynamic] {DYN}: {steps} steps ({nb} a epoch) in {wall:.1f} s "
+        f"({wall / steps * 1e3:.2f} ms a step, 2 refills inside): loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}; launches {launches}")
+    stat = make(plan.to(DEVICE))
+    t0 = time.perf_counter()
+    s0 = stat.cache_meter.mark()
+    ls = stat.train_steps(nb)
+    s1 = stat.cache_meter.mark()
+    ls += stat.train_steps(nb)
+    s2 = stat.cache_meter.mark()
+    wall_static = time.perf_counter() - t0
+    del stat
+    plain = make(None)
+    t0 = time.perf_counter()
+    uncached = plain.train_steps(steps)
+    wall_plain = time.perf_counter() - t0
+    del plain
+    check(ls == losses and uncached == losses,
+          f"{DYN}: losses differ from the static or the uncached run's")
+    log(f"[9 dynamic] the same {steps} steps: static plan {wall_static:.1f} "
+        f"s ({wall_static / steps * 1e3:.2f} ms a step), uncached "
+        f"{wall_plain:.1f} s ({wall_plain / steps * 1e3:.2f} ms a step)")
+
+    def window(a, b):
+        hits, misses = b[0] - a[0], b[1] - a[1]
+        return hits, misses, hits / max(hits + misses, 1)
+
+    d0, d1, t0_, t1_ = window(m0, m1), window(m1, m2), window(s0, s1), \
+        window(s1, s2)
+    check(d0 == t0_, f"epoch 0: dynamic {d0} != static {t0_}")
+    log(f"[9 dynamic] hit rate epoch 0: dynamic {d0[2]:.4f} = static "
+        f"{t0_[2]:.4f} ({d0[0]} hits, {d0[1]} misses: same residency, same "
+        f"batches); epoch 1: dynamic {d1[2]:.4f} ({d1[0]} hits, {d1[1]} "
+        f"misses) vs static {t1_[2]:.4f} ({t1_[0]} hits, {t1_[1]} misses); "
+        f"rows admitted over both boundaries {dyn.cache_meter.refills}; "
+        f"{steps} losses bit-identical across dynamic, static and "
+        f"uncached")
+    (pre, (post, admitted)) = spy.calls[0]
+    reading = check_refill(torch, pre, post, admitted, dyn.feats)
+    del dyn, spy, pre, post
+    torch.cuda.empty_cache()
+
+    # (b) -------------------------------------------------------------------
+    root = ROOT / "build" / "phase9"
+    shutil.rmtree(root, ignore_errors=True)
+    d = str(root / "resume")
+
+    def resumed():
+        t0 = time.perf_counter()
+        tr = make(fresh(), ckpt_dir=d, ckpt_every=RESUME_EVERY)
+        return tr, (time.perf_counter() - t0) * 1e3
+
+    b1, _ = resumed()
+    check(b1.global_step == 0, "a checkpoint existed before the run")
+    got = b1.train_steps(RESUME_EVERY)
+    check(got == losses[:RESUME_EVERY], "resume run 1: losses differ")
+    del b1
+    b2, _ = resumed()
+    check(b2.global_step == RESUME_EVERY and
+          b2.stream.cursor.state() == {"epoch": 0, "pos": RESUME_EVERY},
+          f"resumed at {b2.global_step} {b2.stream.cursor.state()}")
+    got = b2.train_steps(RESUME_END - RESUME_EVERY)
+    check(got == losses[RESUME_EVERY:RESUME_END], "resume run 2: losses")
+    check(same_fields(torch, cache_fields(b2.cache), at_end[0]) and
+          all(torch.equal(a, b) for a, b in zip(params_of(b2), at_end[1])),
+          "resume run 2: state at 230 differs")
+    del b2
+    b3, _ = resumed()
+    check(b3.global_step == 2 * RESUME_EVERY, f"resumed at {b3.global_step}")
+    got = b3.train_steps(RESUME_END - 2 * RESUME_EVERY)
+    check(got == losses[2 * RESUME_EVERY:RESUME_END], "resume run 3")
+    check(same_fields(torch, cache_fields(b3.cache), at_end[0]) and
+          all(torch.equal(a, b) for a, b in zip(params_of(b3), at_end[1])),
+          "resume run 3: state at 230 differs")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    b3.save()
+    save_ms = (time.perf_counter() - t0) * 1e3
+    step_dir = Path(d) / f"step_{RESUME_END:09d}"
+    mb = sum(f.stat().st_size for f in step_dir.iterdir()) / 1e6
+    t0 = time.perf_counter()
+    ckpt.restore(d, RESUME_END, b3._state())
+    torch.cuda.synchronize()
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    del b3
+    log(f"[9 resume] stop at {RESUME_EVERY} (mid-epoch 0), resume to "
+        f"{RESUME_END} across the refill at {nb} (checkpoint at "
+        f"{2 * RESUME_EVERY}), resume at {2 * RESUME_EVERY} to "
+        f"{RESUME_END}: losses bit-identical to (a); weights and CLOCK "
+        f"state (pos, slot_ids, refbit, slot_freq, freq, hand, rows) "
+        f"torch.equal to (a)'s at step {RESUME_END}; a save {save_ms:.1f} "
+        f"ms for {mb:.1f} MB, a restore {restore_ms:.1f} ms")
+
+    # (c) -------------------------------------------------------------------
+    guarded = make(fresh(), ckpt_dir=str(root / "chaos"),
+                   ckpt_every=CHAOS_EVERY,
+                   guard=GuardConfig(max_consecutive_skips=1))
+    burst = FaultPlan(specs=(FaultSpec("step_nonfinite", *CHAOS_BURST),))
+    t0 = time.perf_counter()
+    with faults.inject(burst):
+        got = run_steps_tracked(guarded, CHAOS_STEPS)
+    chaos_s = time.perf_counter() - t0
+    meter = guarded.guard_meter.counts()
+    check(len(burst.fired("step_nonfinite")) == CHAOS_BURST[1] and
+          meter["rollbacks"] == 1 and got == losses[:CHAOS_STEPS],
+          f"step_nonfinite: fired {burst.fired()}, meter {meter}")
+    del guarded
+    corrupt = make(fresh())
+    plan_c = FaultPlan(specs=(FaultSpec("cache_corrupt", 0),))
+    with faults.inject(plan_c):
+        got = corrupt.train_steps(nb + 9)
+    check(plan_c.fired("cache_corrupt") and corrupt.cache is None and
+          corrupt.guard_meter.cache_degradations == 1 and
+          got == uncached[:nb + 9],
+          f"cache_corrupt: meter {corrupt.guard_meter.counts()}")
+    log(f"[9 chaos] step_nonfinite at steps {CHAOS_BURST[0] + 1}-"
+        f"{sum(CHAOS_BURST)} with GuardConfig(max_consecutive_skips=1), "
+        f"ckpt_every {CHAOS_EVERY}: meter {meter} ({chaos_s:.1f} s), the "
+        f"{CHAOS_STEPS} losses bit-identical to the fault-free run; "
+        f"cache_corrupt at epoch 0's refill: degraded at step "
+        f"{corrupt.cache_meter.degraded_at}, the {nb + 9} losses equal the "
+        f"uncached run's")
+    del corrupt
+    shutil.rmtree(root, ignore_errors=True)
+    torch.cuda.empty_cache()
+    log(f"[9 done] phase 9: {time.perf_counter() - t_phase:.1f} s")
+    return launches, {"clock_refill": reading}
+
+
+def phase_card_to_cpu(torch, g):
+    """(d) phase 5's tiny GraphSAGE with the dynamic cache trains 3 steps
+    on the card and saves; a CPU trainer restores the checkpoint (weights,
+    AdamW's state, CLOCK state) and both take 5 more steps on the same
+    batches within phase 5's tolerance."""
+    import shutil
+    from repro_torch.configs import GNNConfig, TrainConfig
+    from repro_torch.featcache.dynamic import DynamicCacheState
+    from repro_torch.train.gnn_loop import GNNTrainer
+    cfg = GNNConfig("tiny", "sage", 2, 32, g.feat_dim, g.num_classes,
+                    fanout=(5, 5), dropout=0.0)
+    tcfg = TrainConfig(batch_size=256)
+    d = ROOT / "build" / "phase9_card_to_cpu"
+    shutil.rmtree(d, ignore_errors=True)
+    src = GNNTrainer(g, cfg, tcfg, "comm_rand", seed=0, device="cpu")
+
+    def make(device):
+        return GNNTrainer(g, cfg, tcfg, "comm_rand", seed=0, caps=src.caps,
+                          eval_caps=src.eval_caps, cache="dynamic",
+                          ckpt_dir=str(d), device=device)
+
+    it = iter(src.stream)
+    batches = [next(it) for _ in range(3 + CPU_STEPS)]
+    gpu = make(DEVICE)
+    for b in batches[:3]:
+        gpu.train_step(b.to(DEVICE), tcfg.learning_rate)
+    gpu.global_step = 3
+    gpu.save()
+    cpu = make("cpu")
+    check(cpu.global_step == 3, f"the CPU trainer resumed at "
+          f"{cpu.global_step}")
+    check(all(torch.equal(a, b.cpu()) for a, b in
+              zip(cpu.params.parameters(), gpu.params.parameters())) and
+          all(torch.equal(getattr(cpu.cache, f),
+                          getattr(gpu.cache, f).cpu())
+              for f in DynamicCacheState.DATA_FIELDS),
+          "the CPU restored other weights or cache state")
+    worst = 0.0
+    for b in batches[3:]:
+        lc = float(cpu.train_step(b, tcfg.learning_rate)[0])
+        lg = float(gpu.train_step(b.to(DEVICE), tcfg.learning_rate)[0])
+        worst = max(worst, abs(lg - lc) / abs(lc))
+        check(abs(lg - lc) <= 1e-4 * abs(lc), f"card {lg} vs CPU {lc}")
+    shutil.rmtree(d, ignore_errors=True)
+    log(f"[9 card to cpu] tiny sage cache=dynamic: saved on the card at "
+        f"step 3, restored on the CPU (weights and CLOCK state equal); "
+        f"{CPU_STEPS} more steps: max relative loss difference "
+        f"{worst:.3e} (limit 1e-4)")
 
 
 # ---------------------------------------------------------------------------
@@ -2094,6 +2482,9 @@ def main() -> int:
     for model, cache in (("sage", None), ("sage", "presampled_freq"),
                          ("gat", None)):
         phase_card_vs_cpu(torch, tiny, model, cache)
+    runs[DYN], readings[DYN] = phase_dynamic(torch, graph, policy, plan,
+                                             caps, eval_caps)
+    phase_card_to_cpu(torch, tiny)
 
     del graph, tiny, plan
     torch.cuda.empty_cache()

@@ -7,6 +7,8 @@ API).
     stream = batching.BatchStream(g, pol, 1024, (10, 10, 10), caps)
     for batch in stream.epoch(): ...
 """
+from repro_torch.batching.calibrate import (CapsCalibrator,  # noqa: F401
+                                            graph_fingerprint)
 from repro_torch.batching.order import block_shuffle, make_batches  # noqa: F401
 from repro_torch.batching.policy import (BatchPolicy,  # noqa: F401
                                          CommRandPolicy, as_policy,
@@ -16,7 +18,8 @@ from repro_torch.batching.stream import (BatchStream, Cursor,  # noqa: F401
                                          eval_batches)
 
 __all__ = [
-    "BatchPolicy", "BatchStream", "CommRandPolicy", "Cursor", "as_policy",
-    "available_policies", "block_shuffle", "eval_batches", "make_batches",
-    "make_policy", "register",
+    "BatchPolicy", "BatchStream", "CapsCalibrator", "CommRandPolicy",
+    "Cursor", "as_policy", "available_policies", "block_shuffle",
+    "eval_batches", "graph_fingerprint", "make_batches", "make_policy",
+    "register",
 ]

@@ -1,5 +1,5 @@
-"""Device-resident feature cache (paper §6.5 as a measurement), the static
-half of `repro/featcache`.
+"""Device-resident feature cache (paper §6.5 as a measurement),
+`repro/featcache`.
 
     from repro_torch import featcache
 
@@ -15,9 +15,18 @@ into a compact `(C, F)` device tensor with an `int32[N]` position map;
 `repro_torch.kernels.gather_cached` serves every layer-0 feature read
 through it (cache row on hit, global matrix on miss) and counts hits on
 the device, so the paper's cache-locality claim becomes a measured hit
-rate (`GNNTrainer(cache=...)`). The LRU / CLOCK simulators live in
-`featcache.sim`. Dynamic (CLOCK) admission is not ported yet.
+rate (`GNNTrainer(cache=...)`).
+
+Admission comes in two flavors: STATIC (a frozen `CachePlan`) and DYNAMIC
+(`featcache.dynamic`: `CachePlan.to_dynamic()` / `cache="dynamic"` — a
+trainer-carried CLOCK second-chance state whose reference bits come from
+the extended `gather_cached` counters and whose residency is re-admitted
+at epoch boundaries by `dynamic.refill`, a hand-written CUDA walk on the
+card, bit-matched to the reference's numpy oracle). The LRU / CLOCK
+simulators live in `featcache.sim`.
 """
+from repro_torch.featcache.dynamic import (DynamicCacheState,  # noqa: F401
+                                           as_cache)
 from repro_torch.featcache.plan import (AdmissionPolicy, CachePlan,  # noqa: F401
                                         CommunityFreqAdmission,
                                         DegreeHotAdmission,
@@ -31,28 +40,16 @@ from repro_torch.featcache.sim import (CLOCK_TIE_BREAK,  # noqa: F401
                                        clock_miss_rate, clock_replay,
                                        lru_miss_rate, policy_access_stream,
                                        static_miss_rate)
-from repro_torch.kernels.gather_cached.ops import (cache_stats,  # noqa: F401
-                                                   gather_cached)
-
-
-def as_cache(obj, graph, **kw):
-    """Normalize any cache spec the trainer and the stream accept: None
-    and a `CachePlan` pass through; an admission name or instance builds a
-    static plan (`build_plan(graph, obj, **kw)`). `"dynamic"` and
-    `"dynamic:<admission>"` raise: dynamic admission is not ported yet."""
-    if isinstance(obj, str) and (obj == "dynamic"
-                                 or obj.startswith("dynamic:")):
-        raise ValueError(f"cache={obj!r}: dynamic (CLOCK) admission is not "
-                         f"ported yet; pass a static admission name "
-                         f"{available_admissions()} or a CachePlan")
-    return as_plan(obj, graph, **kw)
+from repro_torch.kernels.gather_cached.ops import (  # noqa: F401
+    cache_ref_updates, cache_stats, gather_cached)
 
 
 __all__ = [
     "AdmissionPolicy", "CachePlan", "CLOCK_TIE_BREAK",
-    "CommunityFreqAdmission", "DegreeHotAdmission",
+    "CommunityFreqAdmission", "DegreeHotAdmission", "DynamicCacheState",
     "PresampledFreqAdmission", "as_admission", "as_cache", "as_plan",
-    "available_admissions", "build_plan", "cache_ref_updates_np",
+    "available_admissions", "build_plan", "cache_ref_updates",
+    "cache_ref_updates_np",
     "cache_stats", "cache_stats_np", "clock_miss_rate", "clock_replay",
     "gather_cached", "lru_miss_rate", "make_admission",
     "policy_access_stream", "register_admission", "select_rows",

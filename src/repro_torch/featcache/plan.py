@@ -187,6 +187,14 @@ class CachePlan:
         return replace(self, cache=self.cache.to(device),
                        pos=self.pos.to(device))
 
+    def to_dynamic(self):
+        """Promote this static plan to CLOCK admission state
+        (`repro_torch.featcache.dynamic.DynamicCacheState`): same
+        residency, clear reference bits, zeroed accumulators, hand at
+        slot 0."""
+        from repro_torch.featcache.dynamic import from_plan
+        return from_plan(self)
+
     def describe(self) -> str:
         return f"{self.policy}@C={self.capacity}"
 
@@ -257,7 +265,8 @@ def cache_ref_updates_np(pos: np.ndarray, ids: np.ndarray,
                          capacity: int) -> Tuple[np.ndarray, np.ndarray]:
     """Per-slot hit counts `(C,)` and per-node miss counts `(N,)` over the
     VALID entries of `ids` (same validity rule as `cache_stats_np`): the
-    numpy mirror of the extended counters the dynamic cache will read."""
+    numpy mirror of the extended device counters the dynamic cache reads,
+    `repro_torch.kernels.gather_cached.ops.cache_ref_updates`."""
     pos = np.asarray(pos)
     ids = np.asarray(ids)
     num_nodes = len(pos)

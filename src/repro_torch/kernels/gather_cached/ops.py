@@ -6,11 +6,12 @@ the cache array when `pos[ids[k]] >= 0` and from the global matrix
 otherwise, and returns `(rows, hits, misses)`. The counters are device
 scalars (`cache_stats`, the one counting rule, mirrored by
 `repro_torch.featcache.cache_stats_np`), so a caller can keep them unread
-until a boundary where it reads the host anyway. The forward is the CUDA
-kernel on CUDA tensors (`kernel.py`); the backward needs no kernel of its
-own: d_cache and d_feats are two fanout-1 masked scatter-adds through the
-`gather_agg` backward-dx kernel, and run only for an input that needs a
-gradient.
+until a boundary where it reads the host anyway; `cache_ref_updates`
+extends them to per-slot hits and per-node misses for the dynamic cache.
+The forward is the CUDA kernel on CUDA tensors (`kernel.py`); the
+backward needs no kernel of its own: d_cache and d_feats are two
+fanout-1 masked scatter-adds through the `gather_agg` backward-dx
+kernel, and run only for an input that needs a gradient.
 """
 from __future__ import annotations
 
@@ -35,6 +36,33 @@ def cache_stats(pos: torch.Tensor, ids: torch.Tensor, num_nodes: int):
     valid = (ids >= 0) & (ids < num_nodes)
     hits = hit.sum(dtype=torch.int32)
     return hits, valid.sum(dtype=torch.int32) - hits
+
+
+def cache_ref_updates(pos: torch.Tensor, ids: torch.Tensor,
+                      capacity: int):
+    """Per-SLOT hit counts and per-NODE miss counts for one batch of reads
+    (`repro/kernels/gather_cached/ops.py:56-77`) — the extended device
+    counters behind the dynamic CLOCK admission
+    (`repro_torch.featcache.dynamic`).
+
+    Returns `(slot_hits (C,) int32, node_miss (N,) int32)` over the VALID
+    entries of `ids` (the validity rule of `cache_stats`; their sums equal
+    its hits and misses). Invalid entries and the other side's entries
+    add zero at index 0. Integer `index_add_` sums exactly in any order,
+    so the result is deterministic on the card too; nothing is read on
+    the host. Mirror: `repro_torch.featcache.cache_ref_updates_np`."""
+    num_nodes = pos.shape[0]
+    ids = ids.to(torch.int32)
+    gid, sel, hit = _hit_mask(pos, ids, num_nodes)
+    valid = (ids >= 0) & (ids < num_nodes)
+    miss = valid & ~hit
+    slot_hits = torch.zeros(capacity, dtype=torch.int32, device=pos.device)
+    slot_hits.index_add_(0, torch.where(hit, sel, 0).long(),
+                         hit.to(torch.int32))
+    node_miss = torch.zeros(num_nodes, dtype=torch.int32, device=pos.device)
+    node_miss.index_add_(0, torch.where(miss, gid, 0).long(),
+                         miss.to(torch.int32))
+    return slot_hits, node_miss
 
 
 class _GatherCached(torch.autograd.Function):

@@ -141,6 +141,23 @@ def params_to_jax(model: GNN) -> Dict:
                        for layer in model.layers]}
 
 
+def param_tree(model: GNN, tensors: Sequence[torch.Tensor]) -> Dict:
+    """`tensors`, one per parameter in `model.parameters()` order (the
+    parameters themselves, or AdamW's moments), in the reference's tree
+    layout `{"layers": [{key: tensor}, ...]}`; GAT's missing `w_out` is
+    None. The checkpoint walk takes leaves and paths from this tree."""
+    it = iter(tensors)
+    return {"layers": [{k: None if getattr(layer, k) is None else next(it)
+                        for k in _KEYS[type(layer)]}
+                       for layer in model.layers]}
+
+
+def tree_tensors(tree: Dict) -> List[torch.Tensor]:
+    """The inverse of `param_tree`: the leaves in `parameters()` order."""
+    return [v for layer in tree["layers"] for v in layer.values()
+            if v is not None]
+
+
 def _masked_mean(x_tab, src_idx, edge_mask, plan=None):
     """(n_dst, r)-indexed mean over valid neighbor slots -> (n_dst, F)."""
     m = edge_mask.to(torch.float32)

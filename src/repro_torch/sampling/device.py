@@ -77,7 +77,10 @@ class BiasedTwoPhaseSampler:
         offset = torch.where(intra, off_i, off_o)
         offset = torch.minimum(torch.clamp(offset, min=0),
                                torch.clamp(deg - 1, min=0)[:, None])
-        src = g.indices[start[:, None] + offset]
+        # an isolated node at the end of the CSR starts at E: clamp, as
+        # JAX's gather does (`_finish` replaces its draws with itself)
+        src = g.indices[torch.clamp(start[:, None] + offset,
+                                    max=g.indices.shape[0] - 1)]
         return _finish(g, valid, safe, deg, src)
 
     def sample_level_np(self, rng, graph, level, fanout: int,

@@ -139,6 +139,26 @@ def test_minibatch_fields_equal(tiny_graph, dev_graphs, p, caps, n_roots):
     assert_batches_equal(tb, jb)
 
 
+def test_isolated_last_node_samples_itself(tiny_graph):
+    """Louvain's order puts tiny's one isolated node last in the CSR, so
+    its row starts at E: the port's gather must clamp there as JAX's does
+    (it raised IndexError), and the batch must equal the reference's."""
+    g = prepare(synthetic.load("tiny"), oracle=False)
+    last = g.num_nodes - 1
+    assert g.indptr[last] == g.indptr[-1] == g.num_edges
+    roots = np.full(B, -1, np.int64)
+    roots[:4] = [last, 0, last - 1, 5]
+    caps, key = (768, 1152), jax.random.key(3)
+    jb = mb_j.build_batch(key, DeviceGraphJ.from_graph(g),
+                          jnp.asarray(roots, jnp.int32),
+                          jnp.asarray(g.labels), FANOUTS, caps, 0.5)
+    tb = mb.build_batch(DeviceGraph.from_graph(g, device="cpu"),
+                        torch.as_tensor(roots, dtype=torch.int32),
+                        torch.as_tensor(g.labels), FANOUTS, caps, 0.5,
+                        draw=injected(jax_uniforms(key, FANOUTS, caps, B)))
+    assert_batches_equal(tb, jb)
+
+
 def test_unique_capped_matches_jnp_unique():
     rng = np.random.default_rng((0, 2))
     for cap in (3, 10, 40):

@@ -327,8 +327,17 @@ def test_fit_reports_the_cache(tiny_t):
 
 @pytest.mark.parametrize("spec", ["dynamic", "dynamic:degree_hot"])
 def test_dynamic_admission_is_refused(tiny_t, spec):
-    with pytest.raises(ValueError, match="not ported"):
-        _trainer(tiny_t, cache=spec)
+    """Dynamic (CLOCK) admission is ported (it raised before): the spec
+    builds a CLOCK state seeded from its admission, and only a seed
+    admission that is not registered is refused."""
+    tr = _trainer(tiny_t, cache=spec)
+    assert isinstance(tr.cache, featcache.DynamicCacheState)
+    seed = spec.split(":")[1] if ":" in spec else "presampled_freq"
+    assert tr.cache.policy.startswith(seed)
+    assert tr.stream.cache is tr.cache
+    with pytest.raises(KeyError, match="unknown admission"):
+        _trainer(tiny_t, cache=f"{spec}_unknown" if ":" in spec
+                 else "dynamic:unknown")
 
 
 @pytest.mark.parametrize("entry", ["trainer", "stream", "plan"])

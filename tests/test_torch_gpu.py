@@ -13,6 +13,11 @@ from repro_torch.configs import LM_CONFIGS, GNNConfig, TrainConfig
 from repro_torch.core.reorder import prepare
 from repro_torch.graphs import synthetic
 from repro_torch.featcache import gather_cached
+from repro_torch.featcache import dynamic
+from repro_torch.featcache.dynamic import DynamicCacheState
+from repro_torch.kernels.clock_refill import kernel as walk_kernel
+from repro_torch.kernels.clock_refill.ops import refill_candidates
+from repro_torch.kernels.clock_refill.ref import clock_refill_ref
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gather_agg import kernel, ref
@@ -1213,3 +1218,111 @@ def test_rwkv_generate_on_the_card_matches_the_cpu(cuda):
     gpu = generate(cfg, params, tokens, 8, device=cuda)
     assert wkv_kernel.LAUNCHES["wkv6_fwd"] == cfg.num_layers
     assert torch.equal(gpu.ids.cpu(), cpu.ids)
+
+
+# ---------------------------------------------------------------------------
+# the dynamic cache's epoch-boundary CLOCK walk
+# ---------------------------------------------------------------------------
+def _clock_state(n, c, max_freq, seed, device):
+    """A CLOCK state at an epoch's end on `device`: random residency,
+    reference bits, hit and miss counts (ties plentiful), a random hand."""
+    rng = np.random.default_rng((seed, n))
+    ids = np.sort(rng.choice(n, size=c, replace=False))
+    pos = np.full(n, -1, np.int32)
+    pos[ids] = np.arange(c, dtype=np.int32)
+    fields = {"pos": pos, "slot_ids": ids.astype(np.int32),
+              "refbit": rng.integers(0, 2, c).astype(np.int32),
+              "slot_freq": rng.integers(0, max_freq, c).astype(np.int32),
+              "freq": rng.integers(0, max_freq, n).astype(np.int32),
+              "hand": np.asarray(int(rng.integers(0, c)), np.int32)}
+    return {k: torch.as_tensor(v).to(device) for k, v in fields.items()}
+
+
+# (N, C, max_freq): C words of 4 bytes in shared memory up to the 227 KB a
+# block may opt into (46,593 is the reddit-602 cache); 60,000 and 100,000
+# do not fit and keep them in global memory
+CLOCK_CASES = [(40, 1, 3), (500, 7, 4), (5000, 1023, 6), (5000, 1025, 2),
+               (50_000, 4096, 20), (232_965, 46_593, 30),
+               (232_965, 60_000, 30), (300_000, 100_000, 5)]
+
+
+@pytest.mark.parametrize("n,c,max_freq", CLOCK_CASES)
+def test_clock_refill_kernel_matches_plain_version(cuda, n, c, max_freq):
+    """Slot for slot equal to the plain walk on a CPU copy: pos,
+    slot_ids, the bits (those a failed pass clears too), slot_freq, hand,
+    the admissions and the step count; a relaunch is bit-identical."""
+    st = _clock_state(n, c, max_freq, 0, cuda)
+    cand = refill_candidates(st["pos"], st["freq"], c)
+    args = [st[k] for k in ("pos", "slot_ids", "refbit", "slot_freq",
+                            "hand")] + list(cand)
+    walk_kernel.reset_launches()
+    got = walk_kernel.clock_refill(*args)
+    want = clock_refill_ref(*(a.cpu() for a in args))
+    n_adm = int(want.n_admitted)
+    assert int(got.n_admitted) == n_adm
+    for f in ("pos", "slot_ids", "refbit", "slot_freq", "hand", "steps"):
+        assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
+    for f in ("adm_slots", "adm_nodes"):
+        assert torch.equal(getattr(got, f)[:n_adm].cpu(),
+                           getattr(want, f)[:n_adm]), f
+    again = walk_kernel.clock_refill(*args)
+    for f in got._fields:
+        a, b = getattr(got, f), getattr(again, f)
+        if f in ("adm_slots", "adm_nodes"):
+            a, b = a[:n_adm], b[:n_adm]
+        assert torch.equal(a, b), f
+    assert walk_kernel.LAUNCHES["clock_refill"] == 2
+    where = "shared" if 4 * c + 1024 <= 232_448 else "global"
+    assert walk_kernel.SMEM[where] == 2
+
+
+def test_dynamic_refill_on_the_card_equals_the_cpu(cuda):
+    """`dynamic.refill` whole (candidate sort, the kernel, the row copy):
+    the card's new state equals the CPU's, rows included."""
+    n, c, f = 20_000, 4000, 33
+    st = _clock_state(n, c, 12, 2, "cpu")
+    feats = torch.as_tensor(np.random.default_rng((2, 3)).normal(
+        size=(n, f)), dtype=torch.float32)
+    state = DynamicCacheState(cache=feats[st["slot_ids"].long()], **st,
+                              capacity=c, policy="t")
+    want, adm = dynamic.refill(state, feats)
+    got, adm_card = dynamic.refill(state.to(cuda), feats.to(cuda))
+    assert adm == adm_card > 0
+    for k in DynamicCacheState.DATA_FIELDS:
+        assert torch.equal(getattr(got, k).cpu(), getattr(want, k)), k
+    assert dynamic.integrity_ok(got)
+
+
+def test_resume_on_the_card_is_bit_exact_with_the_dynamic_cache(
+        cuda, tmp_path):
+    """Tiny on the card: a run checkpointed at step 4 and resumed equals
+    the uninterrupted run through the epoch-6 refill, losses, weights,
+    AdamW's state and CLOCK state bit for bit; one clock_refill launch
+    per epoch boundary."""
+    g = prepare(synthetic.load("tiny"), oracle=True)
+    cfg = GNNConfig("t", "sage", 2, 32, g.feat_dim, g.num_classes,
+                    fanout=(5, 5), dropout=0.5)
+
+    def make(d=None):
+        return GNNTrainer(g, cfg, TrainConfig(batch_size=256), "comm_rand",
+                          caps=(768, 1152), eval_caps=(768, 1152), seed=0,
+                          cache="dynamic", cache_frac=0.3, ckpt_dir=d,
+                          ckpt_every=4, device=cuda)
+
+    walk_kernel.reset_launches()
+    a = make()
+    la = a.train_steps(13)
+    assert walk_kernel.LAUNCHES["clock_refill"] == 2
+    b = make(str(tmp_path))
+    b.train_steps(7)
+    b2 = make(str(tmp_path))
+    assert b2.global_step == 4
+    assert b2.train_steps(9) == la[4:]
+    for x, y in zip(a.params.parameters(), b2.params.parameters()):
+        assert torch.equal(x, y)
+    for x, y in zip(a.opt_state["m"] + a.opt_state["v"],
+                    b2.opt_state["m"] + b2.opt_state["v"]):
+        assert torch.equal(x, y)
+    for k in DynamicCacheState.DATA_FIELDS:
+        x, y = getattr(a.cache, k), getattr(b2.cache, k)
+        assert x.device == y.device and torch.equal(x, y), k

@@ -14,9 +14,11 @@ from repro_torch.configs import LM_CONFIGS, GNNConfig, TrainConfig
 from repro_torch.core.reorder import prepare
 from repro_torch.graphs import synthetic
 from repro_torch.graphs.csr import DeviceGraph
+from repro_torch.kernels.clock_refill import kernel as walk_kernel
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.gather_agg import kernel
 from repro_torch.kernels.rwkv6_chunk import kernel as wkv_kernel
+from repro_torch.launch import train as train_cli
 from repro_torch.launch.serve import generate
 from repro_torch.train.gnn_loop import GNNTrainer
 
@@ -43,7 +45,7 @@ def test_port_modules_import_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 62          # every slice module was imported
+    assert n_modules >= 73          # every slice module was imported
 
 
 _EACH_FIRST = r"""
@@ -66,7 +68,7 @@ def test_each_port_module_imports_first():
     out = subprocess.run([sys.executable, "-c", _EACH_FIRST], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 62
+    assert int(out.stdout.split()[0]) >= 73
 
 
 @pytest.fixture(scope="module")
@@ -75,7 +77,7 @@ def tiny():
 
 
 @pytest.mark.parametrize("entry", ["trainer", "stream", "device_graph",
-                                   "generate"])
+                                   "generate", "train_cli"])
 def test_entry_points_raise_without_a_card(tiny, entry, monkeypatch):
     """No card and no explicit device: raise, never fall back."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -90,6 +92,9 @@ def test_entry_points_raise_without_a_card(tiny, entry, monkeypatch):
         elif entry == "generate":
             generate(LM_CONFIGS["gemma3-1b"].reduced(), {},
                      torch.zeros((1, 4), dtype=torch.long), 1)
+        elif entry == "train_cli":
+            train_cli.main(["--arch", "graphsage", "--dataset", "tiny",
+                            "--epochs", "1"])
         else:
             DeviceGraph.from_graph(tiny)
 
@@ -129,3 +134,17 @@ def test_wkv6_cpu_tensors_take_the_plain_path_and_count_no_launch():
     out, s_f = wkv_kernel.wkv6_fwd(r, k, v, logw, u)
     assert out.shape == r.shape and s_f.shape == (1, 2, 16, 16)
     assert wkv_kernel.LAUNCHES == {"wkv6_fwd": 0}
+
+
+def test_clock_refill_cpu_tensors_take_the_plain_path_and_count_no_launch():
+    walk_kernel.reset_launches()
+    i32 = dict(dtype=torch.int32)
+    w = walk_kernel.clock_refill(
+        torch.tensor([0, 1, -1, -1], **i32), torch.tensor([0, 1], **i32),
+        torch.tensor([1, 0], **i32), torch.tensor([0, 0], **i32),
+        torch.tensor(0, **i32), torch.tensor([3, 2], **i32),
+        torch.tensor([2, 1], **i32))
+    # node 3 takes slot 1 once slot 0's bit is stripped, then node 2 slot 0
+    assert w.slot_ids.tolist() == [2, 3] and int(w.n_admitted) == 2
+    assert w.pos.tolist() == [-1, -1, 0, 1] and int(w.hand) == 1
+    assert walk_kernel.LAUNCHES == {"clock_refill": 0}
