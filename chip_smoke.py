@@ -196,6 +196,29 @@ run, exit code != 0):
               cache saves on the card, a CPU trainer restores it (weights
               and CLOCK state equal) and both take 5 more steps within
               rtol 1e-4
+  10. the async pipeline and the tracer, on the reddit-602 graph after
+              phase 9 (`repro_torch.pipeline`, `repro_torch.obs`): (a) 40
+              GraphSAGE steps with `pipeline="async"` against 40 with
+              "sync" on the same cursor, losses bit-identical and launches
+              exactly 3 fwd and 4 bwd_dx a step; then async with phase 9's
+              dynamic CLOCK state, `run_epoch` (151 steps) and 9 more,
+              against 160 sync steps: the epoch's mean loss, the 9 losses,
+              the CLOCK state and weights at 160 equal, 1 `clock_refill`;
+              (b) paired timing sync, async, sync, async on the same
+              batches (20 steps of `train_steps(1)` for the median step,
+              then one `train_steps(20)`), the queue's `queue_get_wait` a
+              step from the span tracer, 3 profiled steps of each for the
+              device idle share; the device epoch order's ms (events)
+              against numpy's (host), `builder.build` and `stage_times`;
+              (c) a traced async epoch with the dynamic cache, guard and
+              checkpoints off: `obs.report.analyze` finds overlap > 0, no
+              mid-epoch sync, no conformance problem, and the epoch equals
+              the untraced one (mean loss, CLOCK state, weights); (d) the
+              watchdog: a `batch_build` fault mid-epoch and (after
+              `prime()`, `stall_timeout_s` 1.0) a `producer_hang` each make
+              exactly 1 producer restart and sync's losses; a build that
+              always fails exhausts the 3-restart budget and raises the
+              real `InjectedFault`
 
 It prints the `{"kernels": [...]}` line before the last, and as the last
 line `{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
@@ -1455,6 +1478,260 @@ def phase_card_to_cpu(torch, g):
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the async pipeline and the tracer (reddit-602 GraphSAGE)
+# ---------------------------------------------------------------------------
+ASYNC, ASYNC_DYN = "graphsage_async", "graphsage_async_dynamic"
+ASYNC_STEPS, PAIR_STEPS, DYN_STEPS = 40, 20, 160   # (a), (b) a run, (a) dyn
+WATCH_AT, WATCH_STEPS, HANG_TIMEOUT_S = 6, 12, 1.0  # (d)
+
+
+def span_ms(events, name):
+    """(total, mean) ms of the `name` spans among `events`."""
+    durs = [e["dur"] / 1e3 for e in events if e.get("name") == name]
+    return sum(durs), (statistics.mean(durs) if durs else 0.0)
+
+
+def phase_async(torch, graph, policy, plan, caps, eval_caps):
+    """(a) async against sync on the same cursor: 40 GraphSAGE steps with
+    their launch counts, then 160 steps with phase 9's dynamic CLOCK state
+    across epoch 0's boundary; (b) paired timing, sync, async, sync,
+    async, and a profile of each; the device order against the numpy one;
+    the build's stages; (c) a traced async epoch through the analyzer's
+    gates; (d) the producer watchdog. Returns the launches of (a)'s two
+    async runs by path."""
+    import shutil
+    import numpy as np
+    from repro_torch.configs import CONFIGS, TrainConfig
+    from repro_torch.obs import report, trace
+    from repro_torch.pipeline import OrderSpec, device_epoch_order, \
+        stage_times
+    from repro_torch.pipeline.device_order import epoch_words_for
+    from repro_torch.resilience import FaultPlan, FaultSpec, InjectedFault
+    from repro_torch.resilience import faults
+    from repro_torch.train.gnn_loop import GNNTrainer
+
+    lr = TrainConfig().learning_rate
+
+    def make(pipeline, cache=None):
+        return GNNTrainer(graph, CONFIGS["graphsage"], TrainConfig(), policy,
+                          caps=caps, eval_caps=eval_caps, seed=0,
+                          device=DEVICE, cache=cache, pipeline=pipeline)
+
+    def fresh():
+        return plan.to(DEVICE).to_dynamic()
+
+    t_phase = time.perf_counter()
+    runs = {}
+    # (a) -------------------------------------------------------------------
+    sync = make("sync")
+    want_a = sync.train_steps(ASYNC_STEPS)
+    asyn = make("async")
+    torch.cuda.synchronize()
+    reset_launches()                             # counts start here
+    got = asyn.train_steps(ASYNC_STEPS)
+    torch.cuda.synchronize()
+    runs[ASYNC] = read_launches()                # ... and are read here
+    expect = {k: 0 for k in runs[ASYNC]}
+    expect.update(gather_agg_fwd=3 * ASYNC_STEPS,
+                  gather_agg_bwd_dx=4 * ASYNC_STEPS)
+    check(runs[ASYNC] == expect,
+          f"{ASYNC}: launches {runs[ASYNC]} != {expect}")
+    check(got == want_a, f"{ASYNC}: losses differ from sync's")
+    log(f"[10 async] {ASYNC_STEPS} GraphSAGE steps, pipeline='async' vs "
+        f"'sync' on the same cursor: losses bit-identical ({got[0]:.4f} -> "
+        f"{got[-1]:.4f}); launches {runs[ASYNC]}")
+
+    # (b) -------------------------------------------------------------------
+    timing = {"sync": [], "async": []}
+    for rnd in range(2):
+        losses = {}
+        for name, tr in (("sync", sync), ("async", asyn)):
+            with trace.enabled(None) as tracer:
+                per, ls = [], []
+                for _ in range(PAIR_STEPS):
+                    t0 = time.perf_counter()
+                    ls += tr.train_steps(1)      # ends in one loss read
+                    per.append((time.perf_counter() - t0) * 1e3)
+                t0 = time.perf_counter()
+                ls += tr.train_steps(PAIR_STEPS)  # one read at the end
+                window = (time.perf_counter() - t0) * 1e3 / PAIR_STEPS
+                evs = tracer.events()
+            losses[name] = ls
+            timing[name].append({
+                "median_ms": statistics.median(per), "window_ms": window,
+                "get_wait_ms": span_ms(evs, "queue_get_wait")[0]
+                / (2 * PAIR_STEPS),
+                # the host's own share: the step's dispatch, the build's
+                "step_span_ms": span_ms(evs, "train_step")[1],
+                "build_span_ms": span_ms(evs, "producer_build")[1]})
+        check(losses["sync"] == losses["async"],
+              f"paired round {rnd}: losses differ")
+    for name, tr in (("sync", sync), ("async", asyn)):
+        step = statistics.median(r["median_ms"] for r in timing[name])
+        dev, _ = profile_kernels(torch, lambda: tr.train_steps(3))
+        busy = sum(t for _, t, _ in dev) / 3 / 1e3
+        for r in timing[name]:
+            r["kernels_ms"], r["idle"] = busy, 1 - busy / step
+    for rnd in range(2):
+        for name in ("sync", "async"):
+            r = timing[name][rnd]
+            log(f"[10 paired] run {2 * rnd + (name == 'async') + 1} "
+                f"{name:5s}: median step {r['median_ms']:.2f} ms "
+                f"(train_steps(1), {PAIR_STEPS} steps), "
+                f"{r['window_ms']:.2f} ms a step over train_steps("
+                f"{PAIR_STEPS}); queue_get_wait {r['get_wait_ms']:.3f} ms "
+                f"a step; train_step span (host dispatch) "
+                f"{r['step_span_ms']:.2f} ms, producer_build span "
+                f"{r['build_span_ms']:.2f} ms; kernels {r['kernels_ms']:.2f} "
+                f"ms/step, device idle share {r['idle']:.3f} (3 profiled "
+                f"steps)")
+    spec = OrderSpec.for_policy(graph, policy, DEVICE)
+    words = epoch_words_for(0, 1)
+    dev_ms = cuda_ms(torch, lambda: device_epoch_order(spec, words),
+                     reps=5, rounds=3)
+    from repro_torch.batching.order import make_batches
+    np_ms = []
+    for e in range(1, 4):
+        t0 = time.perf_counter()
+        make_batches(policy.epoch_order(
+            graph.train_ids, graph.communities,
+            np.random.default_rng((0, e))), TrainConfig().batch_size)
+        np_ms.append((time.perf_counter() - t0) * 1e3)
+    st = sync.stream
+    stages = stage_times(st.g, st.root_batches(0)[1], st.labels, st.fanouts,
+                         st.caps, st.sampler, seed=0, epoch=0, pos=1)
+    build_ms = cuda_ms(torch, lambda: asyn.stream.builder.build(0, 1),
+                       reps=3, rounds=3)
+    log(f"[10 order] epoch order of {len(graph.train_ids)} roots: on the "
+        f"device {dev_ms:.3f} ms (events), numpy + make_batches "
+        f"{statistics.median(np_ms):.3f} ms (host, "
+        f"{[round(t, 3) for t in np_ms]}); builder.build {build_ms:.3f} ms "
+        f"(events); stages (best of 10, events) roots "
+        f"{stages['roots_us']:.1f} us, sample {stages['sample_us']:.1f} us, "
+        f"dedup {stages['dedup_us']:.1f} us")
+    asyn.stream.close()
+    del sync, asyn
+    torch.cuda.empty_cache()
+
+    # (a) with the dynamic cache --------------------------------------------
+    sd = make("sync", fresh())
+    nb = sd.stream.num_batches(0)
+    want = sd.train_steps(DYN_STEPS)
+    want_state = (cache_fields(sd.cache), params_of(sd))
+    del sd
+    ad = make("async", fresh())
+    torch.cuda.synchronize()
+    reset_launches()                             # counts start here
+    ep = ad.run_epoch(lr)
+    snap = (cache_fields(ad.cache), params_of(ad))
+    rest = ad.train_steps(DYN_STEPS - nb)
+    torch.cuda.synchronize()
+    runs[ASYNC_DYN] = read_launches()            # ... and are read here
+    ad.stream.close()
+    expect = {k: 0 for k in runs[ASYNC_DYN]}
+    expect.update(gather_agg_fwd=3 * DYN_STEPS,
+                  gather_agg_bwd_dx=4 * DYN_STEPS,
+                  gather_cached_fwd=DYN_STEPS, clock_refill=1)
+    check(runs[ASYNC_DYN] == expect,
+          f"{ASYNC_DYN}: launches {runs[ASYNC_DYN]} != {expect}")
+    mean0 = float(np.mean(np.asarray(want[:nb], np.float32)))
+    check(ep["loss"] == mean0 and rest == want[nb:],
+          f"{ASYNC_DYN}: losses differ from the sync dynamic run's")
+    check(same_fields(torch, cache_fields(ad.cache), want_state[0]) and
+          all(torch.equal(a, b) for a, b in zip(params_of(ad),
+                                                want_state[1])),
+          f"{ASYNC_DYN}: state at {DYN_STEPS} differs from sync's")
+    log(f"[10 async] {ASYNC_DYN}: run_epoch ({nb} steps, the refill in the "
+        f"last) + {DYN_STEPS - nb} steps, async vs sync: epoch-0 mean loss "
+        f"{ep['loss']:.6f} and the {DYN_STEPS - nb} losses after it "
+        f"bit-identical; CLOCK state and weights at {DYN_STEPS} equal; "
+        f"launches {runs[ASYNC_DYN]}")
+    del ad
+
+    # (c) -------------------------------------------------------------------
+    root = ROOT / "build" / "phase10"
+    shutil.rmtree(root, ignore_errors=True)
+    path = str(root / "trace.jsonl")
+    td = make("async", fresh())
+    with trace.enabled(path, run="chip_smoke", pipeline="async") as tracer:
+        ep_t = td.run_epoch(lr)
+        tracer.flush()
+    td.stream.close()
+    events = report.load_trace(path)
+    rep = report.analyze(events)
+    check(not rep["conformance_problems"],
+          f"trace: {rep['conformance_problems'][:3]}")
+    check(rep["overlap"]["overlap_frac"] > 0, f"overlap {rep['overlap']}")
+    check(rep["mid_epoch_sync_count"] == 0, "mid-epoch syncs " + str(
+        [e["mid_epoch_sync_names"] for e in rep["epochs"]]))
+    check(ep_t["loss"] == ep["loss"] and
+          same_fields(torch, cache_fields(td.cache), snap[0]) and
+          all(torch.equal(a, b) for a, b in zip(params_of(td), snap[1])),
+          "the traced epoch differs from the untraced one")
+    (dev_span,) = [e for e in events if e["name"] == "device_steps"]
+    ov = rep["overlap"]
+    stalls = ", ".join(f"{k}: {v['total_s']:.3f} s"
+                       for k, v in sorted(rep["stalls"].items()))
+    log(f"[10 trace] traced async epoch ({nb} steps, dynamic cache, guard "
+        f"and checkpoints off): {rep['n_events']} events, "
+        f"{rep['n_threads']} threads, {rep['wall_s']:.2f} s; overlap_frac "
+        f"{ov['overlap_frac']:.3f} (producer busy "
+        f"{ov['producer_busy_s']:.3f} s, steps {ov['consumer_busy_s']:.3f} "
+        f"s); stalls {{{stalls}}}; "
+        f"sync sites {sorted(rep['sync_sites'])}; mid-epoch syncs 0; "
+        f"device_steps per_step_us {dev_span['args']['per_step_us']:.1f}; "
+        f"mean loss equal to the untraced epoch's, state equal")
+    log(f"[10 trace] hub.export() keys {sorted(td.hub.export())}; metrics "
+        f"{sorted(td.hub.snapshot())}")
+    shutil.rmtree(root, ignore_errors=True)
+    del td
+    torch.cuda.empty_cache()
+
+    # (d) -------------------------------------------------------------------
+    base = want_a[:WATCH_STEPS]
+    outcomes = []
+    for site in ("batch_build", "producer_hang"):
+        w = make("async")
+        if site == "producer_hang":
+            w.stream.prime()
+            w.stream.stall_timeout_s = HANG_TIMEOUT_S
+        fplan = FaultPlan(specs=(FaultSpec(site, WATCH_AT),))
+        t0 = time.perf_counter()
+        with faults.inject(fplan):
+            got = w.train_steps(WATCH_STEPS)
+        w.stream.close()
+        dt = time.perf_counter() - t0
+        m = w.guard_meter.counts()
+        check(len(fplan.fired(site)) == 1 and w.stream.restarts == 1 and
+              m["producer_restarts"] == 1 and got == base,
+              f"{site}: fired {fplan.fired()}, meter {m}")
+        outcomes.append(f"{site} at build {WATCH_AT}: 1 restart, "
+                        f"{WATCH_STEPS} losses = sync's ({dt:.2f} s)")
+    w.stream.stall_timeout_s = 60.0
+    fplan = FaultPlan(specs=(FaultSpec("batch_build", 0, 100),))
+    raised = None
+    with faults.inject(fplan):
+        try:
+            w.train_steps(3)
+        except InjectedFault as exc:             # the real producer error
+            raised = exc
+    m = w.guard_meter.counts()
+    budget = w.stream.max_restarts
+    check(raised is not None and raised.site == "batch_build" and
+          w.stream.restarts == 1 + budget and
+          m["producer_restarts"] == 1 + budget,
+          f"budget: raised {raised!r}, meter {m}")
+    w.stream.close()
+    del w
+    torch.cuda.empty_cache()
+    log(f"[10 watchdog] {'; '.join(outcomes)} (stall_timeout_s "
+        f"{HANG_TIMEOUT_S} after prime()); a build failing every time: "
+        f"{budget} restarts, then the real error raised: {raised!r}")
+    log(f"[10 done] phase 10: {time.perf_counter() - t_phase:.1f} s")
+    return runs
+
+
+# ---------------------------------------------------------------------------
 # phase 6: LM serving (gemma3-1b prefill + greedy decode)
 # ---------------------------------------------------------------------------
 def serve_model(torch, arch, tag):
@@ -2485,6 +2762,7 @@ def main() -> int:
     runs[DYN], readings[DYN] = phase_dynamic(torch, graph, policy, plan,
                                              caps, eval_caps)
     phase_card_to_cpu(torch, tiny)
+    runs.update(phase_async(torch, graph, policy, plan, caps, eval_caps))
 
     del graph, tiny, plan
     torch.cuda.empty_cache()

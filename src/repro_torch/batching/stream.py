@@ -14,9 +14,10 @@ and a CPU stream with the same seed draw different uniforms; the reference's
 threefry draws are not reproduced (the parity tests inject them instead).
 
 The stream carries the feature cache (`cache=`) its consumers read layer-0
-features through. The async pipeline (`prefetch=`) is not ported yet. CUDA
-work is queued asynchronously by PyTorch, so the build of the next batch
-already overlaps the device's current step.
+features through. `_take(epoch, pos)` is the override point of the async
+pipeline: `repro_torch.pipeline.AsyncBatchStream` hands out the same
+batches from a producer thread that builds them on a CUDA side stream from
+a device-resident epoch order (`GNNTrainer(pipeline="async")`).
 """
 from __future__ import annotations
 
@@ -67,6 +68,21 @@ class Cursor:
     @staticmethod
     def from_state(d) -> "Cursor":
         return Cursor(int(d["epoch"]), int(d["pos"]))
+
+
+def build_at(g: DeviceGraph, roots: torch.Tensor, labels: torch.Tensor,
+             fanouts, caps, sampler, seed: int, epoch: int,
+             pos: int) -> mb.MiniBatch:
+    """The static-shape batch for device `roots` (int32, -1 padded) at
+    cursor (epoch, pos): one generator per hop from `cursor_generator`.
+    The one build body of `BatchStream.build` and of
+    `pipeline.DeviceBatchBuilder.build`."""
+    def draw(hop, M, fanout):
+        gen = cursor_generator(g.device, seed, epoch, pos, hop, SALT_SAMPLE)
+        return sampler.draw(gen, M, fanout)
+
+    return mb._build_batch_impl(g, roots, labels, fanouts, caps, sampler,
+                                draw)
 
 
 def _device_inputs(graph: Graph, device: torch.device,
@@ -129,17 +145,16 @@ class BatchStream:
 
     def build(self, roots: np.ndarray, epoch: int, pos: int) -> mb.MiniBatch:
         """The static-shape batch for these roots at cursor (epoch, pos)."""
-        def draw(hop, M, fanout):
-            gen = cursor_generator(self.device, self.seed, epoch, pos, hop,
-                                   SALT_SAMPLE)
-            return self.sampler.draw(gen, M, fanout)
-
         r = torch.as_tensor(np.asarray(roots), dtype=torch.int32)
-        return mb._build_batch_impl(
-            self.g, r.to(self.device), self.labels, self.fanouts, self.caps,
-            self.sampler, draw)
+        return build_at(self.g, r.to(self.device), self.labels, self.fanouts,
+                        self.caps, self.sampler, self.seed, epoch, pos)
 
     # -- iteration -----------------------------------------------------------
+    def _take(self, epoch: int, pos: int) -> mb.MiniBatch:
+        """Produce batch (epoch, pos) — the override point for async
+        streams. The base class builds it from the numpy epoch order."""
+        return self.build(self.root_batches(epoch)[pos], epoch, pos)
+
     def epoch(self) -> Iterator[mb.MiniBatch]:
         """Yield the REMAINDER of the current epoch (all of it when the
         cursor sits at pos 0), then advance the cursor to the next epoch.
@@ -158,7 +173,7 @@ class BatchStream:
         e = self.cursor.epoch
         while self.cursor.epoch == e and self.cursor.pos < nb:
             pos = self.cursor.pos
-            batch = self.build(self.root_batches(e)[pos], e, pos)
+            batch = self._take(e, pos)
             self.cursor.pos += 1
             yield batch
         if self.cursor.epoch == e:            # exhausted, not broken out of

@@ -52,6 +52,7 @@ from repro_torch.featcache.plan import (CachePlan, as_plan, build_plan,
                                         cache_ref_updates_np)
 from repro_torch.kernels.clock_refill.ops import clock_refill
 from repro_torch.kernels.gather_cached.ops import cache_ref_updates
+from repro_torch.obs import trace as obs_trace
 from repro_torch.resilience import faults
 
 
@@ -184,9 +185,10 @@ def refill(state: DynamicCacheState,
 
     Call it outside differentiated code (the trainer refills between
     batches at epoch boundaries). Oracle: `refill_np`."""
-    cache, walk, admitted = clock_refill(
-        state.cache, state.pos, state.slot_ids, state.refbit,
-        state.slot_freq, state.freq, state.hand, feats)
+    with obs_trace.span("clock_refill", cat="cache"):
+        cache, walk, admitted = clock_refill(
+            state.cache, state.pos, state.slot_ids, state.refbit,
+            state.slot_freq, state.freq, state.hand, feats)
     new_state = replace(
         state, cache=cache, pos=walk.pos, slot_ids=walk.slot_ids,
         refbit=walk.refbit,

@@ -1,9 +1,10 @@
 """`repro_torch.resilience` — deterministic fault injection and guarded
 execution (`repro/resilience/__init__.py`), the parts the port has so far.
 
-  faults    seeded `FaultPlan` arming named sites; the port wires
-            `step_nonfinite` (the GNN train step), `ckpt_truncate`
-            (`train.checkpoint.save`) and `cache_corrupt`
+  faults    seeded `FaultPlan` arming named sites: `batch_build`
+            (`pipeline.DeviceBatchBuilder.build`), `producer_hang` (the
+            async producer), `step_nonfinite` (the GNN train step),
+            `ckpt_truncate` (`train.checkpoint.save`) and `cache_corrupt`
             (`featcache.dynamic.refill`) — every chaos run replays exactly
   guard     `GuardConfig` for the guarded train step: on-device
             non-finite detection + skip (no host sync), a consecutive-skip
@@ -16,8 +17,10 @@ falls back past corrupt checkpoints to the newest valid one; a
 non-finite step applies no update and escalates to rollback after the
 skip budget; a cache failing its residency integrity check is dropped
 for the uncached gather (cache rows are bit-copies, so the loss
-trajectory is unaffected). The chaos soak (`repro/resilience/soak.py`)
-waits for the async pipeline.
+trajectory is unaffected); a dead or hung async producer is restarted
+from the cursor it owed (`pipeline.AsyncBatchStream`'s watchdog). The
+chaos soak (`repro/resilience/soak.py`) trains comm_rand x LABOR and waits
+for the LABOR sampler.
 """
 from repro_torch.resilience.faults import (FAULT_SITES,  # noqa: F401
                                            FaultPlan, FaultSpec,

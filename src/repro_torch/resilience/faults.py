@@ -18,19 +18,19 @@ keeps the whole story deterministic:
     generator seeded by (plan seed, site, trigger) — the damage itself
     replays too.
 
-The five sites (`FAULT_SITES`; all five stay, so that seeded draws equal
-the reference's). The port wires three of them:
+The five sites (`FAULT_SITES`), all wired:
 
+  batch_build     `pipeline.DeviceBatchBuilder.build` raises
+                  `InjectedFault` (in the async pipeline: a producer-thread
+                  build failure the watchdog must absorb)
+  producer_hang   the async producer stops heartbeating and producing
+                  until the watchdog's restart
   step_nonfinite  the GNN train step's loss is poisoned to NaN (and so
                   are its grads) for the armed invocations
   ckpt_truncate   `train.checkpoint.save` corrupts the checkpoint it
                   just wrote (torn write / bit rot)
   cache_corrupt   `featcache.dynamic.refill` returns a state whose
                   residency invariants are violated
-
-`batch_build` (a producer-thread build failure) and `producer_hang` (a
-hung producer) belong to the async pipeline, which the port does not
-have yet.
 
 Every fire is recorded on `plan.events` so tests can assert the fault
 actually happened (a chaos test whose fault never fired proves nothing).

@@ -44,6 +44,7 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.obs import trace as obs_trace
 from repro_torch.resilience import faults
 
 
@@ -141,7 +142,13 @@ def save(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict] = None,
          keep: int = 3) -> str:
     """Atomically write `tree` (+ JSON-able `extra`) as step `step`. The
     copy of each device leaf to the host is one of the trainer's
-    sanctioned host reads."""
+    sanctioned host reads (traced as a cat="sync" span)."""
+    with obs_trace.span("ckpt_save", cat="sync", step=step):
+        return _save(ckpt_dir, step, tree, extra, keep)
+
+
+def _save(ckpt_dir: str, step: int, tree: Any, extra: Optional[Dict],
+          keep: int) -> str:
     os.makedirs(ckpt_dir, exist_ok=True)
     leaves, paths = flatten_with_paths(tree)
     tmp = tempfile.mkdtemp(dir=ckpt_dir, prefix=".tmp_save_")
@@ -195,6 +202,11 @@ def restore(ckpt_dir: str, step: int, like: Any) -> tuple:
     `CheckpointCorrupt` instead of returning silently wrong state. Each
     leaf comes back as a tensor on the device, and with the dtype, of
     the `like` leaf in its place. Returns (tree, extra)."""
+    with obs_trace.span("ckpt_restore", cat="ckpt", step=step):
+        return _restore(ckpt_dir, step, like)
+
+
+def _restore(ckpt_dir: str, step: int, like: Any) -> tuple:
     path = os.path.join(ckpt_dir, f"step_{step:09d}")
     try:
         with open(os.path.join(path, "manifest.json")) as f:

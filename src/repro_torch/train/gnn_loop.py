@@ -47,7 +47,26 @@ the cache counters and the guard's flags in one copy). The only others
 are the guard's skip-counter read, the refill's admitted count and
 integrity bool, and a checkpoint's copy to the host.
 
-Not ported yet: the async pipeline, tracing spans, sharded training.
+Pipeline: `pipeline="sync"` (the default) builds each batch on the
+trainer's thread from the numpy epoch order; `pipeline="async"` takes
+them from `repro_torch.pipeline.AsyncBatchStream` (a producer thread
+building on a CUDA side stream from a device-resident order) — the same
+batches, so the same losses bit for bit; its watchdog restarts are metered
+in `guard_meter`. Close it with `trainer.stream.close()`.
+
+Observability (`repro_torch.obs`): the three meters mirror into one
+`MetricsHub` (`hub`; `hub.mark_epoch` at every epoch's end), and the
+reference's spans are emitted at its sites when a tracer is installed:
+`train_step`, `epoch`, `epoch_flush` / `steps_flush` (the `_drain` that
+ends an epoch / a `train_steps` call — it also carries the cache counters
+and guard flags, which the reference reads in a `stats_flush` of their
+own), `stats_flush` (the drain before a rollback), `guard_sync` (a real
+read of the skip counter), `ckpt_rollback`, `cache_refill`, `eval`, and
+`ckpt_save` / `ckpt_restore` / `clock_refill` in the modules that do
+them. `DeviceStepTimer` closes its window after each drain. Tracing
+changes no batch, draw or loss.
+
+Not ported yet: sharded training.
 """
 from __future__ import annotations
 
@@ -72,6 +91,8 @@ from repro_torch.graphs.csr import DeviceGraph, Graph
 from repro_torch.kernels.gather_cached.ops import cache_stats
 from repro_torch.models.gnn.models import (apply_gnn, init_gnn, param_tree,
                                            tree_tensors)
+from repro_torch.obs import trace as obs_trace
+from repro_torch.obs.metrics import MetricsHub
 from repro_torch.optim import adamw
 from repro_torch.optim.schedule import EarlyStopping, ReduceLROnPlateau
 from repro_torch.resilience import faults
@@ -124,8 +145,11 @@ class GNNTrainer:
                  ckpt_dir: Optional[str] = None, ckpt_every: int = 0,
                  calibrator: Optional[CapsCalibrator] = None,
                  cache=None, cache_capacity: Optional[int] = None,
-                 cache_frac: float = 0.2, guard=None,
-                 device: DeviceLike = None):
+                 cache_frac: float = 0.2, pipeline: str = "sync",
+                 guard=None, device: DeviceLike = None):
+        if pipeline not in ("sync", "async"):
+            raise ValueError(
+                f"pipeline must be 'sync' or 'async', got {pipeline!r}")
         self.device = resolve_device(device)
         self.graph = graph
         self.cfg = cfg
@@ -161,20 +185,35 @@ class GNNTrainer:
             cache, graph, capacity=cache_capacity, frac=cache_frac,
             policy=self.policy, batch_size=tcfg.batch_size,
             fanouts=self.fanouts, seed=seed, device=self.device)
-        self.cache_meter = HitRateMeter()
+        # one metrics registry for the run (repro_torch.obs): the three
+        # meters mirror every mutation into it
+        self.hub = MetricsHub()
+        self.cache_meter = HitRateMeter(hub=self.hub)
         self._pending_stats: List[torch.Tensor] = []   # (2,) int32 each
         # host wall clock of each step's dispatch (no sync)
-        self.straggler = StragglerMonitor()
+        self.straggler = StragglerMonitor(hub=self.hub)
+        # per-step dispatch timestamps, closed into one "device_steps"
+        # span after each drain (never a read of its own)
+        self._dev_timer = obs_trace.DeviceStepTimer()
         # guarded execution: None/False = never read or escalated (the
         # on-device guard still runs), True = GuardConfig() defaults
         self.guard = as_guard(guard)
-        self.guard_meter = ResilienceMeter()
+        self.guard_meter = ResilienceMeter(hub=self.hub)
         self._skips_host = 0          # last value read (guard checks)
         self._pending_ok: List[tuple] = []   # (ok, step) device flags
-        self.stream = BatchStream(
+        stream_kw = {}
+        if pipeline == "async":
+            from repro_torch.pipeline import AsyncBatchStream
+            stream_cls = AsyncBatchStream
+            # watchdog restarts surface in THIS trainer's resilience meter
+            stream_kw["meter"] = self.guard_meter
+        else:
+            stream_cls = BatchStream
+        self.pipeline = pipeline
+        self.stream = stream_cls(
             graph, self.policy, tcfg.batch_size, self.fanouts, self.caps,
             seed=seed, device_graph=self.g, labels=self.labels,
-            cache=self.cache, device=self.device)
+            cache=self.cache, device=self.device, **stream_kw)
         # epoch whose boundary refill is still pending (dynamic cache);
         # travels in checkpoint `extra` so resume never double-refills
         self._cache_epoch = self.stream.cursor.epoch
@@ -300,36 +339,41 @@ class GNNTrainer:
     def _train_one(self, batch: mb.MiniBatch, lr: float) -> torch.Tensor:
         t0 = time.perf_counter()
         step0 = self.global_step
-        poison = 1.0
-        if faults.fire("step_nonfinite", step=step0) is not None:
-            poison = float("nan")     # chaos site: NaN the loss and grads
-        loss, ok = self.train_step(batch, lr, self._dropout_gens(), poison)
-        if self.cache is not None:
-            # the counters stay on the device until `_drain`
-            self._pending_stats.append(torch.stack(cache_stats(
-                self.cache.pos, batch.node_ids, self.graph.num_nodes)))
-        if self.guard is not None:
-            self._pending_ok.append((ok, step0))
-        if isinstance(self.cache, DynamicCacheState):
-            # fold this batch's reads into the reference bits / candidate
-            # frequencies on the device (the (C, F) rows are not copied).
-            # Not gated on `ok`: a skipped batch still touched its rows,
-            # and replayed reads after a rollback refold identically.
-            self._set_cache(dynamic.with_refs(
-                self.cache, dynamic.ref_updates(self.cache, batch.node_ids)))
-        self.global_step += 1
-        # a checkpoint due at this step forces a guard read first: never
-        # checkpoint mid-skip-burst, or a later rollback to that
-        # checkpoint would lose the skipped batches for good
-        due_ckpt = bool(self.ckpt_dir and self.ckpt_every and
-                        self.global_step % self.ckpt_every == 0)
-        rolled = self._guard_check(force=due_ckpt)
-        # refill BEFORE any checkpoint at this step: a boundary checkpoint
-        # then carries the post-refill state and the advanced
-        # `_cache_epoch`, so a resumed run neither skips nor repeats it
-        self._maybe_refill()
-        if due_ckpt and not rolled and self._skips_host == 0:
-            self.save()
+        with obs_trace.span("train_step", cat="step", step=step0):
+            poison = 1.0
+            if faults.fire("step_nonfinite", step=step0) is not None:
+                poison = float("nan")   # chaos site: NaN loss and grads
+            loss, ok = self.train_step(batch, lr, self._dropout_gens(),
+                                       poison)
+            self._dev_timer.note(loss)
+            if self.cache is not None:
+                # the counters stay on the device until `_drain`
+                self._pending_stats.append(torch.stack(cache_stats(
+                    self.cache.pos, batch.node_ids, self.graph.num_nodes)))
+            if self.guard is not None:
+                self._pending_ok.append((ok, step0))
+            if isinstance(self.cache, DynamicCacheState):
+                # fold this batch's reads into the reference bits /
+                # candidate frequencies on the device (the (C, F) rows are
+                # not copied). Not gated on `ok`: a skipped batch still
+                # touched its rows, and replayed reads after a rollback
+                # refold identically.
+                self._set_cache(dynamic.with_refs(
+                    self.cache,
+                    dynamic.ref_updates(self.cache, batch.node_ids)))
+            self.global_step += 1
+            # a checkpoint due at this step forces a guard read first: never
+            # checkpoint mid-skip-burst, or a later rollback to that
+            # checkpoint would lose the skipped batches for good
+            due_ckpt = bool(self.ckpt_dir and self.ckpt_every and
+                            self.global_step % self.ckpt_every == 0)
+            rolled = self._guard_check(force=due_ckpt)
+            # refill BEFORE any checkpoint at this step: a boundary
+            # checkpoint then carries the post-refill state and the advanced
+            # `_cache_epoch`, so a resumed run neither skips nor repeats it
+            self._maybe_refill()
+            if due_ckpt and not rolled and self._skips_host == 0:
+                self.save()
         # host dispatch time (never a device sync)
         self.straggler.observe(time.perf_counter() - t0, step0)
         return loss
@@ -348,7 +392,10 @@ class GNNTrainer:
         at_end = c.pos >= self.stream.num_batches(c.epoch)
         if c.epoch > self._cache_epoch or (c.epoch == self._cache_epoch
                                            and at_end):
-            self._refill_now(c, at_end)
+            # cat="sync": the churn count and the integrity check are read
+            # on the host, inside the epoch's last train step
+            with obs_trace.span("cache_refill", cat="sync", epoch=c.epoch):
+                self._refill_now(c, at_end)
 
     def _refill_now(self, c: Cursor, at_end: bool) -> None:
         state, admitted = dynamic.refill(self.cache, self.feats)
@@ -409,7 +456,12 @@ class GNNTrainer:
         if not (force or (g.check_every > 0 and
                           self.global_step % g.check_every == 0)):
             return False
-        self._skips_host = int(self.skips) if skips is None else int(skips)
+        if skips is None:
+            with obs_trace.span("guard_sync", cat="sync",
+                                step=self.global_step):
+                self._skips_host = int(self.skips)
+        else:                           # read by a drain already
+            self._skips_host = int(skips)
         if self._skips_host <= g.max_consecutive_skips:
             return False
         self._escalate()
@@ -423,7 +475,10 @@ class GNNTrainer:
         generators and cache state are pure functions of the restored
         cursor. Persistent causes re-escalate until `max_rollbacks`, then
         raise StepFailure."""
-        self._drain()                   # meter the skips we're erasing
+        with obs_trace.span("stats_flush", cat="sync",
+                            n=len(self._pending_stats) +
+                            len(self._pending_ok)):
+            self._drain()               # meter the skips we're erasing
         self.guard_meter.note("rollbacks", step=self.global_step,
                               skips=self._skips_host)
         if self.guard_meter.rollbacks > self.guard.max_rollbacks:
@@ -444,9 +499,11 @@ class GNNTrainer:
                     f"{self.ckpt_dir}")
             return step, tree, extra
 
-        (step, tree, extra), _ = resilient_step(_restore, max_retries=1,
-                                                backoff_s=0.05)
-        self._apply_restored(step, tree, extra)
+        with obs_trace.span("ckpt_rollback", cat="ckpt",
+                            step=self.global_step, skips=self._skips_host):
+            (step, tree, extra), _ = resilient_step(
+                _restore, max_retries=1, backoff_s=0.05)
+            self._apply_restored(step, tree, extra)
         self.skips = torch.zeros((), dtype=torch.int32, device=self.device)
         self._skips_host = 0
         self._pending_stats = []
@@ -461,16 +518,26 @@ class GNNTrainer:
         epoch-boundary refill fires inside `_train_one` at the last
         batch, so the dynamic cache is already post-refill on return)."""
         t0 = time.perf_counter()
+        e0 = self.stream.cursor.epoch
         mark = self.cache_meter.mark()
         smark = self.straggler.mark()
         losses, uniq = [], []
-        for batch in self.stream.epoch():
-            losses.append(self._train_one(batch, lr))
-            uniq.append(batch.num_unique)
-        loss_h, ints_h = self._drain(losses, uniq + self._guard_ints())
-        dt = time.perf_counter() - t0
-        if self.guard is not None:      # epoch boundary: exact skips
-            self._guard_check(force=True, skips=ints_h[-1])
+        # the epoch envelope the trace analyzer's mid-epoch sync gate
+        # anchors on
+        with obs_trace.span("epoch", cat="loop", epoch=e0):
+            for batch in self.stream.epoch():
+                losses.append(self._train_one(batch, lr))
+                uniq.append(batch.num_unique)
+            with obs_trace.span("epoch_flush", cat="sync", epoch=e0,
+                                n_steps=len(losses)):
+                loss_h, ints_h = self._drain(losses,
+                                             uniq + self._guard_ints())
+            # the window closes only AFTER the drain: the timer never reads
+            self._dev_timer.flush("epoch")
+            dt = time.perf_counter() - t0
+            if self.guard is not None:  # epoch boundary: exact skips
+                self._guard_check(force=True, skips=ints_h[-1])
+        self.hub.mark_epoch(e0)
         if not losses:          # resumed exactly on an epoch boundary
             return {"loss": 0.0, "time": dt, "uniq": 0.0,
                     "cache_hit": 0.0, "cache_refill": 0, "straggler": 0.0}
@@ -486,13 +553,19 @@ class GNNTrainer:
         lr = self.tcfg.learning_rate if lr is None else lr
         it = iter(self.stream)
         losses = [self._train_one(next(it), lr) for _ in range(n)]
-        loss_h, ints_h = self._drain(losses, self._guard_ints())
+        with obs_trace.span("steps_flush", cat="sync", n=n):
+            loss_h, ints_h = self._drain(losses, self._guard_ints())
+        self._dev_timer.flush("train_steps")
         if self.guard is not None:
             self._guard_check(force=True, skips=ints_h[-1])
         return loss_h.tolist()
 
-    @torch.no_grad()
     def evaluate(self, ids: np.ndarray) -> Dict:
+        with obs_trace.span("eval", cat="eval", n_ids=len(ids)):
+            return self._evaluate(ids)
+
+    @torch.no_grad()
+    def _evaluate(self, ids: np.ndarray) -> Dict:
         tot_l = torch.zeros((), dtype=torch.float32, device=self.device)
         tot_a = torch.zeros_like(tot_l)
         tot_n = torch.zeros_like(tot_l)
@@ -599,9 +672,14 @@ def train_once(graph: Graph, cfg: GNNConfig, policy,
                tcfg: Optional[TrainConfig] = None, seed: int = 0,
                verbose: bool = False,
                calibrator: Optional[CapsCalibrator] = None,
-               cache=None, guard=None,
+               cache=None, pipeline: str = "sync", guard=None,
                device: DeviceLike = None) -> TrainResult:
     tcfg = tcfg or TrainConfig()
-    return GNNTrainer(graph, cfg, tcfg, policy, seed=seed,
-                      calibrator=calibrator, cache=cache, guard=guard,
-                      device=device).fit(verbose)
+    tr = GNNTrainer(graph, cfg, tcfg, policy, seed=seed,
+                    calibrator=calibrator, cache=cache, pipeline=pipeline,
+                    guard=guard, device=device)
+    try:
+        return tr.fit(verbose)
+    finally:
+        if pipeline == "async":
+            tr.stream.close()

@@ -8,12 +8,15 @@ feature-cache hit/miss counters the GNN trainer measures per batch
 CLOCK admission — the per-epoch refill churn and the hit-rate trajectory
 across epochs. `ResilienceMeter` counts the recovery actions the guarded
 GNN path takes (skipped non-finite steps, rollbacks, corrupt-checkpoint
-fallbacks, cache degradations; producer restarts stay 0 until the async
-pipeline is ported) so chaos runs (`repro_torch.resilience`) can assert
-that the expected recovery — and ONLY the expected recovery — happened.
+fallbacks, cache degradations, async producer restarts) so chaos runs
+(`repro_torch.resilience`) can assert that the expected recovery — and
+ONLY the expected recovery — happened.
 
-The reference's metrics-hub mirror (`hub=`) is not ported: the port has
-no `obs` package yet.
+All three meters keep their standalone behaviour but accept an optional
+`hub=` (`repro_torch.obs.MetricsHub`): when attached, every mutation
+mirrors into the reference's series names ("cache/hits",
+"resilience/rollbacks", "straggler/fraction", ...), so that hub counters
+equal the meter's own fields at every point.
 """
 from __future__ import annotations
 
@@ -31,19 +34,31 @@ class StragglerMonitor:
     ema: float = 0.0
     count: int = 0
     events: List[dict] = field(default_factory=list)
+    hub: Optional[object] = None      # repro_torch.obs.MetricsHub mirror
 
     def observe(self, dt: float, step: int) -> bool:
         self.count += 1
         if self.count <= self.warmup:
             self.ema = dt if self.ema == 0 else \
                 (self.alpha * dt + (1 - self.alpha) * self.ema)
+            self._mirror(dt, False)
             return False
         slow = dt > self.threshold * self.ema
         if slow:
             self.events.append({"step": step, "dt": dt, "ema": self.ema})
         else:
             self.ema = self.alpha * dt + (1 - self.alpha) * self.ema
+        self._mirror(dt, slow)
         return slow
+
+    def _mirror(self, dt: float, slow: bool) -> None:
+        if self.hub is None:
+            return
+        self.hub.counter("straggler/steps").inc()
+        if slow:
+            self.hub.counter("straggler/events").inc()
+        self.hub.histogram("straggler/step_time_s").observe(dt)
+        self.hub.gauge("straggler/fraction").set(self.straggler_fraction)
 
     @property
     def straggler_fraction(self) -> float:
@@ -77,14 +92,21 @@ class HitRateMeter:
     refills: int = 0                  # admitted rows, all epochs (churn)
     degraded_at: Optional[int] = None  # step the cache was dropped, if any
     trajectory: List[dict] = field(default_factory=list)
+    hub: Optional[object] = None      # repro_torch.obs.MetricsHub mirror
 
     def observe(self, hits, misses) -> None:
         self.hits += int(hits)
         self.misses += int(misses)
+        if self.hub is not None:
+            self.hub.counter("cache/hits").inc(int(hits))
+            self.hub.counter("cache/misses").inc(int(misses))
+            self.hub.gauge("cache/hit_rate").set(self.hit_rate)
 
     def observe_refill(self, admitted) -> None:
         """Count one epoch boundary's refill churn (admitted rows)."""
         self.refills += int(admitted)
+        if self.hub is not None:
+            self.hub.counter("cache/refills").inc(int(admitted))
 
     def note_degraded(self, step: int) -> None:
         """Record that the trainer dropped a corrupt cache and fell back
@@ -92,6 +114,8 @@ class HitRateMeter:
         keeps a visible marker, hit counting simply stops)."""
         self.degraded_at = step
         self.trajectory.append({"degraded": True, "step": step})
+        if self.hub is not None:
+            self.hub.counter("cache/degradations").inc()
 
     @property
     def total(self) -> int:
@@ -129,10 +153,11 @@ class ResilienceMeter:
     skipped_steps: int = 0            # non-finite steps whose update was
     #                                   dropped by the on-device select
     rollbacks: int = 0                # skip budget exceeded -> restore
-    producer_restarts: int = 0        # async producer restarts (none yet)
+    producer_restarts: int = 0        # AsyncBatchStream watchdog restarts
     ckpt_fallbacks: int = 0           # corrupt checkpoints skipped over
     cache_degradations: int = 0       # dynamic cache dropped to uncached
     events: List[dict] = field(default_factory=list)
+    hub: Optional[object] = None      # repro_torch.obs.MetricsHub mirror
 
     _KINDS = ("skipped_steps", "rollbacks", "producer_restarts",
               "ckpt_fallbacks", "cache_degradations")
@@ -143,6 +168,8 @@ class ResilienceMeter:
                              f"known: {self._KINDS}")
         setattr(self, kind, getattr(self, kind) + 1)
         self.events.append({"kind": kind, **info})
+        if self.hub is not None:
+            self.hub.counter(f"resilience/{kind}").inc()
 
     def counts(self) -> dict:
         return {k: getattr(self, k) for k in self._KINDS}

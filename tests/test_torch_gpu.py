@@ -9,6 +9,7 @@ import pytest
 import torch
 import torch.nn.functional as Fn
 
+from repro_torch.batching import BatchStream, make_policy
 from repro_torch.configs import LM_CONFIGS, GNNConfig, TrainConfig
 from repro_torch.core.reorder import prepare
 from repro_torch.graphs import synthetic
@@ -30,6 +31,9 @@ from repro_torch.kernels.rwkv6_chunk.ref import wkv6_fwd_ref
 from repro_torch.launch.serve import generate
 from repro_torch.models.lm import moe as moe_module
 from repro_torch.models.lm import transformer
+from repro_torch.obs import report, trace
+from repro_torch.pipeline import AsyncBatchStream
+from repro_torch.pipeline.prefetch import batch_tensors
 from repro_torch.train.gnn_loop import GNNTrainer
 
 pytestmark = pytest.mark.gpu
@@ -1326,3 +1330,104 @@ def test_resume_on_the_card_is_bit_exact_with_the_dynamic_cache(
     for k in DynamicCacheState.DATA_FIELDS:
         x, y = getattr(a.cache, k), getattr(b2.cache, k)
         assert x.device == y.device and torch.equal(x, y), k
+
+
+# ---------------------------------------------------------------------------
+# the async pipeline on the card (`repro_torch.pipeline`)
+# ---------------------------------------------------------------------------
+def _pipe_trainer(g, cuda, pipeline, cache=None):
+    cfg = GNNConfig("t", "sage", 2, 32, g.feat_dim, g.num_classes,
+                    fanout=(5, 5), dropout=0.5)
+    return GNNTrainer(g, cfg, TrainConfig(batch_size=128), "comm_rand",
+                      caps=(512, 1024), eval_caps=(512, 1024), seed=3,
+                      cache=cache, pipeline=pipeline, device=cuda)
+
+
+def test_async_equals_sync_on_the_card(cuda):
+    """Tiny on the card, across two epoch boundaries with the dynamic
+    cache: the async trainer's losses and CLOCK state equal the sync
+    trainer's bit for bit; the builder launches no kernel of its own, so
+    the step's launch counts do not change."""
+    g = prepare(synthetic.load("tiny"), oracle=True)
+    sync = _pipe_trainer(g, cuda, "sync", "dynamic")
+    kernel.reset_launches()
+    want = sync.train_steps(24)
+    sync_launches = dict(kernel.LAUNCHES)
+    asyn = _pipe_trainer(g, cuda, "async", "dynamic")
+    kernel.reset_launches()
+    try:
+        got = asyn.train_steps(24)
+    finally:
+        asyn.stream.close()
+    assert got == want
+    assert dict(kernel.LAUNCHES) == sync_launches
+    assert kernel.LAUNCHES["gather_agg_fwd"] == 2 * 24
+    for k in DynamicCacheState.DATA_FIELDS:
+        assert torch.equal(getattr(asyn.cache, k), getattr(sync.cache, k)), k
+    assert asyn.guard_meter.producer_restarts == 0
+
+
+def test_side_stream_handoff_survives_a_slow_consumer(cuda):
+    """The consumer's stream sleeps before it reads each batch, so the
+    producer runs ahead and its next builds allocate while the batch is
+    still unread: without `wait_event` the read would see an unfinished
+    batch, without `record_stream` the allocator could hand the batch's
+    memory to the producer. The copies taken after each sleep equal the
+    synchronous builds, and so do a slow trainer's losses."""
+    g = prepare(synthetic.load("tiny"), oracle=True)
+    args = (g, make_policy("comm_rand"), 128, (5, 5), (512, 1024))
+    sync = BatchStream(*args, seed=7, device=cuda)
+    asyn = AsyncBatchStream(*args, seed=7, device=cuda, depth=3)
+    copies = []
+    try:
+        it = iter(asyn)
+        for _ in range(2 * sync.num_batches(0)):
+            torch.cuda._sleep(2_000_000)        # ~1 ms on the consumer
+            copies.append([t.clone() for t in batch_tensors(next(it))])
+    finally:
+        asyn.close()
+    torch.cuda.synchronize()
+    it = iter(sync)
+    for got in copies:
+        want = list(batch_tensors(next(it)))
+        assert all(torch.equal(a, b) for a, b in zip(got, want))
+
+    ref = _pipe_trainer(g, cuda, "sync").train_steps(16)
+    slow = _pipe_trainer(g, cuda, "async")
+    step = slow.train_step
+
+    def sleepy(batch, *a, **k):
+        torch.cuda._sleep(2_000_000)
+        return step(batch, *a, **k)
+
+    slow.train_step = sleepy
+    try:
+        assert slow.train_steps(16) == ref
+    finally:
+        slow.stream.close()
+
+
+def test_traced_async_run_passes_the_gates_on_the_card(cuda, tmp_path):
+    """A tiny traced async run with the dynamic cache, guard and
+    checkpoints off: producer/consumer overlap > 0, no mid-epoch sync, no
+    conformance problem, and the epochs' losses equal an untraced run's."""
+    g = prepare(synthetic.load("tiny"), oracle=True)
+    p = str(tmp_path / "t.jsonl")
+    tr = _pipe_trainer(g, cuda, "async", "dynamic")
+    try:
+        with trace.enabled(p, run="gpu") as tracer:
+            traced = [tr.run_epoch(1e-3)["loss"] for _ in range(2)]
+            tracer.flush()
+    finally:
+        tr.stream.close()
+    ref = _pipe_trainer(g, cuda, "async", "dynamic")
+    try:
+        untraced = [ref.run_epoch(1e-3)["loss"] for _ in range(2)]
+    finally:
+        ref.stream.close()
+    assert traced == untraced
+    rep = report.analyze(report.load_trace(p))
+    assert rep["conformance_problems"] == []
+    assert rep["overlap"]["overlap_frac"] > 0
+    assert rep["mid_epoch_sync_count"] == 0
+    assert len(rep["epochs"]) == 2

@@ -20,6 +20,7 @@ from repro_torch.kernels.gather_agg import kernel
 from repro_torch.kernels.rwkv6_chunk import kernel as wkv_kernel
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.serve import generate
+from repro_torch.pipeline import AsyncBatchStream, DeviceBatchBuilder
 from repro_torch.train.gnn_loop import GNNTrainer
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -45,7 +46,7 @@ def test_port_modules_import_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 73          # every slice module was imported
+    assert n_modules >= 82          # every slice module was imported
 
 
 _EACH_FIRST = r"""
@@ -68,7 +69,33 @@ def test_each_port_module_imports_first():
     out = subprocess.run([sys.executable, "-c", _EACH_FIRST], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 73
+    assert int(out.stdout.split()[0]) >= 82
+
+
+# the async pipeline and observability slice's modules
+SLICE13 = ["repro_torch.obs", "repro_torch.obs.__main__",
+           "repro_torch.obs.metrics", "repro_torch.obs.report",
+           "repro_torch.obs.trace", "repro_torch.pipeline",
+           "repro_torch.pipeline.builder", "repro_torch.pipeline.device_order",
+           "repro_torch.pipeline.prefetch"]
+
+_FRESH = r"""
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro", "triton"))
+assert not bad, bad
+"""
+
+
+@pytest.mark.parametrize("name", SLICE13)
+def test_slice_module_imports_first_without_jax(name):
+    """Each new module, imported first in a fresh interpreter, loads
+    neither jax nor repro (nor triton)."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+    out = subprocess.run([sys.executable, "-c", _FRESH, name], env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
 
 
 @pytest.fixture(scope="module")
@@ -77,7 +104,8 @@ def tiny():
 
 
 @pytest.mark.parametrize("entry", ["trainer", "stream", "device_graph",
-                                   "generate", "train_cli"])
+                                   "generate", "train_cli", "async_stream",
+                                   "builder"])
 def test_entry_points_raise_without_a_card(tiny, entry, monkeypatch):
     """No card and no explicit device: raise, never fall back."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -89,6 +117,10 @@ def test_entry_points_raise_without_a_card(tiny, entry, monkeypatch):
                        caps=(768, 1024), eval_caps=(768, 1024))
         elif entry == "stream":
             BatchStream(tiny, "comm_rand", 256, (5, 5), (768, 1024))
+        elif entry == "async_stream":
+            AsyncBatchStream(tiny, "comm_rand", 256, (5, 5), (768, 1024))
+        elif entry == "builder":
+            DeviceBatchBuilder(tiny, "comm_rand", 256, (5, 5), (768, 1024))
         elif entry == "generate":
             generate(LM_CONFIGS["gemma3-1b"].reduced(), {},
                      torch.zeros((1, 4), dtype=torch.long), 1)
