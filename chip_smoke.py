@@ -176,17 +176,26 @@ run, exit code != 0):
               and misses equal between dynamic and static, both runs'
               epoch-1 hit rates printed, launches exactly 3 fwd, 4 bwd_dx
               and 1 cached gather a step and 2 `clock_refill` (one per
-              epoch boundary, words in shared memory); the first
-              boundary's refill again on its pre-refill state (spied):
-              equal to the trainer's, and to the plain walk and row copy
-              on a CPU copy, slot for slot and row for row; refill ms on
-              the host clock (synced), the walk kernel's and the sort's on
-              events, the admitted rows, the walk's steps, the plain
-              walk's ms, the bounds; (b) resume: checkpoints every 100
-              steps, a trainer stops at 100, a fresh one resumes and
-              crosses the refill to 230, a third resumes at 200 and runs
-              to 230: each one's losses equal (a)'s bit for bit, and its
-              weights and CLOCK state (rows too) at 230 equal (a)'s; a
+              epoch boundary, words resident in shared memory); the
+              first boundary's refill again on its pre-refill state
+              (spied): equal to the trainer's, and to the plain walk and
+              row copy on a CPU copy, slot for slot and row for row; then
+              a synthetic CLOCK state at ogbn-products' scale with
+              uniform counts (N 2,449,029, C 489,805, words streamed):
+              card = plain walk on a CPU copy, rows on the card, relaunch
+              bit-identical; for both, `dynamic.refill` whole on the host
+              clock (synced), split into the candidate sort and the C
+              call (events), its prepare / walk / apply kernels
+              (profiler), the admitted count's read and the clone and row
+              copy; the admitted rows, the walk's steps and visits, the
+              windows its warp decided (the kernel's count, equal to the
+              windowed plain decomposition's), ns a visit and a window,
+              the plain walk's ms, the bounds; (b) resume:
+              checkpoints every 100 steps, a trainer stops at 100, a
+              fresh one resumes and crosses the refill to 230, a third
+              resumes at 200 and runs to 230: each one's losses equal
+              (a)'s bit for bit, and its weights and CLOCK state (rows
+              too) at 230 equal (a)'s; a
               save's and a restore's ms and MB; (c) chaos: a NaN burst at
               steps 16-17 with GuardConfig(max_consecutive_skips=1) and a
               checkpoint every 10 steps over 40 steps makes exactly one
@@ -1182,15 +1191,135 @@ def run_steps_tracked(trainer, n: int) -> list:
     return [losses[i] for i in range(1, n + 1)]
 
 
+# the kernels of one `clock_refill` C call, by stage
+REFILL_STAGES = {"prepare": ("clock_pack_kernel", "clock_scan_kernel",
+                             "clock_runs_kernel"),
+                 "walk": ("clock_walk_kernel",),
+                 "apply": ("clock_apply_kernel",)}
+PRODUCTS_F = 100                        # ogbn-products' feature width
+
+
+def refill_args(state, feats) -> tuple:
+    """`ops.clock_refill`'s arguments for a `DynamicCacheState`."""
+    return (state.cache, state.pos, state.slot_ids, state.refbit,
+            state.slot_freq, state.freq, state.hand, feats)
+
+
+def refill_reading(torch, tag, state, feats, n, rows, walk):
+    """Times of one refill of `state` (`n`, `rows`, `walk` its result on
+    the card, already checked): `dynamic.refill` whole on the host clock
+    (synced: the span, the op, the counters' reset); its split into the
+    candidate sort, the C call's prepare / walk / apply kernels
+    (torch.profiler), the admitted count's read and the clone and row
+    copy; the windows the kernel's warp decided, held against the
+    windowed decomposition on a CPU copy (steps, visits, windows); the
+    plain walk; the walk's bound. Returns the reading."""
+    from repro_torch.featcache import dynamic
+    from repro_torch.kernels.clock_refill import kernel as walk_kernel
+    from repro_torch.kernels.clock_refill import ops as refill_ops
+    from repro_torch.kernels.clock_refill.ref import (clock_refill_ref,
+                                                      clock_walk_windows)
+    cache, pos, slot_ids, refbit, slot_freq, freq, hand, _ = refill_args(
+        state, feats)
+    N, C, F = pos.shape[0], slot_ids.shape[0], feats.shape[1]
+    ms = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        dynamic.refill(state, feats)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+    cand = refill_ops.refill_candidates(pos, freq, C)
+    wargs = (pos, slot_ids, refbit, slot_freq, hand, *cand)
+    sort_ms = cuda_ms(torch, lambda: refill_ops.refill_candidates(
+        pos, freq, C), reps=5, rounds=3)
+    call_ms = cuda_ms(torch, lambda: walk_kernel.clock_refill(*wargs),
+                      reps=5, rounds=3, warmup=1)
+    prof, _ = profile_kernels(torch, lambda: walk_kernel.clock_refill(*wargs))
+    stage_ms = {st: sum(us for name, us, _ in prof
+                        if any(k in name for k in names)) / 1e3
+                for st, names in REFILL_STAGES.items()}
+    rounds = torch.full((1,), -1, dtype=torch.int64, device=pos.device)
+    walk_kernel.clock_refill(*wargs, rounds=rounds)
+    windows = int(rounds)                    # the warp's own count
+    reads = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        int(walk.n_admitted)
+        reads.append((time.perf_counter() - t0) * 1e3)
+    slots, nodes = walk.adm_slots[:n].long(), walk.adm_nodes[:n].long()
+
+    def copy():
+        out = cache.clone()
+        out.index_copy_(0, slots, feats.index_select(0, nodes))
+        return out
+    check(torch.equal(copy(), rows), f"{tag}: the row copy differs")
+    copy_ms = cuda_ms(torch, copy, reps=3, rounds=3)
+    cpu_wargs = [a.cpu() for a in wargs]
+    t0 = time.perf_counter()
+    clock_refill_ref(*cpu_wargs)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    width = walk_kernel.window()
+    plan = clock_walk_windows(cpu_wargs[2].numpy(), cpu_wargs[3].numpy(),
+                              int(cpu_wargs[4]), cpu_wargs[6].numpy(), width)
+    steps = int(walk.steps)
+    check(plan.visits == steps + n and len(plan.adm_slots) == n and
+          plan.windows == windows,
+          f"{tag}: windowed decomposition at {width} visits a window: "
+          f"{plan.visits} visits, {len(plan.adm_slots)} admitted, "
+          f"{plan.windows} windows; the card {steps} + {n}, {windows}")
+    used = min(len(cand[0]), n + 1)          # candidates the walk read
+    walk_bytes = 4 * (2 * N + 6 * C + 2 * used + 2 * n + 2)
+    copy_bytes = 2 * n * F * 4               # read a feature row, write it
+    bound, by = _bound_ms(walk_bytes, steps)
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    where = walk_kernel.home(C, optin)
+    log(f"[9 refill] {tag}: {n} of {C} slots admitted (N {N}, F {F}), "
+        f"walk steps {steps}, visits {plan.visits}, windows {windows} (the "
+        f"kernel's count, {width} visits a window at most; the CPU "
+        f"decomposition agrees); dynamic.refill {statistics.median(ms):.3f} "
+        f"ms (host clock, synced; {[round(t, 3) for t in ms]}): candidate "
+        f"sort {sort_ms:.4f} ms, the C call {call_ms:.4f} ms (events; "
+        f"profiler: prepare {stage_ms['prepare']:.4f}, walk "
+        f"{stage_ms['walk']:.4f}, apply {stage_ms['apply']:.4f}), the "
+        f"admitted count's read {statistics.median(reads):.4f} ms (host), "
+        f"clone and row copy {copy_ms:.4f} ms ({copy_bytes / 1e6:.1f} MB, "
+        f"bound {copy_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); walk "
+        f"{stage_ms['walk'] * 1e6 / max(plan.visits, 1):.2f} ns a visit, "
+        f"{stage_ms['walk'] * 1e6 / max(windows, 1):.1f} ns a window; "
+        f"plain walk on the CPU {plain_ms:.1f} ms; walk bound "
+        f"{bound:.4f} ms ({by}); words {where}")
+    return {"ms": call_ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": by, "library_ms": None,
+            "refill_ms": statistics.median(ms), "sort_ms": sort_ms,
+            "stage_ms": stage_ms, "read_ms": statistics.median(reads),
+            "copy_ms": copy_ms, "admitted": n, "walk_steps": steps,
+            "visits": plan.visits, "windows": windows, "window": width,
+            "home": where,
+            "row_copy_bound_ms": copy_bytes / HBM_BYTES_PER_S * 1e3}
+
+
+def check_walk_equal(torch, tag, walk, walk_c, n):
+    for f in walk._fields:
+        a, b = getattr(walk, f).cpu(), getattr(walk_c, f)
+        if f.startswith("adm"):
+            a, b = a[:n], b[:n]
+        check(torch.equal(a, b), f"{tag}: clock_refill {f}: card != plain")
+
+
 def check_refill(torch, pre, post, admitted, feats):
     """The boundary refill again on its pre-refill state: the kernel's
     output equals the trainer's and a relaunch's, and the plain version
-    on a CPU copy, slot for slot and row for row. Returns the reading."""
-    from repro_torch.kernels.clock_refill import kernel as walk_kernel
+    on a CPU copy, slot for slot and row for row; then the same on a
+    synthetic CLOCK state at ogbn-products' scale with uniform counts
+    (rows checked on the card). Returns the reading."""
+    from repro_torch.featcache.dynamic import DynamicCacheState
     from repro_torch.kernels.clock_refill import ops as refill_ops
-    from repro_torch.kernels.clock_refill.ref import clock_refill_ref
-    args = (pre.cache, pre.pos, pre.slot_ids, pre.refbit, pre.slot_freq,
-            pre.freq, pre.hand, feats)
+    from repro_torch.kernels.clock_refill.ref import (PRODUCTS,
+                                                      clock_refill_ref,
+                                                      clock_state)
+    args = refill_args(pre, feats)
     rows, walk, n = refill_ops.clock_refill(*args)
     check(n == admitted and torch.equal(rows, post.cache) and
           all(torch.equal(getattr(walk, f), getattr(post, f))
@@ -1200,55 +1329,47 @@ def check_refill(torch, pre, post, admitted, feats):
     rows_c, walk_c, n_c = refill_ops.clock_refill(*(a.cpu() for a in args))
     plain_op_ms = (time.perf_counter() - t0) * 1e3
     check(n_c == n, f"admitted {n} on the card, {n_c} on the CPU")
-    for f in walk._fields:
-        a, b = getattr(walk, f).cpu(), getattr(walk_c, f)
-        if f.startswith("adm"):
-            a, b = a[:n], b[:n]
-        check(torch.equal(a, b), f"clock_refill {f}: card != plain")
+    check_walk_equal(torch, "reddit-602", walk, walk_c, n)
     err = float((rows.cpu() - rows_c).abs().max())
     check(err == 0.0, f"refilled rows differ from the plain version by {err}")
-    # timings: the whole refill (host clock, synced), its parts on events
-    from repro_torch.featcache import dynamic
-    ms = []
-    for _ in range(3):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        dynamic.refill(pre, feats)
-        torch.cuda.synchronize()
-        ms.append((time.perf_counter() - t0) * 1e3)
-    cand = refill_ops.refill_candidates(pre.pos, pre.freq, pre.capacity)
-    wargs = (pre.pos, pre.slot_ids, pre.refbit, pre.slot_freq, pre.hand,
-             *cand)
-    walk_ms = cuda_ms(torch, lambda: walk_kernel.clock_refill(*wargs),
-                      reps=2, rounds=3, warmup=1)
-    sort_ms = cuda_ms(torch, lambda: refill_ops.refill_candidates(
-        pre.pos, pre.freq, pre.capacity), reps=5, rounds=3)
-    cpu_wargs = [a.cpu() for a in wargs]
-    t0 = time.perf_counter()
-    clock_refill_ref(*cpu_wargs)
-    plain_ms = (time.perf_counter() - t0) * 1e3
-    steps = int(walk.steps)
-    N, C, F = pre.pos.shape[0], pre.capacity, feats.shape[1]
-    used = min(len(cand[0]), n + 1)          # candidates the walk read
-    walk_bytes = 4 * (2 * N + 6 * C + 2 * used + 2 * n + 2)
-    copy_bytes = 2 * n * F * 4               # read a feature row, write it
-    bound, by = _bound_ms(walk_bytes, steps)
-    log(f"[9 dynamic] refill at epoch 0's end: {n} of {C} slots admitted, "
-        f"walk steps {steps} ({steps / max(n, 1):.2f} a row); refill "
-        f"{statistics.median(ms):.3f} ms (host clock, synced; "
-        f"{[round(t, 3) for t in ms]}): candidate sort {sort_ms:.3f} ms, "
-        f"walk kernel {walk_ms:.3f} ms (events), the rest the admitted "
-        f"count's read and the row copy ({copy_bytes / 1e6:.1f} MB, bound "
-        f"{copy_bytes / HBM_BYTES_PER_S * 1e3:.4f} ms); plain walk on the "
-        f"CPU {plain_ms:.1f} ms (the whole plain refill {plain_op_ms:.1f} "
-        f"ms); walk bound {bound:.4f} ms ({by}); card = plain, slot for "
-        f"slot and row for row; relaunch bit-identical; words in "
-        f"{'shared' if walk_kernel.SMEM['shared'] else 'global'} memory")
-    return {"ms": walk_ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": by, "library_ms": None, "max_abs_err": err,
-            "refill_ms": statistics.median(ms), "sort_ms": sort_ms,
-            "admitted": n, "walk_steps": steps,
-            "row_copy_bound_ms": copy_bytes / HBM_BYTES_PER_S * 1e3}
+    reading = refill_reading(torch, "reddit-602 epoch 0's end", pre, feats,
+                             n, rows, walk)
+    log(f"[9 dynamic] refill at epoch 0's end: card = plain, slot for slot "
+        f"and row for row; relaunch bit-identical; the whole plain refill "
+        f"on the CPU {plain_op_ms:.1f} ms")
+
+    st = clock_state(*PRODUCTS, 0, DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    pfeats = torch.randn((PRODUCTS[0], PRODUCTS_F), generator=gen,
+                         device=DEVICE)
+    pstate = DynamicCacheState(cache=pfeats[st["slot_ids"].long()], **st,
+                               capacity=PRODUCTS[1], policy="synthetic")
+    pargs = refill_args(pstate, pfeats)
+    prows, pwalk, pn = refill_ops.clock_refill(*pargs)
+    again = refill_ops.clock_refill(*pargs)
+    check(again[2] == pn and torch.equal(again[0], prows) and all(
+        torch.equal(getattr(pwalk, f), getattr(again[1], f))
+        for f in ("pos", "slot_ids", "refbit", "slot_freq", "hand", "steps")),
+        "products-scale: the relaunch differs")
+    cand = refill_ops.refill_candidates(st["pos"], st["freq"], PRODUCTS[1])
+    pwalk_c = clock_refill_ref(*(t.cpu() for t in (
+        st["pos"], st["slot_ids"], st["refbit"], st["slot_freq"],
+        st["hand"], *cand)))
+    check(int(pwalk_c.n_admitted) == pn,
+          f"products-scale: admitted {pn} on the card, "
+          f"{int(pwalk_c.n_admitted)} on the CPU")
+    check_walk_equal(torch, "products-scale", pwalk, pwalk_c, pn)
+    reading["products"] = refill_reading(
+        torch, f"products-scale synthetic, uniform counts (N {PRODUCTS[0]}, "
+        f"C {PRODUCTS[1]}, hit and miss counts < {PRODUCTS[2]})", pstate,
+        pfeats, pn, prows, pwalk)
+    log(f"[9 dynamic] products-scale refill: card = plain on a CPU copy, "
+        f"slot for slot; rows equal the feature rows on the card; relaunch "
+        f"bit-identical")
+    reading["max_abs_err"] = err
+    del pfeats, pstate, pargs, prows, again
+    torch.cuda.empty_cache()
+    return reading
 
 
 def phase_dynamic(torch, graph, policy, plan, caps, eval_caps):
@@ -1295,8 +1416,11 @@ def phase_dynamic(torch, graph, policy, plan, caps, eval_caps):
     want.update(gather_agg_fwd=3 * steps, gather_agg_bwd_dx=4 * steps,
                 gather_cached_fwd=steps, clock_refill=2)
     check(launches == want, f"{DYN}: launches {launches} != {want}")
-    check(len(spy.calls) == 2 and walk_kernel.SMEM["shared"] == 2,
-          f"{DYN}: {len(spy.calls)} refills, words {walk_kernel.SMEM}")
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    home = walk_kernel.home(dyn.cache.capacity, optin)
+    check(len(spy.calls) == 2 and walk_kernel.SMEM[home] == 2,
+          f"{DYN}: {len(spy.calls)} refills, words {walk_kernel.SMEM} "
+          f"(expected {home})")
     check(all(map(math.isfinite, losses)), f"{DYN}: non-finite loss")
     log(f"[9 dynamic] {DYN}: {steps} steps ({nb} a epoch) in {wall:.1f} s "
         f"({wall / steps * 1e3:.2f} ms a step, 2 refills inside): loss "

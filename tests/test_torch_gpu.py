@@ -17,8 +17,10 @@ from repro_torch.featcache import gather_cached
 from repro_torch.featcache import dynamic
 from repro_torch.featcache.dynamic import DynamicCacheState
 from repro_torch.kernels.clock_refill import kernel as walk_kernel
-from repro_torch.kernels.clock_refill.ops import refill_candidates
-from repro_torch.kernels.clock_refill.ref import clock_refill_ref
+from repro_torch.kernels.clock_refill.ref import (clock_refill_ref,
+                                                  clock_state,
+                                                  clock_walk_windows,
+                                                  walk_args)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.gather_agg import kernel, ref
@@ -1227,43 +1229,45 @@ def test_rwkv_generate_on_the_card_matches_the_cpu(cuda):
 # ---------------------------------------------------------------------------
 # the dynamic cache's epoch-boundary CLOCK walk
 # ---------------------------------------------------------------------------
-def _clock_state(n, c, max_freq, seed, device):
-    """A CLOCK state at an epoch's end on `device`: random residency,
-    reference bits, hit and miss counts (ties plentiful), a random hand."""
-    rng = np.random.default_rng((seed, n))
-    ids = np.sort(rng.choice(n, size=c, replace=False))
-    pos = np.full(n, -1, np.int32)
-    pos[ids] = np.arange(c, dtype=np.int32)
-    fields = {"pos": pos, "slot_ids": ids.astype(np.int32),
-              "refbit": rng.integers(0, 2, c).astype(np.int32),
-              "slot_freq": rng.integers(0, max_freq, c).astype(np.int32),
-              "freq": rng.integers(0, max_freq, n).astype(np.int32),
-              "hand": np.asarray(int(rng.integers(0, c)), np.int32)}
-    return {k: torch.as_tensor(v).to(device) for k, v in fields.items()}
+# (N, C, max_freq, kind): C words of 4 bytes stay resident in shared
+# memory up to the 227 KB a block may opt into (46,593 is the reddit-602
+# cache); 60,000, 100,000 and ogbn-products' 489,805 stream through the
+# walk's ring. C 31, 32 and 33 sit at the window's width; "all_bits" sets
+# every bit, "no_victim" leaves no slot colder than any candidate (the
+# first candidate walks 2C steps and fails)
+CLOCK_CASES = [(40, 1, 3, "random"), (500, 7, 4, "random"),
+               (5000, 1023, 6, "random"), (5000, 1025, 2, "random"),
+               (50_000, 4096, 20, "random"), (232_965, 46_593, 30, "random"),
+               (232_965, 60_000, 30, "random"),
+               (300_000, 100_000, 5, "random"),
+               (2_449_029, 489_805, 30, "random"), (500, 31, 4, "random"),
+               (500, 32, 4, "random"), (500, 33, 4, "random"),
+               (5000, 1024, 6, "all_bits"), (300_000, 100_000, 5, "all_bits"),
+               (5000, 1024, 6, "no_victim"),
+               (300_000, 100_000, 5, "no_victim")]
 
 
-# (N, C, max_freq): C words of 4 bytes in shared memory up to the 227 KB a
-# block may opt into (46,593 is the reddit-602 cache); 60,000 and 100,000
-# do not fit and keep them in global memory
-CLOCK_CASES = [(40, 1, 3), (500, 7, 4), (5000, 1023, 6), (5000, 1025, 2),
-               (50_000, 4096, 20), (232_965, 46_593, 30),
-               (232_965, 60_000, 30), (300_000, 100_000, 5)]
-
-
-@pytest.mark.parametrize("n,c,max_freq", CLOCK_CASES)
-def test_clock_refill_kernel_matches_plain_version(cuda, n, c, max_freq):
+@pytest.mark.parametrize("n,c,max_freq,kind", CLOCK_CASES)
+def test_clock_refill_kernel_matches_plain_version(cuda, n, c, max_freq,
+                                                   kind):
     """Slot for slot equal to the plain walk on a CPU copy: pos,
     slot_ids, the bits (those a failed pass clears too), slot_freq, hand,
-    the admissions and the step count; a relaunch is bit-identical."""
-    st = _clock_state(n, c, max_freq, 0, cuda)
-    cand = refill_candidates(st["pos"], st["freq"], c)
-    args = [st[k] for k in ("pos", "slot_ids", "refbit", "slot_freq",
-                            "hand")] + list(cand)
+    the admissions and the step count; a relaunch is bit-identical; the
+    words live where `kernel.home` says; the warp decided as many windows
+    as the numpy decomposition at the kernel's window counts."""
+    st = clock_state(n, c, max_freq, 0, cuda, kind)
+    args = walk_args(st)
     walk_kernel.reset_launches()
-    got = walk_kernel.clock_refill(*args)
+    rounds = torch.full((1,), -1, dtype=torch.int64, device=cuda)
+    got = walk_kernel.clock_refill(*args, rounds=rounds)
     want = clock_refill_ref(*(a.cpu() for a in args))
+    plan = clock_walk_windows(*(args[i].cpu().numpy() for i in (2, 3, 4, 6)),
+                              walk_kernel.window())
+    assert int(rounds) == plan.windows
+    assert plan.visits == int(want.steps) + int(want.n_admitted)
     n_adm = int(want.n_admitted)
     assert int(got.n_admitted) == n_adm
+    assert (n_adm == 0) == (kind == "no_victim")
     for f in ("pos", "slot_ids", "refbit", "slot_freq", "hand", "steps"):
         assert torch.equal(getattr(got, f).cpu(), getattr(want, f)), f
     for f in ("adm_slots", "adm_nodes"):
@@ -1276,15 +1280,56 @@ def test_clock_refill_kernel_matches_plain_version(cuda, n, c, max_freq):
             a, b = a[:n_adm], b[:n_adm]
         assert torch.equal(a, b), f
     assert walk_kernel.LAUNCHES["clock_refill"] == 2
-    where = "shared" if 4 * c + 1024 <= 232_448 else "global"
-    assert walk_kernel.SMEM[where] == 2
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert walk_kernel.SMEM[walk_kernel.home(c, optin)] == 2
+
+
+def test_clock_walk_window_and_homes_come_from_the_kernel(cuda):
+    """The C side's window is one the CPU tests hold the decomposition at
+    (`WINDOWS` in tests/test_torch_clock_refill.py); reddit-602's 46,593
+    words stay resident, ogbn-products' 489,805 stream."""
+    assert walk_kernel.window() in (1, 32, 128, 256)
+    optin = torch.cuda.get_device_properties(0).shared_memory_per_block_optin
+    assert walk_kernel.home(46_593, optin) == "resident"
+    assert walk_kernel.home(489_805, optin) == "streamed"
+    assert walk_kernel.home(optin // 4, optin) == "streamed"
+
+
+UNSORTED_FS = """
+import sys, torch
+sys.path.insert(0, "src")
+from repro_torch.kernels.clock_refill import kernel
+i32 = dict(dtype=torch.int32, device="cuda")
+w = kernel.clock_refill(
+    torch.tensor([0, 1, -1, -1], **i32), torch.tensor([0, 1], **i32),
+    torch.tensor([0, 0], **i32), torch.tensor([0, 0], **i32),
+    torch.tensor(0, **i32), torch.tensor([2, 3], **i32),
+    torch.tensor([1, 2], **i32))
+torch.cuda.synchronize()
+print("no error", w.n_admitted.item())
+"""
+
+
+def test_unsorted_candidate_frequencies_fail_loudly(cuda):
+    """The walk takes runs of equal frequency from candidates sorted high
+    to low: out of order, the prepare stage traps (in a child process,
+    since a trap poisons its CUDA context) and no walk comes back."""
+    import subprocess
+    import sys
+    from pathlib import Path
+    root = Path(__file__).resolve().parents[1]
+    proc = subprocess.run([sys.executable, "-c", UNSORTED_FS], cwd=root,
+                          capture_output=True, text=True, timeout=600)
+    assert proc.returncode != 0, proc.stdout
+    assert "no error" not in proc.stdout
+    assert "error" in proc.stderr.lower(), proc.stderr[-2000:]
 
 
 def test_dynamic_refill_on_the_card_equals_the_cpu(cuda):
     """`dynamic.refill` whole (candidate sort, the kernel, the row copy):
     the card's new state equals the CPU's, rows included."""
     n, c, f = 20_000, 4000, 33
-    st = _clock_state(n, c, 12, 2, "cpu")
+    st = clock_state(n, c, 12, 2, "cpu")
     feats = torch.as_tensor(np.random.default_rng((2, 3)).normal(
         size=(n, f)), dtype=torch.float32)
     state = DynamicCacheState(cache=feats[st["slot_ids"].long()], **st,
