@@ -228,6 +228,32 @@ run, exit code != 0):
               exactly 1 producer restart and sync's losses; a build that
               always fails exhausts the 3-restart budget and raises the
               real `InjectedFault`
+  11. the prior-work policies, samplers and baselines (paper §6.3), on
+              the reddit-602 graph after phase 10: (a) the uniform, full
+              and labor samplers on the card against their plain runs on a
+              CPU copy of the graph at the hop shapes of a LABOR batch at
+              its calibrated caps (the same uniforms, the same ranks): src
+              and mask equal; the LABOR ranks of every node equal on card,
+              CPU and numpy; (b) GraphSAGE with `make_policy("labor")` at
+              its calibrated caps, 20 sync steps, then 20 async steps on
+              the same cursor with bit-identical losses, 3 fwd and 4 bwd_dx
+              a step, the ranks hashed once an epoch a stream, caps, step
+              times, idle share; (c) 5 steps of rand roots through a policy
+              binding the `full` sampler at fanout (10, 10, 10); (d)
+              `train_clustergcn`, 1 epoch at 2 communities a part: epoch
+              time, parts, caps, peak memory, 3 fwd and 5 bwd_dx a part
+              (a layer's virtual-row means, their segment sum, and the
+              backward of layers 1 and 2) and 3 fwd and 3 bwd_dx an
+              evaluated union, one bwd_dx plan a part, a second run's loss and
+              accuracy bit-identical, a profiled part step with no atomic
+              scatter or index backward kernel; (e) `train_fullbatch`, 3
+              epochs: the same checks (one plan for the run), the
+              validation accuracy curve, two fresh trainers' losses
+              bit-identical, and gather_agg fwd (layer 0), the segment
+              sum and bwd_dx (layer 1) at the full batch's virtual rows
+              against their plain versions, with CSR `torch.sparse.mm`
+              and the bound; (f) `gather_mean` at that shape against its
+              plain version
 
 It prints the `{"kernels": [...]}` line before the last, and as the last
 line `{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
@@ -1856,6 +1882,541 @@ def phase_async(torch, graph, policy, plan, caps, eval_caps):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the prior-work policies, samplers and baselines (paper §6.3)
+# ---------------------------------------------------------------------------
+LABOR, LABOR_ASYNC = "graphsage_labor", "graphsage_labor_async"
+FULL_RUN, CGCN, FULLBATCH = "graphsage_full", "clustergcn", "fullbatch"
+LABOR_STEPS, FULL_STEPS, CGCN_PPB, FB_EPOCHS = 20, 5, 2, 3
+# CUDA kernels of PyTorch's index backward and of its atomic scatters
+# (index_add_, scatter_add_, index_put_ with accumulate): a subgraph step
+# may launch none of them
+ATOMIC_KERNELS = ("indexing_backward", "indexFunc", "scatter_gather",
+                  "scatter_add", "index_put")
+
+
+def sampler_checks(torch, graph, trainer):
+    """(a) uniform, full and labor on the card against their plain runs on
+    a CPU copy of the graph, at the hop shapes of a LABOR batch at the
+    calibrated caps (fanout 10): the same uniforms (drawn on the host) and
+    the same ranks; `src` and `mask` equal element for element. The epoch's
+    ranks of every node equal the CPU's and the numpy mirror's bit for
+    bit."""
+    from repro_torch import sampling
+    from repro_torch.batching.stream import shared_words
+    from repro_torch.graphs.csr import DeviceGraph
+    g_dev, g_cpu = trainer.g, DeviceGraph.from_graph(graph, "cpu")
+    lab = sampling.LaborSampler()
+    words = shared_words(0, 0)
+    ranks = trainer.stream.epoch_ctx(0)
+    ranks_cpu = lab.epoch_ctx(words, g_cpu)
+    check(torch.equal(ranks.cpu(), ranks_cpu) and torch.equal(
+        ranks_cpu, torch.as_tensor(lab.epoch_ranks_np(words,
+                                                      graph.num_nodes))),
+          "LABOR ranks: card, CPU and numpy differ")
+    rank_ms = cuda_ms(torch, lambda: lab.epoch_ctx(words, g_dev))
+    distinct = torch.unique(ranks).numel()
+    log(f"[11 samplers] LABOR ranks of all {graph.num_nodes} nodes: card = "
+        f"CPU = numpy bit for bit ({distinct} distinct values); "
+        f"{rank_ms:.4f} ms on the card, once an epoch")
+    stream = trainer.stream
+    levels = stream.build(stream.root_batches(0)[0], 0, 0).levels
+    gen = torch.Generator().manual_seed(11)
+    fan = trainer.fanouts[0]
+    for h in range(len(trainer.fanouts)):
+        nodes = levels[h]
+        M = nodes.shape[0]
+        u = torch.rand((M, fan), generator=gen)
+        cases = (("uniform", sampling.UniformSampler(), (u,), {}),
+                 ("full", sampling.FullNeighborhoodSampler(), (), {}),
+                 ("labor", lab, (), {"ranks": ranks_cpu}))
+        times = []
+        for name, s, args, kw in cases:
+            dargs = tuple(a.to(DEVICE) for a in args)
+            dkw = {k: v.to(DEVICE) for k, v in kw.items()}
+            got = s.sample(g_dev, nodes, fan, *dargs, **dkw)
+            want = s.sample(g_cpu, nodes.cpu(), fan, *args, **kw)
+            check(all(torch.equal(a.cpu(), b) for a, b in zip(got, want)),
+                  f"{name} sampler: card != CPU at hop {h} (M {M})")
+            ms = cuda_ms(torch, lambda: s.sample(g_dev, nodes, fan, *dargs,
+                                                 **dkw), reps=3, rounds=3)
+            times.append(f"{name} {ms:.4f} ms")
+        log(f"[11 samplers] hop {h}: {M} rows x fanout {fan}: src and mask "
+            f"card = CPU for uniform, full and labor; {', '.join(times)}")
+
+
+def count_calls(cls, name):
+    """Wrap `cls.name` to count its calls; returns (counter, undo)."""
+    orig, calls = getattr(cls, name), []
+
+    def wrapped(*a, **k):
+        calls.append(1)
+        return orig(*a, **k)
+
+    setattr(cls, name, wrapped)
+    return calls, lambda: setattr(cls, name, orig)
+
+
+def timed_steps(torch, trainer, steps):
+    """`steps` guarded steps, each ending in its loss read: (losses, ms)."""
+    losses, ms = [], []
+    for _ in range(steps):
+        t0 = time.perf_counter()
+        losses += trainer.train_steps(1)
+        ms.append((time.perf_counter() - t0) * 1e3)
+    return losses, ms
+
+
+def idle_share(torch, fn, step_ms: float, steps: int):
+    """Kernel ms a step of `steps` calls of `fn` under torch.profiler, and
+    1 - that / the unprofiled `step_ms`; the kernels by device time."""
+    dev, _ = profile_kernels(torch, fn)
+    busy = sum(t for _, t, _ in dev) / steps / 1e3
+    return busy, 1 - busy / step_ms, dev
+
+
+def expect_launches(fwd, dx):
+    want = {k: 0 for k in read_launches()}
+    want.update(gather_agg_fwd=fwd, gather_agg_bwd_dx=dx)
+    return want
+
+
+def phase_labor(torch, graph, caps, eval_caps):
+    """(a) the samplers on the card against the CPU; (b) GraphSAGE at full
+    width with `make_policy("labor")` at its calibrated caps: 20 sync steps,
+    then 20 async steps on the same cursor with bit-identical losses, 3
+    fwd and 4 bwd_dx a step, the ranks hashed once an epoch a stream;
+    (c) 5 steps of `rand` roots through a policy that binds the `full`
+    sampler at fanout (10, 10, 10). Returns the runs' launches."""
+    from dataclasses import dataclass
+
+    from repro_torch import sampling
+    from repro_torch.batching import CommRandPolicy, make_policy
+    from repro_torch.configs import CONFIGS, TrainConfig
+    from repro_torch.train.gnn_loop import GNNTrainer
+
+    cfg, tcfg = CONFIGS["graphsage"], TrainConfig()
+    runs = {}
+    calls, undo = count_calls(sampling.LaborSampler, "epoch_ctx")
+    try:
+        t0 = time.perf_counter()
+        lab = GNNTrainer(graph, cfg, tcfg, make_policy("labor"),
+                         eval_caps=eval_caps, seed=0, device=DEVICE)
+        set_up = time.perf_counter() - t0
+        check(lab.sampler.name == "labor", "labor binds another sampler")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launches()                         # counts start here
+        losses, ms = timed_steps(torch, lab, LABOR_STEPS)
+        torch.cuda.synchronize()
+        runs[LABOR] = read_launches()            # ... and are read here
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        want = expect_launches(3 * LABOR_STEPS, 4 * LABOR_STEPS)
+        check(runs[LABOR] == want, f"{LABOR}: launches {runs[LABOR]}")
+        check(all(map(math.isfinite, losses)), f"{LABOR}: non-finite loss")
+        # one hash of the ranks for each epoch the steps touched
+        epochs = (LABOR_STEPS - 1) // lab.stream.num_batches() + 1
+        check(len(calls) == epochs,
+              f"{LABOR}: ranks hashed {len(calls)} times in {epochs} epochs")
+        step = statistics.median(ms)
+        busy, idle, _ = idle_share(torch, lambda: lab.train_steps(3), step,
+                                   3)
+        log(f"[11 labor] {LABOR}: caps {lab.caps} (comm_rand's {caps}), "
+            f"trainer set-up (calibration, upload) "
+            f"{set_up:.1f} s; {LABOR_STEPS} sync steps: loss "
+            f"{losses[0]:.4f} -> {losses[-1]:.4f}, median step {step:.2f} "
+            f"ms (first {ms[0]:.2f}), kernels {busy:.2f} ms a step, idle "
+            f"share {idle:.3f}; peak {peak:.2f} GiB; ranks hashed "
+            f"{len(calls)} time(s) in {epochs} epoch(s); launches "
+            f"{runs[LABOR]}")
+        asyn = GNNTrainer(graph, cfg, tcfg, make_policy("labor"),
+                          caps=lab.caps, eval_caps=eval_caps, seed=0,
+                          device=DEVICE, pipeline="async")
+        try:
+            torch.cuda.synchronize()
+            reset_launches()                     # counts start here
+            got, ms_a = timed_steps(torch, asyn, LABOR_STEPS)
+            torch.cuda.synchronize()
+            runs[LABOR_ASYNC] = read_launches()  # ... and are read here
+            busy_a, idle_a, _ = idle_share(
+                torch, lambda: asyn.train_steps(3),
+                statistics.median(ms_a), 3)
+        finally:
+            asyn.stream.close()
+        check(got == losses, f"{LABOR_ASYNC}: losses differ from sync's")
+        check(runs[LABOR_ASYNC] == want,
+              f"{LABOR_ASYNC}: launches {runs[LABOR_ASYNC]}")
+        # the producer may build ahead into the next epoch
+        check(0 <= len(calls) - 2 * epochs <= 1,
+              f"async: ranks hashed {len(calls) - epochs} times")
+        log(f"[11 labor] {LABOR_ASYNC}: {LABOR_STEPS} async steps on the "
+            f"same cursor: losses bit-identical to sync's, median step "
+            f"{statistics.median(ms_a):.2f} ms, kernels {busy_a:.2f} ms a "
+            f"step, idle share {idle_a:.3f}; ranks hashed "
+            f"{len(calls) - epochs} time(s), "
+            f"launches {runs[LABOR_ASYNC]}")
+        sampler_checks(torch, graph, lab)
+        del lab, asyn
+    finally:
+        undo()
+    torch.cuda.empty_cache()
+
+    @dataclass(frozen=True)
+    class FullRand(CommRandPolicy):
+        """rand roots, every neighbor up to the fanout (no draws)."""
+
+        def sampler_spec(self):
+            return ("full", {})
+
+    full = GNNTrainer(graph, cfg, tcfg, FullRand("rand"),
+                      eval_caps=eval_caps, seed=0, device=DEVICE)
+    check(full.sampler.name == "full", "the full sampler is not bound")
+    torch.cuda.synchronize()
+    reset_launches()                             # counts start here
+    losses, ms = timed_steps(torch, full, FULL_STEPS)
+    torch.cuda.synchronize()
+    runs[FULL_RUN] = read_launches()             # ... and are read here
+    check(runs[FULL_RUN] == expect_launches(3 * FULL_STEPS, 4 * FULL_STEPS),
+          f"{FULL_RUN}: launches {runs[FULL_RUN]}")
+    check(all(map(math.isfinite, losses)), f"{FULL_RUN}: non-finite loss")
+    step = statistics.median(ms)
+    busy, idle, _ = idle_share(torch, lambda: full.train_steps(3), step, 3)
+    log(f"[11 full] {FULL_RUN}: caps {full.caps}; {FULL_STEPS} steps: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f}, median step {step:.2f} ms, "
+        f"kernels {busy:.2f} ms a step, idle share {idle:.3f}; launches "
+        f"{runs[FULL_RUN]}")
+    del full
+    torch.cuda.empty_cache()
+    return runs
+
+
+def subgraph_profile(torch, tag, tr, batch, epoch_of):
+    """A subgraph trainer's step on `batch`: the median of 5 unprofiled
+    steps (each ending in its loss read), then 2 steps under
+    torch.profiler; no atomic scatter or index backward kernel may run."""
+    ms = []
+    for j in range(5):
+        t0 = time.perf_counter()
+        float(tr.step(batch, *epoch_of(j)))
+        ms.append((time.perf_counter() - t0) * 1e3)
+    step = statistics.median(ms)
+    busy, idle, dev = idle_share(
+        torch, lambda: [tr.step(batch, *epoch_of(5 + j)) for j in range(2)],
+        step, 2)
+    bad = [k for k, _, _ in dev if any(a in k for a in ATOMIC_KERNELS)]
+    check(not bad, f"{tag}: atomic scatter or index backward ran: {bad}")
+    log(f"[11 {tag}] a step on one batch: median {step:.2f} ms, kernels "
+        f"{busy:.2f} ms, idle share {idle:.3f}; no atomic scatter or index "
+        f"backward kernel")
+    for key, t, n in dev[:6]:
+        log(f"[11 {tag}] {t / 2 / 1e3:8.3f} ms/step  {n / 2:5.1f} "
+            f"calls/step  {key[:100]}")
+    return step
+
+
+def phase_clustergcn(torch, graph):
+    """(d) `train_clustergcn`, 1 epoch at parts_per_batch 2: its epoch
+    time, parts, caps and peak memory; launches a part: 3 fwd and 3 bwd_dx
+    in the forward (a layer's virtual-row means and their segment sum),
+    2 bwd_dx in the backward (layer 0 reads the feature matrix, so its
+    input needs no dx), and 3 fwd and 3 bwd_dx an evaluated union; one
+    bwd_dx plan a part; a second run's loss and accuracy bit-identical; a
+    profiled part step."""
+    import numpy as np
+
+    from repro_torch.configs import CONFIGS, TrainConfig
+    from repro_torch.kernels.gather_agg import kernel
+    from repro_torch.train import baselines
+
+    cfg, tcfg = CONFIGS["graphsage"], TrainConfig()
+    cap_n, cap_e = baselines.clustergcn_caps(graph, CGCN_PPB)
+    # the unions the run draws: one epoch's, then the evaluation's
+    rng = np.random.default_rng((0, 0))
+    parts = baselines.clustergcn_batches(graph, CGCN_PPB, rng)
+    evals = baselines.clustergcn_batches(graph, CGCN_PPB, rng)
+    val = np.zeros(graph.num_nodes, bool)
+    val[graph.val_ids] = True
+    n_eval = sum(bool(val[np.asarray(p)[:cap_n]].any()) for p in evals)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                             # counts start here
+    t0 = time.perf_counter()
+    res = baselines.train_clustergcn(graph, cfg, tcfg, CGCN_PPB, seed=0,
+                                     epochs=1, device=DEVICE)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_launches()                   # ... and are read here
+    plans = kernel.PLANS["gather_agg_bwd_dx"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = expect_launches(3 * len(parts) + 3 * n_eval,
+                           5 * len(parts) + 3 * n_eval)
+    check(launches == want, f"{CGCN}: launches {launches} != {want}")
+    check(plans == len(parts), f"{CGCN}: {plans} plans for {len(parts)} "
+          f"parts")
+    check(math.isfinite(res["loss"]), f"{CGCN}: non-finite loss")
+    again = baselines.train_clustergcn(graph, cfg, tcfg, CGCN_PPB, seed=0,
+                                       epochs=1, device=DEVICE)
+    check(again["loss"] == res["loss"] and
+          again["val_acc"] == res["val_acc"],
+          f"{CGCN}: relaunch {again} != {res}")
+    sizes = [len(p) for p in parts]
+    log(f"[11 clustergcn] 1 epoch, {CGCN_PPB} communities a part: "
+        f"{len(parts)} parts of {min(sizes)}-{max(sizes)} nodes, caps "
+        f"(cap_n {cap_n}, cap_e {cap_e}); per-epoch time "
+        f"{res['per_epoch_time_s'] * 1e3:.1f} ms (the call {wall:.2f} s "
+        f"with its evaluation of {n_eval} unions); loss {res['loss']:.4f}, "
+        f"val acc {res['val_acc']:.4f}; peak {peak:.2f} GiB; launches "
+        f"{launches} = 3 fwd + 5 bwd_dx a part, 3 fwd + 3 bwd_dx an "
+        f"evaluated union; "
+        f"{plans} plans (one a part); a second run: loss and val acc "
+        f"bit-identical")
+    tr = baselines.SubgraphTrainer(graph, cfg, tcfg, seed=0, device=DEVICE)
+    build_ms = []
+    for p in parts[:5]:
+        t0 = time.perf_counter()
+        batch = baselines.induced_subgraph(graph, p, cap_n, cap_e, DEVICE)
+        torch.cuda.synchronize()
+        build_ms.append((time.perf_counter() - t0) * 1e3)
+    log(f"[11 clustergcn] induced subgraph on the host and its upload: "
+        f"median {statistics.median(build_ms):.1f} ms a part; the table of "
+        f"the last {tuple(batch.nbr.shape)} ({int(batch.nbr_mask.sum())} "
+        f"edges)")
+    subgraph_profile(torch, "clustergcn", tr, batch, lambda j: (0, j))
+    del tr, batch
+    torch.cuda.empty_cache()
+    return {CGCN: launches}
+
+
+def csr_rows(torch, rows, cols, vals, shape):
+    """The CSR matrix of `shape` holding vals at (rows, cols), rows
+    non-decreasing; built outside any timed call."""
+    crow = torch.zeros(shape[0] + 1, dtype=torch.int64, device=rows.device)
+    crow[1:] = torch.cumsum(torch.bincount(rows.long(), minlength=shape[0]),
+                            0)
+    return torch.sparse_csr_tensor(crow, cols.long(), vals, shape,
+                                   check_invariants=False)
+
+
+def full_shape_kernels(torch, tr, batch):
+    """The kernels of a full-batch step at the shapes the step hands them
+    (`models.gnn.fullgraph`: V virtual rows of 32 slots): gather_agg_fwd
+    (each virtual row's mean, layer 0, F 602) bit for bit against the plain
+    version that adds in its order; the segment sum of the virtual rows
+    into the N + 1 rows (the sort-free bwd_dx kernel, F 602) and bwd_dx
+    through the batch's plan (layer 1, F 256, a seeded g) against the
+    plain scatter-add column by column (`index_add_`, atomic: within a
+    tolerance); relaunches bit-identical; ms, plain ms, the CSR
+    `torch.sparse.mm` computing the same function, and the bound (inputs
+    and output moved once at 3.35 TB/s against 2 flops a real edge and
+    feature at 67 TFLOP/s). Then the whole aggregation (the two calls)
+    against one CSR `sparse.mm` of the N x N mean matrix, and (f)
+    `gather_mean` against its plain version, row chunk by chunk."""
+    from repro_torch.kernels.gather_agg import kernel, ref
+    from repro_torch.kernels.gather_mean.ops import gather_mean
+    from repro_torch.kernels.gather_mean.ref import gather_mean_ref
+    n = batch.nodes.shape[0]
+    idx, mask = batch.nbr.contiguous(), batch.nbr_mask
+    V, W = idx.shape
+    m = mask.to(torch.float32)
+    w = (m / torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)).contiguous()
+    seg = batch.owner.reshape(-1, 1).contiguous()
+    share = batch.share.reshape(-1, 1).contiguous()
+    edges = int(mask.sum())
+    x = (tr._inputs(batch) * batch.node_mask[:, None]).contiguous()
+    F = x.shape[1]
+    vrow = torch.arange(V, device=idx.device)[:, None].expand(V, W)[mask]
+    src, val = idx[mask], w[mask]
+    # fwd: the virtual rows' means
+    out = kernel.gather_agg_fwd(x, idx, w)
+    want = ref.gather_agg_ref_ordered(x, idx, w)
+    err = (out - want).abs().max().item()
+    check(torch.equal(out, want), f"fwd at the full batch: max abs err {err}")
+    check(torch.equal(out, kernel.gather_agg_fwd(x, idx, w)),
+          "fwd at the full batch differs between launches")
+    A = csr_rows(torch, vrow, src, val, (V, n))
+    lib_err = (torch.sparse.mm(A, x) - want).abs().max().item()
+    b_ms, b_by = _bound_ms(n * F * 4 + idx.numel() * 8 + V * F * 4,
+                           2.0 * edges * F)
+    fwd = {"max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+           "ms": cuda_ms(torch, lambda: kernel.gather_agg_fwd(x, idx, w)),
+           "plain_ms": cuda_ms(torch, lambda: ref.gather_agg_ref_ordered(
+               x, idx, w), reps=1, rounds=3),
+           "library_ms": cuda_ms(torch, lambda: torch.sparse.mm(A, x))}
+    log(f"[11 kernels] gather_agg_fwd at the full batch's layer 0: x "
+        f"{n}x{F}, {V} virtual rows of {W} slots ({edges} edges, "
+        f"{idx.numel() - edges} padded slots): bit-equal to the ordered "
+        f"plain version, relaunch bit-identical; ms {fwd['ms']:.4f}  "
+        f"plain_ms {fwd['plain_ms']:.4f} (ordered)  CSR sparse.mm "
+        f"{fwd['library_ms']:.4f} (err {lib_err:.3e})  bound_ms "
+        f"{b_ms:.4f} ({b_by})")
+    # the segment sum into the rows
+    agg = kernel.gather_agg_bwd_dx_sorted(seg, share, out, n)
+    S = csr_rows(torch, batch.owner, torch.arange(V, device=idx.device),
+                 batch.share, (n, V))
+    seg_want = ref.gather_agg_bwd_dx_ref(seg, share, out, n)
+    seg_err = (agg - seg_want).abs().max().item()
+    check(torch.allclose(agg, seg_want, rtol=1e-5, atol=1e-6),
+          f"segment sum at the full batch: max abs err {seg_err}")
+    check(torch.equal(agg, kernel.gather_agg_bwd_dx_sorted(seg, share, out,
+                                                           n)),
+          "segment sum differs between launches")
+    seg_ms = cuda_ms(torch, lambda: kernel.gather_agg_bwd_dx_sorted(
+        seg, share, out, n))
+    sb_ms, _ = _bound_ms(V * F * 4 + V * 8 + n * F * 4, 2.0 * V * F)
+    seg_plain = cuda_ms(torch, lambda: ref.gather_agg_bwd_dx_ref(
+        seg, share, out, n))
+    seg_lib = cuda_ms(torch, lambda: torch.sparse.mm(S, out))
+    log(f"[11 kernels] segment sum (sorted bwd_dx, fanout 1) of the "
+        f"{V} virtual-row means into {n} rows, F {F}: max abs err "
+        f"{seg_err:.3e} against the plain index_add_, relaunch "
+        f"bit-identical; ms {seg_ms:.4f}  plain_ms {seg_plain:.4f}  CSR "
+        f"sparse.mm {seg_lib:.4f}  bound_ms {sb_ms:.4f}")
+    # the whole aggregation against one sparse.mm of the mean matrix
+    dst = batch.owner.long()[:, None].expand(V, W)[mask]
+    deg = torch.bincount(dst, minlength=n).to(torch.float32)
+    order = torch.argsort(dst, stable=True)
+    M = csr_rows(torch, dst[order], src[order],
+                 1.0 / deg[dst[order]], (n, n))
+    whole = fwd["ms"] + seg_ms
+    m_ms = cuda_ms(torch, lambda: torch.sparse.mm(M, x))
+    m_err = (torch.sparse.mm(M, x) - agg).abs().max().item()
+    log(f"[11 kernels] the whole mean aggregation at layer 0: the two "
+        f"calls {whole:.4f} ms against one CSR sparse.mm of the {n}x{n} "
+        f"mean matrix {m_ms:.4f} ms (max abs diff {m_err:.3e})")
+    # (f) the shim at the same shape
+    got = gather_mean(x, idx, mask)
+    check(torch.equal(got, out), "gather_mean != gather_agg with its w")
+    step = 16384
+    plain = torch.cat([gather_mean_ref(x, idx[s:s + step], mask[s:s + step])
+                       for s in range(0, V, step)])
+    g_err = (got - plain).abs().max().item()
+    scale = plain.abs().max().item()
+    check(g_err <= 1e-5 * scale + 1e-6, f"gather_mean max abs err {g_err}")
+    log(f"[11 gather_mean] at the full batch's layer 0: equal to "
+        f"gather_agg_fwd with w = mask / count bit for bit; against its "
+        f"plain version (row chunks of {step}) max abs err {g_err:.3e} "
+        f"(tol 1e-5 x {scale:.3e} + 1e-6)")
+    del out, want, plain, got, x, A, agg, seg_want, M
+    # bwd_dx through the batch's plan at layer 1's width
+    H = 256
+    g = torch.randn((V, H), generator=torch.Generator(
+        device=idx.device).manual_seed(7), device=idx.device)
+    plan = kernel.bwd_dx_plan(idx, n)
+    plan_ms = cuda_ms(torch, lambda: kernel.bwd_dx_plan(idx, n), reps=3,
+                      rounds=3)
+    dx = kernel.gather_agg_bwd_dx(idx, w, g, n, plan)
+
+    def plain_dx():
+        acc = torch.zeros((n, H), device=g.device)
+        for j in range(W):
+            acc.index_add_(0, idx[:, j].long(), w[:, j, None] * g)
+        return acc
+
+    want = plain_dx()
+    terms = int(torch.bincount(idx[w != 0].long()).max())
+    tol = max(1e-5, 1e-7 * terms)
+    err = (dx - want).abs().max().item()
+    check(torch.allclose(dx, want, rtol=tol, atol=tol),
+          f"bwd_dx at the full batch: max abs err {err} (tol {tol})")
+    check(torch.equal(dx, kernel.gather_agg_bwd_dx(idx, w, g, n, plan)),
+          "bwd_dx at the full batch differs between launches")
+    order = torch.argsort(src, stable=True)
+    At = csr_rows(torch, src[order], vrow[order], val[order], (n, V))
+    lib_err = (torch.sparse.mm(At, g) - want).abs().max().item()
+    b_ms, b_by = _bound_ms(V * H * 4 + idx.numel() * 8 + n * H * 4,
+                           2.0 * edges * H)
+    k_ms = cuda_ms(torch, lambda: kernel.gather_agg_bwd_dx(idx, w, g, n,
+                                                           plan))
+    dxr = {"max_abs_err": err, "bound_ms": b_ms, "bound_by": b_by,
+           "ms": k_ms, "plan_ms": plan_ms,
+           "plain_ms": cuda_ms(torch, plain_dx, reps=1, rounds=3),
+           "library_ms": cuda_ms(torch, lambda: torch.sparse.mm(At, g))}
+    log(f"[11 kernels] gather_agg_bwd_dx at the full batch's layer 1: dx "
+        f"{n}x{H} from {V} virtual rows of {W} slots, at most {terms} "
+        f"weighted edges on a row: max abs err {err:.3e} against the plain "
+        f"column-by-column index_add_ (tol {tol:.1e}), relaunch "
+        f"bit-identical; ms {k_ms:.4f} (its plan {plan_ms:.4f}, built once "
+        f"for every step on the batch)  plain_ms {dxr['plain_ms']:.4f}  CSR "
+        f"sparse.mm of the transpose {dxr['library_ms']:.4f} (err "
+        f"{lib_err:.3e})  bound_ms {b_ms:.4f} ({b_by})")
+    return {"gather_agg_fwd": fwd, "gather_agg_bwd_dx": dxr}
+
+
+def phase_fullbatch(torch, graph):
+    """(e) `train_fullbatch`, 3 epochs: epoch time, peak memory, the
+    validation accuracy curve; 3 fwd and 5 bwd_dx a step and 3 fwd and 3
+    bwd_dx an evaluation, one plan for the run; a second run's curve
+    bit-identical; two fresh trainers' step losses bit-identical; a
+    profiled step; the kernels at the full batch's shapes and (f)
+    `gather_mean`."""
+    import numpy as np
+
+    from repro_torch.configs import CONFIGS, TrainConfig
+    from repro_torch.kernels.gather_agg import kernel
+    from repro_torch.train import baselines
+
+    cfg, tcfg = CONFIGS["graphsage"], TrainConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()                             # counts start here
+    t0 = time.perf_counter()
+    res = baselines.train_fullbatch(graph, cfg, tcfg, seed=0,
+                                    epochs=FB_EPOCHS, device=DEVICE)
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    launches = read_launches()                   # ... and are read here
+    plans = kernel.PLANS["gather_agg_bwd_dx"]
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    want = expect_launches(6 * FB_EPOCHS, 8 * FB_EPOCHS)
+    check(launches == want, f"{FULLBATCH}: launches {launches} != {want}")
+    check(plans == 1, f"{FULLBATCH}: {plans} plans, want 1 for the run")
+    again = baselines.train_fullbatch(graph, cfg, tcfg, seed=0,
+                                      epochs=FB_EPOCHS, device=DEVICE)
+    check(again["val_acc_curve"] == res["val_acc_curve"],
+          f"{FULLBATCH}: relaunch curve {again['val_acc_curve']}")
+    log(f"[11 fullbatch] {FB_EPOCHS} epochs (one step each): per-epoch time "
+        f"{res['per_epoch_time_s'] * 1e3:.1f} ms (the call {wall:.2f} s with "
+        f"the host build and the evaluations); val acc curve "
+        f"{[round(a, 4) for a in res['val_acc_curve']]}; peak {peak:.2f} "
+        f"GiB; launches {launches} = 3 fwd + 5 bwd_dx a step, 3 fwd + 3 "
+        f"bwd_dx an evaluation; {plans} plan for the run; a second run's "
+        f"curve bit-identical")
+    t0 = time.perf_counter()
+    batch = baselines.induced_subgraph(graph, np.arange(graph.num_nodes),
+                                       graph.num_nodes + 1,
+                                       graph.num_edges + 1, DEVICE)
+    torch.cuda.synchronize()
+    log(f"[11 fullbatch] the full graph's induced subgraph and table "
+        f"{tuple(batch.nbr.shape)} on the host and its upload: "
+        f"{time.perf_counter() - t0:.2f} s")
+    trs = [baselines.SubgraphTrainer(graph, cfg, tcfg, seed=0, device=DEVICE)
+           for _ in range(2)]
+    losses = [[float(tr.step(batch, e, 0)) for e in range(2)] for tr in trs]
+    check(losses[0] == losses[1], f"{FULLBATCH}: relaunch losses {losses}")
+    log(f"[11 fullbatch] two fresh trainers, 2 steps each: losses "
+        f"bit-identical {losses[0]}")
+    del trs[1]
+    subgraph_profile(torch, "fullbatch", trs[0], batch,
+                     lambda j: (2 + j, 0))
+    readings = full_shape_kernels(torch, trs[0], batch)
+    del trs, batch
+    torch.cuda.empty_cache()
+    return {FULLBATCH: launches}, readings
+
+
+def phase_prior_work(torch, graph, caps, eval_caps):
+    """Phase 11 on the reddit-602 graph (`caps`: comm_rand's, printed
+    beside LABOR's): returns the launches of its runs by path and the
+    full-batch shapes' kernel readings."""
+    t_phase = time.perf_counter()
+    runs = phase_labor(torch, graph, caps, eval_caps)
+    runs.update(phase_clustergcn(torch, graph))
+    fb_runs, readings = phase_fullbatch(torch, graph)
+    runs.update(fb_runs)
+    log(f"[11 done] phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return runs, readings
+
+
+# ---------------------------------------------------------------------------
 # phase 6: LM serving (gemma3-1b prefill + greedy decode)
 # ---------------------------------------------------------------------------
 def serve_model(torch, arch, tag):
@@ -2887,6 +3448,9 @@ def main() -> int:
                                              caps, eval_caps)
     phase_card_to_cpu(torch, tiny)
     runs.update(phase_async(torch, graph, policy, plan, caps, eval_caps))
+    prior_runs, readings[FULLBATCH] = phase_prior_work(torch, graph, caps,
+                                                       eval_caps)
+    runs.update(prior_runs)
 
     del graph, tiny, plan
     torch.cuda.empty_cache()

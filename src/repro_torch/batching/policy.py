@@ -1,5 +1,5 @@
 """Batch-construction policies: one protocol, one registry
-(`repro/batching/policy.py:38-160`).
+(`repro/batching/policy.py`).
 
 A `BatchPolicy` decides the (possibly constrained-random) order in which
 training roots are visited each epoch, plus the intra-community sampling
@@ -8,14 +8,21 @@ weight `p` used by the biased neighbor sampler:
     rand        uniform random shuffle (baseline)
     norand      static community order (no shuffle)
     comm_rand   block shuffle with the MIX knob (paper §4.1)
+    clustergcn  random unions of communities (prior work, §6.3)
+    labor       uniform order + LABOR shared-randomness sampling (§6.3)
 
-(`clustergcn` and `labor` are not ported yet.) Orders are plain numpy and
-equal the reference's for the same Generator.
+A policy also decides how neighbors are drawn, via `sampler_spec()`: a
+plain `(name, kwargs)` pair into the `repro_torch.sampling` registry. The
+COMM-RAND family and ClusterGCN bind the biased two-phase sampler at
+their `p`; `labor` binds `LaborSampler`, whose shared ranks shrink its
+footprint (`p` means nothing to it). Orders are plain numpy and equal the
+reference's for the same Generator.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Callable, Dict, Protocol, Tuple, runtime_checkable
+from typing import (Callable, Dict, List, Protocol, Tuple,
+                    runtime_checkable)
 
 import numpy as np
 
@@ -135,3 +142,108 @@ def _make_norand(p: float = 1.0, **_kw) -> CommRandPolicy:
 def _make_comm_rand(mix: float = 0.125, p: float = 1.0,
                     **_kw) -> CommRandPolicy:
     return CommRandPolicy("comm_rand", mix, p)
+
+
+# ---------------------------------------------------------------------------
+# prior-work policies (paper §6.3)
+# ---------------------------------------------------------------------------
+@register("clustergcn")
+@dataclass(frozen=True)
+class ClusterGCNPolicy:
+    """ClusterGCN [14] partition unions: each epoch shuffles the community
+    ids and merges consecutive groups of `parts_per_batch` into one batch.
+    `member_groups` gives the full induced-node groups the baseline trainer
+    consumes; `epoch_order` is the same grouping restricted to train roots.
+    """
+    parts_per_batch: int = 2
+    p: float = 0.5
+
+    @property
+    def name(self) -> str:
+        return "clustergcn"
+
+    def community_order(self, communities: np.ndarray,
+                        rng: np.random.Generator) -> List[np.ndarray]:
+        n_comm = int(communities.max()) + 1
+        order = order_mod.hash_perm(n_comm, order_mod.epoch_words(rng))
+        return np.split(order, range(self.parts_per_batch, n_comm,
+                                     self.parts_per_batch))
+
+    @staticmethod
+    def _grouped(ids: np.ndarray, comm_of_ids: np.ndarray, n_comm: int,
+                 unions: List[np.ndarray]) -> List[np.ndarray]:
+        """One bucketed pass: argsort `ids` by community once, then each
+        union is a concat of bucket slices; the position sort restores the
+        original `ids` order."""
+        by_comm = np.argsort(comm_of_ids, kind="stable")
+        bounds = np.zeros(n_comm + 1, np.int64)
+        np.add.at(bounds, comm_of_ids + 1, 1)
+        np.cumsum(bounds, out=bounds)
+        out = []
+        for union in unions:
+            pos = np.concatenate(
+                [by_comm[bounds[c]:bounds[c + 1]] for c in union]
+                or [np.zeros(0, np.int64)])
+            out.append(ids[np.sort(pos)])
+        return out
+
+    def member_groups(self, communities: np.ndarray,
+                      rng: np.random.Generator) -> List[np.ndarray]:
+        """ALL node ids per community union (one epoch of subgraph batches)."""
+        n_comm = int(communities.max()) + 1
+        return self._grouped(np.arange(len(communities)), communities,
+                             n_comm, self.community_order(communities, rng))
+
+    def epoch_order(self, train_ids: np.ndarray, communities: np.ndarray,
+                    rng: np.random.Generator) -> np.ndarray:
+        n_comm = int(communities.max()) + 1
+        return np.concatenate(self._grouped(
+            train_ids, communities[train_ids], n_comm,
+            self.community_order(communities, rng)))
+
+    def sampler_spec(self) -> Tuple[str, Dict]:
+        return ("biased", {"p": self.p})
+
+    def describe(self) -> str:
+        # p is part of the description: CapsCalibrator keys its disk cache
+        # on describe(), and p changes the sampled-neighborhood footprint
+        return f"ClusterGCN({self.parts_per_batch} parts/batch) p={self.p:g}"
+
+
+@register("labor")
+@dataclass(frozen=True)
+class LaborPolicy:
+    """LABOR-lite [9]: structure-agnostic roots (uniform shuffle); the
+    footprint reduction comes from shared per-node hash randomness during
+    neighbor sampling — `sampler_spec()` binds `sampling.LaborSampler`.
+    `p` exists only to satisfy the BatchPolicy protocol; the LABOR sampler
+    ignores it."""
+    p: float = 0.5
+
+    @property
+    def name(self) -> str:
+        return "labor"
+
+    def epoch_order(self, train_ids: np.ndarray, communities: np.ndarray,
+                    rng: np.random.Generator) -> np.ndarray:
+        return train_ids[order_mod.hash_perm(
+            len(train_ids), order_mod.epoch_words(rng))]
+
+    def sampler_spec(self) -> Tuple[str, Dict]:
+        return ("labor", {})
+
+    def describe(self) -> str:
+        return "LABOR-lite(shared-randomness)"
+
+
+# ---------------------------------------------------------------------------
+# convenience: one epoch of root-id batches, no device work
+# ---------------------------------------------------------------------------
+def root_batches(graph, policy, batch_size: int, *, seed: int = 0,
+                 epoch: int = 0, drop_last: bool = False) -> np.ndarray:
+    """(n_batches, batch_size) root ids for `epoch`, -1-padded. Deterministic
+    in (seed, epoch) — the same derivation `BatchStream` uses."""
+    rng = np.random.default_rng((seed, epoch))
+    order = as_policy(policy).epoch_order(
+        graph.train_ids, graph.communities, rng)
+    return order_mod.make_batches(order, batch_size, drop_last)

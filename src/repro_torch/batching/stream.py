@@ -12,6 +12,12 @@ a cursor therefore rebuilds the same batch bit for bit. The generators are
 the device's own (Philox on CUDA, MT19937 on the CPU), so a CUDA stream
 and a CPU stream with the same seed draw different uniforms; the reference's
 threefry draws are not reproduced (the parity tests inject them instead).
+Shared-randomness samplers (LABOR) draw nothing per batch: they hash node
+ids with two uint32 epoch words, `shared_words(seed, epoch)` (numpy's
+SeedSequence of `(seed, epoch, 0, 0, SALT_LABOR)`), into ranks computed
+once per epoch on the stream's device (`epoch_ctx`). The reference hashes
+the raw words of its threefry epoch key instead; handed those words, the
+port's ranks and picks are the reference's.
 
 The stream carries the feature cache (`cache=`) its consumers read layer-0
 features through. `_take(epoch, pos)` is the override point of the async
@@ -38,6 +44,8 @@ from repro_torch.graphs.csr import DeviceGraph, Graph
 SALT_SAMPLE = 0         # per-(batch, hop) neighbor-sampling uniforms
 SALT_DROPOUT = 1        # per-(batch, layer) dropout masks
 SALT_EVAL = 2           # per-(chunk, hop) evaluation sampling
+SALT_LABOR = 3          # per-epoch words of shared-randomness samplers
+SALT_LABOR_EVAL = 4     # ... and the evaluation stream's words
 
 
 def cursor_seed(seed: int, epoch: int, pos: int, hop: int,
@@ -47,6 +55,14 @@ def cursor_seed(seed: int, epoch: int, pos: int, hop: int,
     words = np.random.SeedSequence(
         (seed, epoch, pos, hop, salt)).generate_state(2, np.uint32)
     return ((int(words[0]) << 32) | int(words[1])) & ((1 << 63) - 1)
+
+
+def shared_words(seed: int, epoch: int,
+                 salt: int = SALT_LABOR) -> np.ndarray:
+    """The two uint32 epoch words a shared-randomness sampler (LABOR)
+    hashes node ids with: a pure function of (seed, epoch)."""
+    return np.random.SeedSequence(
+        (seed, epoch, 0, 0, salt)).generate_state(2, np.uint32)
 
 
 def cursor_generator(device, seed: int, epoch: int, pos: int, hop: int,
@@ -71,10 +87,12 @@ class Cursor:
 
 
 def build_at(g: DeviceGraph, roots: torch.Tensor, labels: torch.Tensor,
-             fanouts, caps, sampler, seed: int, epoch: int,
-             pos: int) -> mb.MiniBatch:
+             fanouts, caps, sampler, seed: int, epoch: int, pos: int,
+             ranks: Optional[torch.Tensor] = None) -> mb.MiniBatch:
     """The static-shape batch for device `roots` (int32, -1 padded) at
-    cursor (epoch, pos): one generator per hop from `cursor_generator`.
+    cursor (epoch, pos): one generator per hop from `cursor_generator`,
+    and for a shared-randomness sampler the epoch's `ranks` (of
+    `shared_words(seed, epoch)`, computed once an epoch by the caller).
     The one build body of `BatchStream.build` and of
     `pipeline.DeviceBatchBuilder.build`."""
     def draw(hop, M, fanout):
@@ -82,7 +100,7 @@ def build_at(g: DeviceGraph, roots: torch.Tensor, labels: torch.Tensor,
         return sampler.draw(gen, M, fanout)
 
     return mb._build_batch_impl(g, roots, labels, fanouts, caps, sampler,
-                                draw)
+                                draw, ranks)
 
 
 def _device_inputs(graph: Graph, device: torch.device,
@@ -126,6 +144,7 @@ class BatchStream:
             cache, graph, policy=self.policy, batch_size=batch_size,
             fanouts=self.fanouts, seed=seed, device=self.device)
         self._order_cache = (-1, None)        # (epoch, (n_batches, B) roots)
+        self._epoch_ctx = (-1, None)          # (epoch, shared sampler state)
 
     # -- deterministic derivations ------------------------------------------
     def root_batches(self, epoch: int) -> np.ndarray:
@@ -143,11 +162,20 @@ class BatchStream:
         return n // self.batch_size if self.drop_last \
             else -(-n // self.batch_size)
 
+    def epoch_ctx(self, epoch: int):
+        """Per-epoch shared sampler state (LABOR's node ranks), computed
+        once per epoch on the stream's device; None for other samplers."""
+        if self._epoch_ctx[0] != epoch:
+            self._epoch_ctx = (epoch, mb.sampler_epoch_ctx(
+                self.sampler, shared_words(self.seed, epoch), self.g))
+        return self._epoch_ctx[1]
+
     def build(self, roots: np.ndarray, epoch: int, pos: int) -> mb.MiniBatch:
         """The static-shape batch for these roots at cursor (epoch, pos)."""
         r = torch.as_tensor(np.asarray(roots), dtype=torch.int32)
         return build_at(self.g, r.to(self.device), self.labels, self.fanouts,
-                        self.caps, self.sampler, self.seed, epoch, pos)
+                        self.caps, self.sampler, self.seed, epoch, pos,
+                        self.epoch_ctx(epoch))
 
     # -- iteration -----------------------------------------------------------
     def _take(self, epoch: int, pos: int) -> mb.MiniBatch:
@@ -193,12 +221,16 @@ def eval_batches(graph: Graph, ids: np.ndarray, batch_size: int, fanouts,
     """Deterministic sequential batches over `ids` (padded with -1).
     Generators derive from (seed, chunk index, hop) only, so evaluation
     never perturbs training state. `sampler=None` keeps the biased
-    two-phase draw at `p` (the uniform-eval contract)."""
+    two-phase draw at `p` (the uniform-eval contract). A shared-randomness
+    sampler hashes with words of `(seed, SALT_LABOR_EVAL)` for every
+    chunk."""
     dev = resolve_device(device)
     g, labels = _device_inputs(graph, dev, device_graph, labels)
     fanouts, caps = tuple(fanouts), tuple(caps)
     sampler = sampling.resolve(
         sampler, lambda: sampling.make_sampler("biased", p=float(p)))
+    ranks = mb.sampler_epoch_ctx(sampler,
+                                 shared_words(seed, 0, SALT_LABOR_EVAL), g)
     for j, i in enumerate(range(0, len(ids), batch_size)):
         pad = np.full(batch_size, -1, np.int64)
         chunk = ids[i:i + batch_size]
@@ -210,4 +242,4 @@ def eval_batches(graph: Graph, ids: np.ndarray, batch_size: int, fanouts,
 
         roots = torch.as_tensor(pad, dtype=torch.int32).to(dev)
         yield mb._build_batch_impl(g, roots, labels, fanouts, caps, sampler,
-                                   draw)
+                                   draw, ranks)

@@ -4,10 +4,12 @@ torch tensors.
 A batch is a tower of node levels F_0 (roots) ⊂ F_1 ⊂ ... ⊂ F_L (input
 level), built by neighbor sampling (`repro_torch.sampling`) + *static-size
 dedup* into per-level caps calibrated per (policy, sampler)
-(`calibrate_caps`, copied numpy). Blocks are stored input-side first:
-blocks[0] maps F_L -> F_{L-1}. Every dst has exactly `fanout` sampled
-source slots + one self slot, so aggregation is a masked mean over a dense
-(n_dst, fanout) gather — no segment ops.
+(`calibrate_caps`, copied numpy). Samplers with `shared_randomness`
+(LABOR) take the epoch's `ranks` — the same at every hop and batch of an
+epoch — instead of per-(batch, hop) uniforms. Blocks are stored
+input-side first: blocks[0] maps F_L -> F_{L-1}. Every dst has exactly
+`fanout` sampled source slots + one self slot, so aggregation is a
+masked mean over a dense (n_dst, fanout) gather — no segment ops.
 
 The build issues no host synchronisation: `_unique_capped` reproduces
 `jnp.unique(size=cap, fill_value=N)` (sorted, padded, truncating) with a
@@ -17,7 +19,7 @@ sort, a first-of-run mask, a cumulative sum and a scatter, where
 from __future__ import annotations
 
 from dataclasses import dataclass, fields
-from typing import Callable, List, Tuple
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -92,16 +94,31 @@ def _unique_capped(ids: torch.Tensor, cap: int, fill: int) -> torch.Tensor:
     return out[:cap]
 
 
-Draw = Callable[[int, int, int], Tuple[torch.Tensor, torch.Tensor]]
+Draw = Callable[[int, int, int], Tuple[torch.Tensor, ...]]
+
+
+def sampler_epoch_ctx(sampler, words, g: DeviceGraph):
+    """Per-epoch device state a shared-randomness sampler precomputes once
+    (LABOR's node ranks from the two epoch `words`); None for samplers
+    without one."""
+    fn = getattr(sampler, "epoch_ctx", None)
+    if not (sampler.shared_randomness and callable(fn)):
+        return None
+    if words is None:
+        raise ValueError(f"sampler {sampler.describe()} shares randomness "
+                         f"across an epoch: pass the epoch's words")
+    return fn(words, g)
 
 
 def _build_batch_impl(g: DeviceGraph, roots: torch.Tensor,
                       labels_all: torch.Tensor, fanouts: Tuple[int, ...],
-                      caps: Tuple[int, ...], sampler, draw: Draw
-                      ) -> MiniBatch:
+                      caps: Tuple[int, ...], sampler, draw: Draw,
+                      ranks: Optional[torch.Tensor] = None) -> MiniBatch:
     """The build body. `draw(hop, M, fanout)` supplies the sampler's
-    uniforms for the M rows of that hop: per-cursor generators in the
-    stream, the reference's own uniforms in the parity tests."""
+    uniforms for the M rows of that hop (a tuple, empty for full and
+    LABOR): per-cursor generators in the stream, the reference's own
+    uniforms in the parity tests. `ranks`: a shared-randomness sampler's
+    epoch state (`sampler_epoch_ctx`), handed to every hop."""
     N = g.num_nodes
     B = roots.shape[0]
     root_mask = roots >= 0
@@ -115,8 +132,11 @@ def _build_batch_impl(g: DeviceGraph, roots: torch.Tensor,
     blocks = []
     for h, (r, cap) in enumerate(zip(fanouts, caps)):
         prev = levels[-1]
-        u_class, u_off = draw(h, prev.shape[0], r)
-        srcs, smask = sampler.sample(g, prev, r, u_class, u_off)
+        u = draw(h, prev.shape[0], r)
+        if ranks is not None:
+            srcs, smask = sampler.sample(g, prev, r, *u, ranks=ranks)
+        else:
+            srcs, smask = sampler.sample(g, prev, r, *u)
         all_ids = torch.cat([prev, srcs.reshape(-1)])
         nxt = _unique_capped(all_ids, cap, N)
         self_pos, self_ok = _positions(nxt, prev)
@@ -151,14 +171,16 @@ def _build_batch_impl(g: DeviceGraph, roots: torch.Tensor,
 
 
 def build_batch(g: DeviceGraph, roots, labels_all, fanouts, caps,
-                sampler=0.5, *, draw: Draw) -> MiniBatch:
+                sampler=0.5, *, draw: Draw, epoch_words=None) -> MiniBatch:
     """roots: (B,) int32 with -1 padding, on `g`'s device. caps: per-level
     unique caps, len == len(fanouts), cap for levels 1..L (level 0 cap is
     B). `sampler` is a `repro_torch.sampling` sampler (a bare float selects
-    the biased two-phase draw at that `p`)."""
+    the biased two-phase draw at that `p`). `epoch_words` (two uint32)
+    feed shared-randomness samplers (LABOR), which need them."""
     s = sampling.resolve(sampler)
     return _build_batch_impl(g, roots, labels_all, tuple(fanouts),
-                             tuple(caps), s, draw)
+                             tuple(caps), s, draw,
+                             sampler_epoch_ctx(s, epoch_words, g))
 
 
 # ---------------------------------------------------------------------------
@@ -166,7 +188,9 @@ def build_batch(g: DeviceGraph, roots, labels_all, fanouts, caps,
 # ---------------------------------------------------------------------------
 def build_batch_np(rng: np.random.Generator, graph: Graph, roots, fanouts,
                    sampler=0.5, ctx: dict = None):
-    """Returns per-level unique-node counts + the input-level footprint."""
+    """Returns per-level unique-node counts + the input-level footprint.
+    `ctx` carries per-epoch shared sampler state (LABOR's ranks, or the
+    `epoch_words` they hash) across batches of one epoch."""
     s = sampling.resolve(sampler)
     ctx = {} if ctx is None else ctx
     level = np.unique(roots[roots >= 0])
@@ -183,7 +207,8 @@ def calibrate_caps(graph: Graph, policy, batch_size: int,
                    seed: int = 0, align: int = 128) -> Tuple[int, ...]:
     """Policy-derived static caps: max unique nodes per level over probe
     batches x margin, rounded up to `align`. The probe samples through the
-    policy's bound sampler. Probe batch indices are drawn uniformly across
+    policy's bound sampler, so LABOR's collapsed footprint yields smaller
+    caps. Probe batch indices are drawn uniformly across
     the epoch: under comm_rand the LEADING batches of an epoch order are
     community-pure and under-estimate the footprint of the late, mixed
     batches."""

@@ -17,6 +17,11 @@ backward, which walks each run of equal indices serially.
 `gather_sorted_rows(x, idx)` is the same for an index the caller states is
 non-decreasing (a level's self rows): its backward needs no sort.
 
+`segment_sum_sorted(x, seg, w, n)` is the transpose of
+`gather_sorted_rows`: rows of x weighted and summed into n rows by a
+non-decreasing index, its forward the sort-free scatter-add kernel, its
+backward a row gather.
+
 A `DxPlan` of an index is the backward's sort of it, made at the first
 backward on the card that needs it and shared by every op handed the same
 `DxPlan`: a layer's aggregate, its row gather over the same index, and
@@ -149,3 +154,33 @@ def gather_sorted_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     with a launch error and on the CPU with ValueError."""
     idx = torch.clamp(idx.to(torch.int32), 0, x.shape[0] - 1).contiguous()
     return _GatherRows.apply(x.contiguous(), idx, None, True)
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, seg, w, n):
+        ctx.save_for_backward(seg, w)
+        return gather_agg_bwd_dx_sorted(seg, w, x, n)
+
+    @staticmethod
+    def backward(ctx, g):
+        seg, w = ctx.saved_tensors
+        dx = g.index_select(0, seg.reshape(-1).long()) * w
+        return dx, None, None, None
+
+
+def segment_sum_sorted(x: torch.Tensor, seg: torch.Tensor, w: torch.Tensor,
+                       n: int) -> torch.Tensor:
+    """out[s] = sum over m with seg[m] = s of w[m] * x[m] -> (n, F)
+    float32, each row summed in m order: deterministic, no atomics.
+    Differentiable in x (its backward gathers `w * g[seg]`).
+
+    x: (M, F) float32; seg: (M,) int, non-decreasing, in [0, n) (on the
+    card the kernel traps on a violation, on the CPU ValueError); w: (M,)
+    float32."""
+    if x.shape[0] == 0:
+        return torch.zeros((n, x.shape[1]), dtype=torch.float32,
+                           device=x.device)
+    return _SegmentSum.apply(
+        x.contiguous(), seg.to(torch.int32).reshape(-1, 1).contiguous(),
+        w.to(torch.float32).reshape(-1, 1).contiguous(), n)

@@ -35,6 +35,7 @@ from repro_torch.kernels.gather_agg.ops import (DxPlan, gather_agg,
                                                 gather_rows,
                                                 gather_sorted_rows)
 from repro_torch.kernels.gather_cached.ops import gather_cached
+from repro_torch.kernels.gather_mean.ops import gather_mean
 from repro_torch.models.lm.common import dense_init
 
 
@@ -158,19 +159,12 @@ def tree_tensors(tree: Dict) -> List[torch.Tensor]:
             if v is not None]
 
 
-def _masked_mean(x_tab, src_idx, edge_mask, plan=None):
-    """(n_dst, r)-indexed mean over valid neighbor slots -> (n_dst, F)."""
-    m = edge_mask.to(torch.float32)
-    w = m / torch.clamp(m.sum(dim=1, keepdim=True), min=1.0)
-    return gather_agg(x_tab, src_idx, w, plan).to(x_tab.dtype)
-
-
 def sage_layer(p: SageLayer, x_tab, src_idx, self_idx, edge_mask,
                plan: Optional[DxPlan] = None):
     """`plan`: the `DxPlan` of src_idx, if the caller shares it. self_idx
     must be non-decreasing (a block's self positions are)."""
     h_self = gather_sorted_rows(x_tab, self_idx)
-    h_nbr = _masked_mean(x_tab, src_idx, edge_mask, plan)
+    h_nbr = gather_mean(x_tab, src_idx, edge_mask, plan).to(x_tab.dtype)
     return h_self @ p.w_self + h_nbr @ p.w_neigh + p.b
 
 

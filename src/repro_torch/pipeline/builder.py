@@ -17,9 +17,12 @@ dedup ops. This builder removes that per-batch host leg:
     `cursor_generator(..., SALT_SAMPLE)` per hop), so the `MiniBatch` is
     bit-exact against `BatchStream.build` at the same cursor.
 
+  * a shared-randomness sampler's state (LABOR's per-node ranks) is
+    computed on the device once per EPOCH (`epoch_ranks`) and threaded
+    into every build of the epoch.
+
 Policies without a device order program take the numpy `epoch_order`
-once per epoch (one transfer per epoch, not per batch). `epoch_ranks` is
-None: no shared-randomness sampler (LABOR) is ported yet.
+once per epoch (one transfer per epoch, not per batch).
 
 Builds are serialised by a lock (a restarted producer may overlap the
 last build of the one it replaces), and a build on another CUDA stream
@@ -41,7 +44,8 @@ import torch
 from repro_torch import sampling
 from repro_torch.batching.policy import as_policy
 from repro_torch.batching.stream import (SALT_SAMPLE, _device_inputs,
-                                         build_at, cursor_generator)
+                                         build_at, cursor_generator,
+                                         shared_words)
 from repro_torch.core import minibatch as mb
 from repro_torch.devices import DeviceLike, resolve_device
 from repro_torch.graphs.csr import DeviceGraph, Graph
@@ -83,6 +87,7 @@ class DeviceBatchBuilder:
             self.spec = None            # host numpy order, once per epoch
         self._buf: Optional[torch.Tensor] = None   # the padded order
         self._order_epoch = -1
+        self._ranks = (-1, None)        # (epoch, shared sampler state)
         self._lock = threading.Lock()
         self._stream = None             # CUDA stream of the last build
 
@@ -124,10 +129,14 @@ class DeviceBatchBuilder:
         self._order_epoch = epoch
         return self._buf
 
-    def epoch_ranks(self, epoch: int):
-        """Shared-randomness sampler state for `epoch`: None, since no
-        ported sampler has any (LABOR's per-node ranks)."""
-        return None
+    def epoch_ranks(self, epoch: int) -> Optional[torch.Tensor]:
+        """Shared-randomness sampler state for `epoch` (LABOR's per-node
+        ranks), computed on the device once and threaded into every build
+        of the epoch; None for samplers without one."""
+        if self._ranks[0] != epoch:
+            self._ranks = (epoch, mb.sampler_epoch_ctx(
+                self.sampler, shared_words(self.seed, epoch), self.g))
+        return self._ranks[1]
 
     def _follow_stream(self) -> None:
         """Order this build after the previous one when it ran on another
@@ -156,8 +165,14 @@ class DeviceBatchBuilder:
             self._follow_stream()
             B = self.batch_size
             roots = self.epoch_roots(epoch)[pos * B:(pos + 1) * B]
+            ranks = self.epoch_ranks(epoch)
+            if ranks is not None and self._stream is not None:
+                # a restarted producer's stream reads the ranks another
+                # stream made: the allocator must not reuse them meanwhile
+                ranks.record_stream(self._stream)
             return build_at(self.g, roots, self.labels, self.fanouts,
-                            self.caps, self.sampler, self.seed, epoch, pos)
+                            self.caps, self.sampler, self.seed, epoch, pos,
+                            ranks)
 
 
 # ---------------------------------------------------------------------------
@@ -191,7 +206,8 @@ def stage_times(g: DeviceGraph, roots, labels_all, fanouts, caps, sampler,
     (epoch, pos) for `roots`, on its realized levels:
 
       roots_us    root mask + sort (level-0 prep)
-      sample_us   all hops' neighbour draws and sampling
+      sample_us   all hops' neighbour draws and sampling (LABOR's ranks,
+                  made once an epoch, are not in it)
       dedup_us    concat + capped unique + position remap per hop
 
     The stages run on the same intermediates the builder produces."""
@@ -199,8 +215,10 @@ def stage_times(g: DeviceGraph, roots, labels_all, fanouts, caps, sampler,
     sampler = sampling.resolve(sampler)
     N = g.num_nodes
     roots = torch.as_tensor(roots, dtype=torch.int32).to(g.device)
+    ranks = mb.sampler_epoch_ctx(sampler, shared_words(seed, epoch), g)
+    kw = {} if ranks is None else {"ranks": ranks}
     batch = build_at(g, roots, labels_all, fanouts, caps, sampler, seed,
-                     epoch, pos)
+                     epoch, pos, ranks)
     levels = batch.levels[:-1]
 
     def roots_fn():
@@ -213,7 +231,7 @@ def stage_times(g: DeviceGraph, roots, labels_all, fanouts, caps, sampler,
             gen = cursor_generator(g.device, seed, epoch, pos, h,
                                    SALT_SAMPLE)
             u = sampler.draw(gen, levels[h].shape[0], fan)
-            out.append(sampler.sample(g, levels[h], fan, *u))
+            out.append(sampler.sample(g, levels[h], fan, *u, **kw))
         return out
 
     srcs = sample_fn()

@@ -7,7 +7,8 @@ counter with the words, stable-argsort the keys. This module runs the SAME
 computation on torch tensors, so the epoch's root order lives on the
 device and never crosses the host boundary per batch.
 
-Bit-match contract: for every registered policy (rand, norand, comm_rand),
+Bit-match contract: for every registered policy (rand, norand, comm_rand,
+clustergcn, labor),
 
     device_epoch_order(OrderSpec.for_policy(graph, policy, device),
                        epoch_words_for(seed, epoch))
@@ -15,17 +16,15 @@ Bit-match contract: for every registered policy (rand, norand, comm_rand),
                         np.random.default_rng((seed, epoch)))
 
 element for element. Both sides hash identical counters with identical
-constants (imported from `batching.order`) and break ties with stable
+constants and break ties with stable
 sorts over identical input layouts. The uint32 wraparound arithmetic runs
-in int64 (PyTorch's uint32 lacks most operations): every step is masked
-back to 32 bits, and each multiply by a 32-bit constant is split into its
-16-bit halves so that no intermediate passes 2^63.
+in int64, masked to 32 bits at every step (`core.hash32`).
 
 The static layout (community-sorted ids, block boundaries) is built ONCE
 per (graph, policy) in `OrderSpec`; per epoch only the two words change,
 and they ride into the device code as Python ints, not as a transfer.
-`_order_clustergcn` is the clustergcn program, whose policy the port does
-not register yet; it is held against the reference's directly.
+labor's roots are rand's whole-set permutation; clustergcn lists the
+train roots by hash-shuffled community union.
 """
 from __future__ import annotations
 
@@ -35,39 +34,16 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.batching.order import (MIX_A, MIX_B, SALT_BLOCK, SALT_ELEM,
-                                        SALT_PERM, community_groups,
-                                        epoch_words)
+from repro_torch.batching.order import (SALT_BLOCK, SALT_ELEM, SALT_PERM,
+                                        community_groups, epoch_words)
+from repro_torch.core.hash32 import hash_u32 as _hash_u32
 from repro_torch.devices import DeviceLike, resolve_device
-
-_M32 = 0xFFFFFFFF
 
 
 def epoch_words_for(seed: int, epoch: int) -> np.ndarray:
     """The two uint32 epoch words `BatchStream.root_batches` consumes:
     the first (and only) Generator draw of `default_rng((seed, epoch))`."""
     return epoch_words(np.random.default_rng((seed, epoch)))
-
-
-def _mul_u32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """(x * c) mod 2^32 for int64 `x` in [0, 2^32) and a 32-bit constant
-    `c`: the products with c's 16-bit halves stay below 2^48."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (x * lo + (((x * hi) & 0xFFFF) << 16)) & _M32
-
-
-def _hash_u32(idx: torch.Tensor, words, salt: int) -> torch.Tensor:
-    """Twin of `batching.order.hash_u32` on int64 tensors holding uint32
-    values: the same xor, multiply and shift steps, each reduced mod
-    2^32. `words` are two integers (numpy uint32 or Python ints)."""
-    x = idx.to(torch.int64) & _M32
-    for w in ((int(words[0]) ^ salt) & _M32, int(words[1]) & _M32):
-        x = x ^ w
-        x = _mul_u32(x, MIX_A)
-        x = x ^ (x >> 13)
-        x = _mul_u32(x, MIX_B)
-        x = x ^ (x >> 16)
-    return x
 
 
 def _stable_argsort(keys: torch.Tensor) -> torch.Tensor:
@@ -123,7 +99,7 @@ class OrderSpec:
     """Static per-(graph, policy) layout for the device order programs.
 
     `ids` is the concatenation the per-epoch permutation is applied to:
-    train_ids as-is for rand / clustergcn, the community-sorted
+    train_ids as-is for rand / labor / clustergcn, the community-sorted
     concatenation for norand / comm_rand. Built once at stream
     construction; per epoch only two words move.
     """
@@ -147,7 +123,8 @@ class OrderSpec:
         NotImplementedError for a policy without a device order program
         (the builder then takes the numpy order, once per epoch)."""
         name = getattr(policy, "name", None)
-        if name not in ("rand", "norand", "comm_rand"):
+        if name not in ("rand", "labor", "norand", "comm_rand",
+                        "clustergcn"):
             raise NotImplementedError(
                 f"no device order program for policy {name!r}")
         dev = resolve_device(device)
@@ -156,8 +133,14 @@ class OrderSpec:
         def t(a, dtype=torch.int64):
             return torch.as_tensor(np.asarray(a), dtype=dtype).to(dev)
 
-        if name == "rand":
+        if name in ("rand", "labor"):
             return OrderSpec("rand", t(train, torch.int32))
+        if name == "clustergcn":
+            return OrderSpec(
+                "clustergcn", t(train, torch.int32),
+                comm_of=t(graph.communities[train]),
+                n_comm=int(graph.communities.max()) + 1,
+                ppb=int(policy.parts_per_batch))
         groups = community_groups(train, graph.communities)
         flat = np.concatenate(groups)
         if name == "norand":

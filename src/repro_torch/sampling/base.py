@@ -1,18 +1,26 @@
 """NeighborSampler protocol + registry (`repro/sampling/base.py`).
 
-Registered names in the port:
+Registered names:
 
     biased    two-phase intra/inter draw, weight `p` (paper §4.2; default)
+    uniform   one uniform draw over the whole adjacency row
+    full      deterministic enumeration of the first `fanout` neighbors
+    labor     shared-randomness top-k by hash(epoch words, source node id)
 
-(`uniform`, `full` and `labor` are not ported yet.) Policies bind samplers
-through `BatchPolicy.sampler_spec()`, a plain `(name, kwargs)` pair that
-`for_policy` resolves.
+Policies bind samplers through `BatchPolicy.sampler_spec()`, a plain
+`(name, kwargs)` pair that `for_policy` resolves.
 
 The reference draws its uniforms inside `sample` from a threefry key. The
 port splits the two: `draw(gen, M, fanout)` takes the uniforms from a
-`torch.Generator`, and `sample(g, nodes, fanout, u_class, u_off)` is a
-pure function of them — so a test can hand `sample` the very uniforms the
+`torch.Generator` (two tensors for biased, one for uniform, none for full
+and labor), and `sample(g, nodes, fanout, *u, ranks=None)` is a pure
+function of them — so a test can hand `sample` the very uniforms the
 reference drew and compare batches element for element.
+
+A sampler with `shared_randomness` (LABOR) draws nothing per batch: its
+`epoch_ctx(words, g)` hashes every node id with two uint32 epoch words
+into a rank once per epoch, and `sample` takes those `ranks`. Given the
+reference's epoch key words, the ranks and picks are the reference's.
 """
 from __future__ import annotations
 
@@ -26,23 +34,29 @@ class NeighborSampler(Protocol):
     """Protocol every registered sampler satisfies.
 
     `sample` is the device path; `sample_level_np` is the numpy mirror used
-    by cap calibration."""
+    by cap calibration. `shared_randomness` tells the batch builder to
+    hand `sample` the epoch's `ranks` (`epoch_ctx`) instead of per-batch
+    uniforms."""
+
+    shared_randomness: bool
 
     @property
     def name(self) -> str: ...
 
-    def draw(self, gen, M: int, fanout: int):
-        """The uniforms `sample` consumes for M rows, from `gen`."""
+    def draw(self, gen, M: int, fanout: int) -> Tuple:
+        """The uniforms `sample` consumes for M rows, from `gen` (a tuple
+        of any length)."""
         ...
 
-    def sample(self, g, nodes, fanout: int, u_class, u_off):
+    def sample(self, g, nodes, fanout: int, *u, ranks=None):
         """nodes: (M,) int32, sentinel `g.num_nodes` for padding.
         Returns (srcs (M, fanout) int32, mask (M, fanout) bool)."""
         ...
 
     def sample_level_np(self, rng, graph, level, fanout: int,
                         ctx: dict) -> List:
-        """Numpy mirror: list of picked-neighbor arrays for `level` nodes."""
+        """Numpy mirror: list of picked-neighbor arrays for `level` nodes.
+        `ctx` is a per-epoch dict for shared state (LABOR's ranks)."""
         ...
 
     def describe(self) -> str: ...

@@ -167,6 +167,8 @@ class GNNTrainer:
         # caps are calibrated — and disk-cached when the calibrator has a
         # path — per (policy, sampler) pair with the copied numpy probe,
         # so they equal the reference's for the same seed
+        # the policy binds its neighbor sampler (repro_torch.sampling)
+        self.sampler = sampling.for_policy(self.policy)
         cal = calibrator or CapsCalibrator(seed=seed)
         self.caps = tuple(caps or cal.caps_for(
             graph, self.policy, tcfg.batch_size, self.fanouts))

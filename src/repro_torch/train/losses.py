@@ -5,10 +5,15 @@ import torch
 
 
 def gnn_softmax_ce(logits, labels, mask):
-    """Node-classification CE over root nodes. logits (N, C)."""
+    """Node-classification CE over root nodes. logits (N, C).
+
+    The label's logit is taken by a masked row sum (one value and zeros:
+    exactly the value), not by `gather`, whose backward on CUDA is an
+    atomic scatter-add; this backward is elementwise."""
     lf = logits.to(torch.float32)
     lse = torch.logsumexp(lf, dim=-1)
-    picked = torch.gather(lf, -1, labels.long()[:, None])[:, 0]
+    cls = torch.arange(lf.shape[-1], device=lf.device)
+    picked = torch.where(labels.long()[:, None] == cls, lf, 0.0).sum(-1)
     nll = (lse - picked) * mask
     return nll.sum() / torch.clamp(mask.sum(), min=1.0)
 

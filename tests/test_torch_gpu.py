@@ -1476,3 +1476,139 @@ def test_traced_async_run_passes_the_gates_on_the_card(cuda, tmp_path):
     assert rep["overlap"]["overlap_frac"] > 0
     assert rep["mid_epoch_sync_count"] == 0
     assert len(rep["epochs"]) == 2
+
+
+# ---------------------------------------------------------------------------
+# the prior-work samplers and baselines on the card
+# ---------------------------------------------------------------------------
+def test_samplers_and_labor_ranks_on_the_card_equal_the_cpu(cuda):
+    """LABOR's ranks bit for bit at tiny's and reddit-602's node counts;
+    uniform (the same uniforms), full and labor (the same ranks) picks and
+    masks element for element, with the isolated last node and padded
+    rows, at fanouts below and above the degree."""
+    from repro_torch import sampling
+    from repro_torch.graphs.csr import DeviceGraph
+    from repro_torch.sampling.device import _hash_rank01
+    for n in (2000, 232_965):
+        ids = torch.arange(n, dtype=torch.int64)
+        assert torch.equal(_hash_rank01((7, 0xFFFFFFFF), ids.to(cuda)).cpu(),
+                           _hash_rank01((7, 0xFFFFFFFF), ids))
+    g = prepare(synthetic.load("tiny"), oracle=False)
+    gc, gt = DeviceGraph.from_graph(g, cuda), DeviceGraph.from_graph(g, "cpu")
+    rng = np.random.default_rng((0, 41))
+    nodes = rng.integers(0, g.num_nodes, 300).astype(np.int32)
+    nodes[:2], nodes[-3:] = g.num_nodes - 1, g.num_nodes
+    nt = torch.as_tensor(nodes)
+    lab = sampling.LaborSampler()
+    ranks = lab.epoch_ctx((3, 9), gt)
+    assert torch.equal(lab.epoch_ctx((3, 9), gc).cpu(), ranks)
+    for fanout in (3, 10, 300):
+        u = (torch.as_tensor(rng.random((300, fanout)), dtype=torch.float32),)
+        cases = [(sampling.UniformSampler(), u, {}),
+                 (sampling.FullNeighborhoodSampler(), (), {}),
+                 (lab, (), {"ranks": ranks})]
+        for s, args, kw in cases:
+            want = s.sample(gt, nt, fanout, *args, **kw)
+            got = s.sample(gc, nt.to(cuda), fanout,
+                           *(a.to(cuda) for a in args),
+                           **{k: v.to(cuda) for k, v in kw.items()})
+            for a, b in zip(got, want):
+                assert torch.equal(a.cpu(), b), (s.name, fanout)
+
+
+def _labor_trainer(g, cuda, pipeline):
+    cfg = GNNConfig("t", "sage", 2, 32, g.feat_dim, g.num_classes,
+                    fanout=(5, 5), dropout=0.5)
+    return GNNTrainer(g, cfg, TrainConfig(batch_size=128),
+                      make_policy("labor"), caps=(512, 1024),
+                      eval_caps=(512, 1024), seed=3, pipeline=pipeline,
+                      device=cuda)
+
+
+def test_labor_async_equals_sync_on_the_card(cuda, monkeypatch):
+    """LABOR across an epoch boundary: the async trainer's losses equal the
+    sync trainer's bit for bit, 2 fwd and 2 bwd_dx launches a step (1 a
+    layer and 1 a layer's self rows past layer 0), and each stream hashes
+    the ranks once an epoch."""
+    from repro_torch import sampling
+    g = prepare(synthetic.load("tiny"), oracle=True)
+    calls = []
+    ctx = sampling.LaborSampler.epoch_ctx
+    monkeypatch.setattr(sampling.LaborSampler, "epoch_ctx",
+                        lambda self, w, dg: calls.append(1) or
+                        ctx(self, w, dg))
+    steps = 2 * -(-len(g.train_ids) // 128) - 3
+    sync = _labor_trainer(g, cuda, "sync")
+    kernel.reset_launches()
+    want = sync.train_steps(steps)
+    assert kernel.LAUNCHES["gather_agg_fwd"] == 2 * steps
+    assert kernel.LAUNCHES["gather_agg_bwd_dx"] == 2 * steps
+    assert len(calls) == 2
+    asyn = _labor_trainer(g, cuda, "async")
+    try:
+        assert asyn.train_steps(steps) == want
+    finally:
+        asyn.stream.close()
+    assert len(calls) == 4
+
+
+def _subgraph_runs(g, cuda, full: bool, steps: int = 3):
+    from repro_torch.train.baselines import (SubgraphTrainer,
+                                             clustergcn_batches,
+                                             clustergcn_caps,
+                                             induced_subgraph)
+    cfg = GNNConfig("t", "sage", 3, 32, g.feat_dim, g.num_classes,
+                    fanout=(5, 5, 5), dropout=0.0)
+    if full:
+        nodes = np.arange(g.num_nodes)
+        caps = (g.num_nodes + 1, g.num_edges + 1)
+    else:
+        nodes = clustergcn_batches(g, 2, np.random.default_rng((0, 0)))[0]
+        caps = clustergcn_caps(g, 2)
+    out = {}
+    for dev in (cuda, cuda, "cpu"):
+        tr = SubgraphTrainer(g, cfg, TrainConfig(), seed=5, device=dev)
+        batch = induced_subgraph(g, nodes, *caps, device=dev)
+        kernel.reset_launches()
+        losses = [float(tr.step(batch, 0, 0 if full else j))
+                  for j in range(steps)]
+        out.setdefault(str(dev), []).append(
+            (losses, dict(kernel.LAUNCHES), dict(kernel.PLANS)))
+    return out
+
+
+@pytest.mark.parametrize("full", [False, True])
+def test_subgraph_steps_relaunch_bit_identical_on_the_card(cuda, full):
+    """A ClusterGCN part and the full batch: two fresh trainers' losses
+    bit-identical on the card, within 1e-4 of the CPU's; 3 fwd and 5 bwd_dx
+    launches a step (a layer's virtual-row means and their segment sum;
+    the backward of layers 1 and 2: layer 0 reads the feature matrix), one
+    plan for all steps on the batch."""
+    g = prepare(synthetic.load("tiny"), oracle=True)
+    runs = _subgraph_runs(g, cuda, full)
+    (a, la, pa), (b, _, _) = runs[str(cuda)]
+    (c, _, _), = runs["cpu"]
+    assert a == b
+    np.testing.assert_allclose(a, c, rtol=1e-4, atol=1e-4)
+    assert la == {"gather_agg_fwd": 9, "gather_agg_bwd_dx": 15,
+                  "gather_agg_bwd_dw": 0}
+    assert pa == {"gather_agg_bwd_dx": 1}
+
+
+def test_gather_mean_on_the_card_matches_plain_version(cuda):
+    from repro_torch.kernels.gather_mean.ops import gather_mean
+    from repro_torch.kernels.gather_mean.ref import gather_mean_ref
+    rng = np.random.default_rng((0, 43))
+    x = torch.as_tensor(rng.normal(size=(500, 602)), dtype=torch.float32,
+                        device=cuda)
+    idx = torch.as_tensor(rng.integers(0, 500, (700, 37)), dtype=torch.int32,
+                          device=cuda)
+    mask = torch.as_tensor(rng.random((700, 37)) < 0.6, device=cuda)
+    mask[0] = False
+    before = kernel.LAUNCHES["gather_agg_fwd"]
+    got = gather_mean(x, idx, mask)
+    assert kernel.LAUNCHES["gather_agg_fwd"] == before + 1
+    torch.testing.assert_close(got, gather_mean_ref(x, idx, mask),
+                               rtol=1e-5, atol=1e-6)
+    assert torch.equal(got, gather_mean(x, idx, mask))
+    assert not got[0].any()

@@ -21,6 +21,8 @@ from repro_torch.kernels.rwkv6_chunk import kernel as wkv_kernel
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.serve import generate
 from repro_torch.pipeline import AsyncBatchStream, DeviceBatchBuilder
+from repro_torch.train.baselines import (induced_subgraph, train_clustergcn,
+                                         train_fullbatch)
 from repro_torch.train.gnn_loop import GNNTrainer
 
 SRC = Path(__file__).resolve().parents[1] / "src"
@@ -46,7 +48,7 @@ def test_port_modules_import_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 82          # every slice module was imported
+    assert n_modules >= 88          # every slice module was imported
 
 
 _EACH_FIRST = r"""
@@ -69,7 +71,7 @@ def test_each_port_module_imports_first():
     out = subprocess.run([sys.executable, "-c", _EACH_FIRST], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 82
+    assert int(out.stdout.split()[0]) >= 88
 
 
 # the async pipeline and observability slice's modules
@@ -78,6 +80,14 @@ SLICE13 = ["repro_torch.obs", "repro_torch.obs.__main__",
            "repro_torch.obs.trace", "repro_torch.pipeline",
            "repro_torch.pipeline.builder", "repro_torch.pipeline.device_order",
            "repro_torch.pipeline.prefetch"]
+
+# the prior-work slice's modules
+SLICE15 = ["repro_torch.batching.policy", "repro_torch.core.hash32",
+           "repro_torch.kernels.gather_mean",
+           "repro_torch.kernels.gather_mean.ops",
+           "repro_torch.kernels.gather_mean.ref",
+           "repro_torch.models.gnn.fullgraph", "repro_torch.sampling.device",
+           "repro_torch.train.baselines"]
 
 _FRESH = r"""
 import importlib, sys
@@ -88,7 +98,7 @@ assert not bad, bad
 """
 
 
-@pytest.mark.parametrize("name", SLICE13)
+@pytest.mark.parametrize("name", SLICE13 + SLICE15)
 def test_slice_module_imports_first_without_jax(name):
     """Each new module, imported first in a fresh interpreter, loads
     neither jax nor repro (nor triton)."""
@@ -105,7 +115,8 @@ def tiny():
 
 @pytest.mark.parametrize("entry", ["trainer", "stream", "device_graph",
                                    "generate", "train_cli", "async_stream",
-                                   "builder"])
+                                   "builder", "clustergcn", "fullbatch",
+                                   "induced_subgraph"])
 def test_entry_points_raise_without_a_card(tiny, entry, monkeypatch):
     """No card and no explicit device: raise, never fall back."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -121,6 +132,12 @@ def test_entry_points_raise_without_a_card(tiny, entry, monkeypatch):
             AsyncBatchStream(tiny, "comm_rand", 256, (5, 5), (768, 1024))
         elif entry == "builder":
             DeviceBatchBuilder(tiny, "comm_rand", 256, (5, 5), (768, 1024))
+        elif entry == "clustergcn":
+            train_clustergcn(tiny, cfg, TrainConfig(), epochs=1)
+        elif entry == "fullbatch":
+            train_fullbatch(tiny, cfg, TrainConfig(), epochs=1)
+        elif entry == "induced_subgraph":
+            induced_subgraph(tiny, np.arange(10), 16, 64)
         elif entry == "generate":
             generate(LM_CONFIGS["gemma3-1b"].reduced(), {},
                      torch.zeros((1, 4), dtype=torch.long), 1)
@@ -180,3 +197,20 @@ def test_clock_refill_cpu_tensors_take_the_plain_path_and_count_no_launch():
     assert w.slot_ids.tolist() == [2, 3] and int(w.n_admitted) == 2
     assert w.pos.tolist() == [-1, -1, 0, 1] and int(w.hand) == 1
     assert walk_kernel.LAUNCHES == {"clock_refill": 0}
+
+
+def test_gather_mean_is_a_shim_with_no_launch_counter_of_its_own():
+    """`gather_mean` launches `gather_agg`'s kernels and counts nothing of
+    its own; on CPU tensors it takes the plain path and counts no launch."""
+    from repro_torch.kernels.gather_mean import ops as mean_ops
+    kernel.reset_launches()
+    x = torch.ones((5, 3), requires_grad=True)
+    idx = torch.tensor([[0, 4], [2, 2]], dtype=torch.int32)
+    out = mean_ops.gather_mean(x, idx, torch.tensor([[True, False],
+                                                     [True, True]]))
+    out.sum().backward()
+    assert out.tolist() == [[1.0] * 3] * 2
+    assert x.grad[2].tolist() == [1.0] * 3
+    assert not hasattr(mean_ops, "LAUNCHES")
+    assert kernel.LAUNCHES == {"gather_agg_fwd": 0, "gather_agg_bwd_dx": 0,
+                               "gather_agg_bwd_dw": 0}

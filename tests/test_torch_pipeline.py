@@ -129,8 +129,8 @@ def test_device_order_with_top_bit_words(tiny_t, name, kw):
 
 
 def test_clustergcn_program_equals_jax(tiny_t):
-    """The clustergcn order program (its policy is not registered in the
-    port yet) against the reference's jitted one on the same layout."""
+    """The clustergcn order program against the reference's jitted one on
+    the same layout."""
     train = np.asarray(tiny_t.train_ids)
     comm_of = np.asarray(tiny_t.communities[train])
     n_comm = int(tiny_t.communities.max()) + 1
@@ -166,7 +166,7 @@ def test_unknown_policy_raises():
         name = "odd"
         p = 0.5
 
-    for name in ("odd", "labor", "clustergcn"):
+    for name in ("odd", None, "CommRand"):
         Odd.name = name
         with pytest.raises(NotImplementedError):
             OrderSpec.for_policy(None, Odd(), CPU)
