@@ -254,6 +254,33 @@ run, exit code != 0):
               against their plain versions, with CSR `torch.sparse.mm`
               and the bound; (f) `gather_mean` at that shape against its
               plain version
+  12. the chaos soak and LM training, after phase 8: (a)
+              `resilience.soak` on the tiny graph at its own configuration
+              (comm_rand x LABOR, dynamic:degree_hot cache, guarded, async):
+              the fault-free sync reference, then one fault of each of the
+              five classes, each `ok` (fired, its meter engaged, losses
+              and parameter digest bit-identical), with its seconds; (b)
+              the flash kernels at gemma3-1b's training shapes (batch 4 x
+              4096, 4 heads over 1 KV head of 256) on a global (causal)
+              and a local (window 512) layer, bf16 and float32: the
+              forward's lse against `attention_lse_ref`, serving's output
+              bit-identical with and without the lse pointer,
+              `flash_attention_bwd` against `flash_attention_bwd_ref`
+              (float32 within rtol 1e-4 of max |grad|, bf16 within 2e-2 of
+              it), a bit-identical relaunch, ms beside the plain version,
+              SDPA's backward and the bound; bwd_dx at the token
+              embedding's shape; (c) gemma3-1b at full width, float32
+              masters, bf16 compute, remat, AdamW lr 1e-3, 6 steps at
+              batch 4 x 4096 of `SyntheticTokens`: finite losses, exact
+              launches a step (52 flash forwards, 26 backwards, 1 bwd_dx),
+              median step ms on the host clock through a read of the loss,
+              peak GiB, a profiled step's kernel ms and idle share with no
+              `indexing_backward` kernel, and a second run from the same
+              seed with bit-identical losses; (d) reduced gemma3-1b in
+              float32, 5 steps on the card and on the CPU within rtol
+              1e-4; (e) `LMTrainer` on the reduced config: 6 steps with a
+              checkpoint every 3, a new trainer resuming for 3 more, the 9
+              losses bit-identical to an uninterrupted run
 
 It prints the `{"kernels": [...]}` line before the last, and as the last
 line `{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
@@ -309,10 +336,16 @@ RWKV = "rwkv6-7b"
 RWKV_SERVE = f"{RWKV}_serve"
 SERVE_PARAMS = {"gemma3-1b": 999_826_048, MOE: 14_316_308_480,
                 RWKV: 7_534_546_944}
+# LM training: the reference's train_4k shape (batch 256 x 4096,
+# `src/repro/configs/base.py:147`) cut to the batch one card holds with
+# float32 masters, AdamW moments and remat: 4 x 4096, 6 steps
+TRAIN = "gemma3-1b_train"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 6
 # what one reading of each path sums over
 PER = {**{run: "train step" for run in RUNS}, SERVE: "prefill",
        MOE_SERVE: "prefill", MOE_DECODE: "decode step",
-       RWKV_SERVE: "prefill", "graphsage_dynamic": "epoch-boundary refill"}
+       RWKV_SERVE: "prefill", "graphsage_dynamic": "epoch-boundary refill",
+       TRAIN: "train step"}
 DEVICE = "cuda"
 # the CUDA names of the flash kernels: the bf16 prefills must spend their
 # attention time in the tensor-core one and never in the SIMT one
@@ -331,6 +364,9 @@ REPLACES = {
     "wkv6_fwd": "src/repro/kernels/rwkv6_chunk/kernel.py:55",
     "clock_refill": "src/repro/featcache/dynamic.py:184 (_refill_jit: a "
                     "jitted lax.scan, not a Pallas kernel)",
+    "flash_attention_bwd": "src/repro/models/lm/attention.py:107 "
+                           "(_flash_bwd: a jnp custom VJP, not a Pallas "
+                           "kernel)",
 }
 SOURCES = {"gather_agg_fwd": "src/repro_torch/csrc/gather_agg.cu",
            "gather_agg_bwd_dx": "src/repro_torch/csrc/gather_agg.cu",
@@ -339,7 +375,9 @@ SOURCES = {"gather_agg_fwd": "src/repro_torch/csrc/gather_agg.cu",
            "flash_attention_fwd": "src/repro_torch/csrc/flash_attention.cu",
            "moe_gmm_fwd": "src/repro_torch/csrc/moe_gmm.cu",
            "wkv6_fwd": "src/repro_torch/csrc/wkv6.cu",
-           "clock_refill": "src/repro_torch/csrc/clock_refill.cu"}
+           "clock_refill": "src/repro_torch/csrc/clock_refill.cu",
+           "flash_attention_bwd":
+               "src/repro_torch/csrc/flash_attention_bwd.cu"}
 
 
 def log(msg: str) -> None:
@@ -980,8 +1018,8 @@ def phase_train(torch, graph, trainer, name, reference=None):
             "gather_agg_bwd_dx": dx_per_step * steps,
             "gather_agg_bwd_dw": dw_per_step * steps,
             "gather_cached_fwd": steps + n_eval if cached else 0,
-            "flash_attention_fwd": 0, "moe_gmm_fwd": 0, "wkv6_fwd": 0,
-            "clock_refill": 0}
+            "flash_attention_fwd": 0, "flash_attention_bwd": 0,
+            "moe_gmm_fwd": 0, "wkv6_fwd": 0, "clock_refill": 0}
     check(launches == want, f"{name}: launches {launches} != {want}")
     from repro_torch.kernels.gather_agg import kernel
     plans = kernel.PLANS["gather_agg_bwd_dx"]
@@ -3355,6 +3393,382 @@ def phase_rwkv_kernels(torch, cfg, params, tokens):
         "shapes": shapes}}
 
 
+# ---------------------------------------------------------------------------
+# phase 12: the chaos soak, then LM training on gemma3-1b at full width
+# ---------------------------------------------------------------------------
+def phase_soak(torch):
+    """`resilience.soak` as its driver runs it (`run_all`: one fault-free
+    sync reference, then each scenario against it), each scenario timed.
+    Returns the launch counts of the whole soak."""
+    from repro_torch.core.reorder import prepare
+    from repro_torch.graphs import synthetic
+    from repro_torch.resilience import faults, soak
+    g = prepare(synthetic.load("tiny"), oracle=True)
+    reset_launches()
+    t0 = time.perf_counter()
+    ref = soak.run_reference(g, device=DEVICE)
+    log(f"[12 soak] {g.name}: fault-free sync reference, {soak.N_STEPS} "
+        f"steps of 2-layer SAGE (hidden 16), comm_rand x LABOR, "
+        f"dynamic:degree_hot cache, guard {soak.GUARD}: "
+        f"{time.perf_counter() - t0:.2f} s")
+    for site in faults.FAULT_SITES:
+        t0 = time.perf_counter()
+        res = soak.run_scenario(g, site, ref=ref, device=DEVICE)
+        dt = time.perf_counter() - t0
+        log(f"[12 soak] {site}: {json.dumps(res.summary())}  {dt:.2f} s")
+        check(res.ok and res.fired >= 1
+              and res.meter[soak.EXPECT_METER[site]] >= 1,
+              f"soak {site}: {res.summary()}")
+    return read_launches()
+
+
+def check_flash_bwd(torch, label, q, k, v, dout, kw):
+    """The training forward (with lse) and `flash_attention_bwd` at one
+    shape against their plain versions; ms, plain ms, SDPA's ms and the
+    bounds of both. Returns (fwd readings, bwd readings)."""
+    import torch.nn.functional as Fn
+
+    from repro_torch.kernels.flash_attention import kernel, ref
+    B, Sq, H, D = q.shape
+    Skv = k.shape[1]
+    bf16 = q.dtype == torch.bfloat16
+    serve = kernel.flash_attention_fwd(q, k, v, **kw)
+    out, lse = kernel.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    check(torch.equal(serve, out), f"flash {label}: the output differs "
+          f"with the lse pointer")
+    del serve
+    want_lse = ref.attention_lse_ref(q, k, **kw)
+    lse_err = (lse - want_lse).abs().max().item()
+    check(lse_err <= 1e-4, f"flash {label}: lse max abs err {lse_err}")
+    del want_lse
+    got = kernel.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    errs, rel = [], []
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        scale = b.float().abs().max().item()
+        err = (a.float() - b.float()).abs().max().item()
+        check(bool(torch.isfinite(a).all()), f"flash {label}: {name} "
+              f"non-finite")
+        if bf16:
+            check(err <= 2e-2 * scale, f"flash {label}: {name} max abs err "
+                  f"{err} > 2e-2 x {scale}")
+        else:
+            check(torch.allclose(a, b, rtol=1e-4, atol=1e-4 * scale),
+                  f"flash {label}: {name} max abs err {err} (max {scale})")
+        errs.append(err)
+        rel.append(err / scale)
+    again = kernel.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"flash {label}: backward differs between launches")
+    del got, want, again
+    mask = ref._mask(torch.arange(Sq, device=q.device) + kw["q_offset"],
+                     torch.arange(Skv, device=q.device), causal=kw["causal"],
+                     window=kw["window"], is_global=kw["is_global"])
+    pairs = int(mask.sum())
+    peak = BF16_FLOPS_PER_S if bf16 else F32_FLOPS_PER_S
+    es = q.element_size()
+    # the backward's least work: 5 products of length D per unmasked pair
+    # (s, dp, dv, dq, dk); bytes: q, k, v, out, dout and lse read once,
+    # dq, dk, dv written once
+    bwd_b_ms, bwd_b_by = _bound_ms(
+        (4 * q.numel() + 4 * k.numel()) * es + lse.numel() * 4,
+        10.0 * D * pairs * B * H, peak)
+    fwd_b_ms, fwd_b_by = _bound_ms(
+        (2 * q.numel() + 2 * k.numel()) * es + lse.numel() * 4,
+        4.0 * D * pairs * B * H, peak)
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_(True)
+                  for t in (q, k, v))
+    if kw["is_global"]:
+        o = Fn.scaled_dot_product_attention(qt, kt, vt, is_causal=True,
+                                            enable_gqa=True)
+    else:
+        o = Fn.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
+                                            enable_gqa=True)
+    dot = dout.transpose(1, 2)
+
+    def sdpa_fwd():
+        with torch.no_grad():
+            if kw["is_global"]:
+                return Fn.scaled_dot_product_attention(
+                    qt, kt, vt, is_causal=True, enable_gqa=True)
+            return Fn.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, enable_gqa=True)
+
+    def bwd():
+        return kernel.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+
+    def plain_bwd():
+        return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+
+    def fwd():
+        return kernel.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+
+    def plain_fwd():
+        return (ref.attention_ref(q, k, v, **kw),
+                ref.attention_lse_ref(q, k, **kw))
+
+    b = {"max_abs_err": max(errs), "rel_err": max(rel),
+         "bound_ms": bwd_b_ms, "bound_by": bwd_b_by,
+         "ms": cuda_ms(torch, bwd, reps=3, rounds=3, warmup=1),
+         "plain_ms": cuda_ms(torch, plain_bwd, reps=1, rounds=3, warmup=1),
+         "library_ms": cuda_ms(torch, lambda: torch.autograd.grad(
+             o, (qt, kt, vt), dot, retain_graph=True), reps=3, rounds=3,
+             warmup=1)}
+    f = {"max_abs_err": lse_err, "bound_ms": fwd_b_ms, "bound_by": fwd_b_by,
+         "ms": cuda_ms(torch, fwd, reps=3, rounds=3, warmup=1),
+         "plain_ms": cuda_ms(torch, plain_fwd, reps=1, rounds=3, warmup=1),
+         "library_ms": cuda_ms(torch, sdpa_fwd, reps=3, rounds=3, warmup=1)}
+    backend = sdpa_backend(torch, sdpa_fwd)
+    tflops = 10.0 * D * pairs * B * H / b["ms"] / 1e9
+    log(f"[12 kernels] flash {label}: q {tuple(q.shape)} k {tuple(k.shape)} "
+        f"{str(q.dtype)[6:]} {kw}  unmasked pairs per head {pairs}  lse "
+        f"max abs err {lse_err:.3e}  serving output bit-identical without "
+        f"lse  fwd+lse ms {f['ms']:.4f} (plain {f['plain_ms']:.4f}, SDPA "
+        f"{f['library_ms']:.4f} via {backend}, bound {fwd_b_ms:.4f} "
+        f"{fwd_b_by})")
+    log(f"[12 kernels] flash_attention_bwd {label}: dq/dk/dv max abs err "
+        f"{', '.join(f'{e:.3e}' for e in errs)} ({max(rel):.2e} of max "
+        f"|grad|)  bit-identical relaunch True  ms {b['ms']:.4f} "
+        f"({tflops:.1f} TFLOP/s of the 5 products)  plain_ms "
+        f"{b['plain_ms']:.4f}  library_ms {b['library_ms']:.4f} (SDPA "
+        f"backward)  bound_ms {bwd_b_ms:.4f} ({bwd_b_by})")
+    del o, qt, kt, vt
+    return f, b
+
+
+def phase_flash_train(torch, cfg):
+    """(b): both flash kernels at the training shapes, global and local
+    layers, bf16 and float32; per train step sums over the layers (each
+    forward launches twice under remat, each backward once)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(12)
+    B, S, H, KH, D = (TRAIN_BATCH, TRAIN_SEQ, cfg.num_heads,
+                      cfg.num_kv_heads, cfg.head_dim)
+    shapes = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        q, dout = (torch.randn((B, S, H, D), generator=gen, device=DEVICE)
+                   .to(dtype) for _ in range(2))
+        k, v = (torch.randn((B, S, KH, D), generator=gen, device=DEVICE)
+                .to(dtype) for _ in range(2))
+        for layer in ("global", "local"):
+            kw = dict(causal=True, window=cfg.window,
+                      is_global=layer == "global", q_offset=0)
+            name = f"{layer} {str(dtype)[6:]}"
+            shapes[name] = check_flash_bwd(torch, name, q, k, v, dout, kw)
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+    n_glob = sum(cfg.is_global_layer(i) for i in range(cfg.num_layers))
+    n_loc = cfg.num_layers - n_glob
+    out = {}
+    for i, (kname, per) in enumerate((("flash_attention_fwd", 2),
+                                      ("flash_attention_bwd", 1))):
+        g, lo = shapes["global bfloat16"][i], shapes["local bfloat16"][i]
+        out[kname] = {
+            **{k: per * (n_glob * g[k] + n_loc * lo[k])
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "max_abs_err": max(r[i]["max_abs_err"] for r in shapes.values()),
+            "bound_by": "/".join(sorted({g["bound_by"], lo["bound_by"]})),
+            "shapes": {n: r[i] for n, r in shapes.items()}}
+    return out
+
+
+def phase_lm_train(torch, cfg):
+    """(c): gemma3-1b at full width, 6 steps of the train step at batch 4
+    x 4096, then the same 6 from a second draw of the same seed."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data.pipeline import LMStream, SyntheticTokens
+    from repro_torch.models.lm import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    corpus = SyntheticTokens(cfg.vocab_size, num_docs=4096,
+                             doc_len=2 * TRAIN_SEQ)
+    it = iter(LMStream(corpus, TRAIN_BATCH, TRAIN_SEQ))
+    data = [{"tokens": torch.from_numpy(t).to(DEVICE),
+             "labels": torch.from_numpy(lb).to(DEVICE)}
+            for t, lb in (next(it) for _ in range(TRAIN_STEPS))]
+    tcfg = TrainConfig(learning_rate=1e-3)
+    step = make_train_step(cfg, tcfg)
+
+    def run(timed):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params = transformer.init(
+            cfg, torch.Generator(device=DEVICE).manual_seed(0),
+            device=DEVICE)
+        opt = adamw.init(params)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        losses, ms = [], []
+        if timed:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+        for batch in data:
+            t0 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return params, opt, losses, ms, init_s
+
+    params, opt, losses, ms, init_s = run(True)
+    launches = read_launches()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    L = cfg.num_layers
+    want = {k: 0 for k in launches}
+    want.update(flash_attention_fwd=2 * L * TRAIN_STEPS,
+                flash_attention_bwd=L * TRAIN_STEPS,
+                gather_agg_bwd_dx=TRAIN_STEPS)
+    check(launches == want, f"{TRAIN}: launches {launches} != {want}")
+    check(all(math.isfinite(x) for x in losses), f"{TRAIN}: losses "
+          f"{losses}")
+    n = transformer.param_count(params)
+    med = statistics.median(ms)
+    log(f"[12 train] {TRAIN}: {L} layers, d_model {cfg.d_model}, heads "
+        f"{cfg.num_heads} over {cfg.num_kv_heads} KV of {cfg.head_dim}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.padded_vocab}, window {cfg.window}: "
+        f"{n} float32 params (init {init_s:.2f} s on the card); batch "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ}, {cfg.dtype} compute, remat, chunked "
+        f"CE, clip {tcfg.grad_clip}, AdamW lr {tcfg.learning_rate} wd "
+        f"{tcfg.weight_decay}")
+    log(f"[12 train] {TRAIN}: losses {losses}; step ms (host clock through "
+        f"the loss's read) {[round(x, 2) for x in ms]}, median "
+        f"{med:.2f} (steps 2-6: {statistics.median(ms[1:]):.2f}); "
+        f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} tokens/s; peak "
+        f"{peak:.2f} GiB; launches a step: flash fwd "
+        f"{launches['flash_attention_fwd'] / TRAIN_STEPS:g}, flash bwd "
+        f"{launches['flash_attention_bwd'] / TRAIN_STEPS:g}, bwd_dx "
+        f"{launches['gather_agg_bwd_dx'] / TRAIN_STEPS:g}, others 0")
+    dev, wall_ms = profile_kernels(
+        torch, lambda: step(params, opt, data[0])[2]["loss"].item())
+    busy = sum(t for _, t, _ in dev) / 1e3
+    log(f"[12 profile] {TRAIN}: one step, kernels {busy:.2f} ms, device "
+        f"idle share {1 - busy / med:.3f} of the median step {med:.2f} ms "
+        f"(profiled wall {wall_ms:.2f} ms)")
+    for key, t, calls in dev[:12]:
+        log(f"[12 profile] {TRAIN}: {t / 1e3:9.3f} ms  {calls:5d} calls  "
+            f"{key[:100]}")
+    for tag, names in (("flash bwd", ("dkdv_kernel", "dq_kernel",
+                                      "delta_kernel")),
+                       ("flash fwd", (FLASH_TC, FLASH_SIMT)),
+                       ("bwd_dx", DX_KERNELS)):
+        rows = [(k, t, c) for k, t, c in dev if any(x in k for x in names)]
+        kinds = sorted({k.split("<")[0][-30:] for k, _, _ in rows})
+        log(f"[12 profile] {TRAIN}: {tag} "
+            f"{sum(t for _, t, _ in rows) / 1e3:.3f} ms in "
+            f"{sum(c for _, _, c in rows)} kernels ({', '.join(kinds)})")
+    groups = {"matmul": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
+              "flash": ("flash_fwd", "dkdv_kernel", "dq_kernel",
+                        "delta_kernel"),
+              "elementwise and reductions": ("at::native",)}
+    split = {g: sum(t for k, t, _ in dev if any(x in k for x in names))
+             / 1e3 for g, names in groups.items()}
+    log(f"[12 profile] {TRAIN}: by kind "
+        f"{', '.join(f'{g} {t:.1f} ms' for g, t in split.items())}, other "
+        f"{busy - sum(split.values()):.1f} ms")
+    slow = [k for k, _, _ in dev if "indexing_backward" in k]
+    check(not slow, f"{TRAIN}: PyTorch's index backward ran: {slow}")
+    check(not any(FLASH_SIMT in k for k, _, _ in dev),
+          f"{TRAIN}: the bf16 forward took the SIMT kernel")
+    # the backward of `gather_rows(embed, tokens)` as the step calls it:
+    # fanout 1, unit weights, the tokens' own plan
+    tok = data[0]["tokens"].reshape(-1, 1).to(torch.int32).contiguous()
+    embed_rows = check_dx(torch, {
+        "idx": tok, "w": None, "x": params["embed"],
+        "g": torch.randn((tok.shape[0], cfg.d_model),
+                         generator=torch.Generator(device=DEVICE)
+                         .manual_seed(5), device=DEVICE),
+        "plan": {"key": TRAIN, "idx": tok,
+                 "n_src": params["embed"].shape[0], "heads": 1}})
+    log(f"[12 kernels] gather_agg_bwd_dx (the token embedding's backward): "
+        f"ms {embed_rows['ms']:.4f} plain_ms {embed_rows['plain_ms']:.4f} "
+        f"library_ms {embed_rows['library_ms']:.4f} bound_ms "
+        f"{embed_rows['bound_ms']:.4f} ({embed_rows['bound_by']}) "
+        f"max_abs_err {embed_rows['max_abs_err']:.3e}; {embed_rows['note']}")
+    del params, opt
+    torch.cuda.empty_cache()
+    again = run(False)[2]
+    check(again == losses, f"{TRAIN}: relaunch losses {again} != {losses}")
+    log(f"[12 train] {TRAIN}: a second draw from the same seed repeats the "
+        f"{TRAIN_STEPS} losses bit for bit")
+    torch.cuda.empty_cache()
+    return launches, embed_rows
+
+
+def phase_lm_small(torch):
+    """(d) the reduced config in float32 on the card against the CPU;
+    (e) `LMTrainer` resume on the card."""
+    import shutil
+
+    from repro_torch.configs import LM_CONFIGS, TrainConfig
+    from repro_torch.data.pipeline import LMStream, SyntheticTokens
+    from repro_torch.models.lm import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train.lm_loop import LMTrainer
+    from repro_torch.train.train_step import make_train_step
+    cfg = LM_CONFIGS["gemma3-1b"].reduced()
+    f32 = cfg.scaled(dtype="float32")
+    it = iter(LMStream(SyntheticTokens(cfg.vocab_size, 256, 128), 8, 64))
+    data = [next(it) for _ in range(5)]
+    step = make_train_step(f32, TrainConfig(learning_rate=1e-3))
+    params = transformer.init(f32, torch.Generator().manual_seed(0),
+                              device="cpu")
+    losses = {}
+    for dev in ("cpu", DEVICE):
+        p = adamw.tree_map(lambda t: t.to(dev), params)
+        opt = adamw.init(p)
+        losses[dev] = []
+        for toks, labels in data:
+            p, opt, m = step(p, opt, {"tokens": torch.from_numpy(toks).to(dev),
+                                      "labels": torch.from_numpy(labels)
+                                      .to(dev)})
+            losses[dev].append(float(m["loss"]))
+    worst = max(abs(a - b) / abs(b) for a, b in zip(losses[DEVICE],
+                                                   losses["cpu"]))
+    check(worst <= 1e-4, f"reduced card vs cpu: {losses}")
+    log(f"[12 card vs cpu] {f32.name} float32, 5 steps: card {losses[DEVICE]}"
+        f" cpu {losses['cpu']}, max rel diff {worst:.2e} (tol 1e-4)")
+
+    d = ROOT / "build" / "phase12"
+    shutil.rmtree(d, ignore_errors=True)
+
+    def trainer(ckpt):
+        return LMTrainer(cfg, TrainConfig(learning_rate=1e-3), LMStream(
+            SyntheticTokens(cfg.vocab_size, 256, 128), 8, 64),
+            ckpt_dir=ckpt, ckpt_every=3, device=DEVICE)
+
+    full = trainer(None).run(9)["losses"]
+    a = trainer(str(d))
+    first = a.run(6)["losses"]
+    del a
+    b = trainer(str(d))
+    check(b.step == 6, f"LMTrainer resumed at {b.step}, not 6")
+    rest = b.run(3)["losses"]
+    check(first + rest == full, f"LMTrainer resume: {first + rest} != "
+          f"{full}")
+    shutil.rmtree(d, ignore_errors=True)
+    log(f"[12 resume] LMTrainer {cfg.name} ({cfg.dtype}) on the card: 6 "
+        f"steps (checkpoints at 3 and 6), a new trainer resumed at step 6 "
+        f"and ran 3 more: the 9 losses equal an uninterrupted run's bit for "
+        f"bit {full}")
+
+
+def phase_lm(torch, runs, readings):
+    """Phase 12."""
+    from repro_torch.configs import LM_CONFIGS
+    t0 = time.perf_counter()
+    runs["chaos_soak"] = phase_soak(torch)
+    t1 = time.perf_counter()
+    cfg = LM_CONFIGS["gemma3-1b"]
+    readings[TRAIN] = phase_flash_train(torch, cfg)
+    t2 = time.perf_counter()
+    runs[TRAIN], readings[TRAIN]["gather_agg_bwd_dx"] = \
+        phase_lm_train(torch, cfg)
+    t3 = time.perf_counter()
+    phase_lm_small(torch)
+    log(f"[12 done] soak {t1 - t0:.1f} s, flash kernels {t2 - t1:.1f} s, "
+        f"full-width training {t3 - t2:.1f} s, reduced card vs cpu and "
+        f"resume {time.perf_counter() - t3:.1f} s; phase "
+        f"{time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
     try:
         import torch
@@ -3496,6 +3910,7 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     phase_serve_card_vs_cpu(torch, RWKV, "8")
+    phase_lm(torch, runs, readings)
 
     kernels = []
     for name in REPLACES:

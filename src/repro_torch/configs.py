@@ -8,8 +8,9 @@ the LM configs ported so far (`LM_CONFIGS`: gemma3-1b,
 
 `GNNConfig` drops the reference's `agg_impl` knob: the port dispatches the
 gather-aggregate by the tensor's device (the hand-written kernel on CUDA,
-the plain PyTorch version on the CPU). `TrainConfig` keeps the GNN
-trainer's fields; the LM trainer's extras are not ported yet.
+the plain PyTorch version on the CPU). `TrainConfig` has the GNN trainer's
+fields and the LM trainer's extras (`grad_clip`, `microbatches`, `remat`,
+`grad_compression`) with the reference's defaults.
 """
 from __future__ import annotations
 
@@ -46,6 +47,11 @@ class TrainConfig:
     plateau_patience: int = 3
     plateau_factor: float = 0.1
     seed: int = 0
+    # LM trainer extras
+    grad_clip: float = 1.0
+    microbatches: int = 1
+    remat: bool = True
+    grad_compression: bool = False
 
 
 # Paper §5: DGL reference defaults (batch=1024, fanout=10, lr=1e-3,

@@ -95,6 +95,16 @@
 // get probability exactly 0. The l >= 1e-30 floor of the division is
 // kept.
 //
+// The row log-sum-exp. Given a (B, H, Sq) float32 `lse` pointer (the
+// training forward; serving passes null and nothing else changes), both
+// kernels also write lse = m + log(max(l, 1e-30)) of each query row, in
+// the natural-log units of the reference's _fwd_scan
+// (src/repro/models/lm/attention.py:97), from the running max m and row
+// sum l they already hold: the tensor-core kernel's m, kept in the log2
+// domain, is taken back by ln 2, and a row that saw no key (m = -1e30)
+// gets -1e30 + log(l) as the reference's does. flash_attention_bwd.cu
+// recomputes the probabilities from it.
+//
 // There are no atomics and every sum runs in a fixed order, so a relaunch
 // is bit-identical. Each function launches on the caller's stream,
 // allocates nothing, and returns the first CUDA error of the launch (the
@@ -203,10 +213,10 @@ __device__ __forceinline__ void load_tile(T* s, const T* g, int64_t stride,
 template <typename T, int DP>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, T* __restrict__ o, int Sq,
-                     int Skv, int H, int KH, int D, int causal,
-                     int64_t window, int is_global, int64_t q_offset,
-                     float scale, int vec) {
+                     const T* __restrict__ v, T* __restrict__ o,
+                     float* __restrict__ lse, int Sq, int Skv, int H, int KH,
+                     int D, int causal, int64_t window, int is_global,
+                     int64_t q_offset, float scale, int vec) {
   using C = Tile<DP>;
   constexpr int BK = C::kBK, LD = C::kLD, PLD = C::kPLD, SC = C::kSC,
                 OP = C::kOP;
@@ -359,13 +369,16 @@ __global__ void __launch_bounds__(kThreads)
       if (d < D) st(og + d, acc[i][j][0] / den);
       if (d + 1 < D) st(og + d + 1, acc[i][j][1] / den);
     }
+    if (lse != nullptr && tx == 0)
+      lse[(static_cast<int64_t>(b) * H + h) * Sq + q0 + r] =
+          m[i] + logf(den);
   }
 }
 
 template <typename T, int DP>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int KH, int D, int causal, int64_t window,
-           int is_global, int64_t q_offset, float scale,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int H, int KH, int D, int causal,
+           int64_t window, int is_global, int64_t q_offset, float scale,
            cudaStream_t stream) {
   auto kern = flash_fwd_kernel<T, DP>;
   constexpr size_t smem = smem_bytes<T, DP>();
@@ -380,27 +393,27 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   const dim3 grid((Sq + kBQ - 1) / kBQ, H, B);
   kern<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), Sq, Skv, H, KH, D,
+      static_cast<const T*>(v), static_cast<T*>(o), lse, Sq, Skv, H, KH, D,
       causal, window, is_global, q_offset, scale, vec);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
-int dispatch(const void* q, const void* k, const void* v, void* o, int B,
-             int Sq, int Skv, int H, int KH, int D, int causal,
-             int64_t window, int is_global, int64_t q_offset, float scale,
-             cudaStream_t stream) {
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int B, int Sq, int Skv, int H, int KH, int D,
+             int causal, int64_t window, int is_global, int64_t q_offset,
+             float scale, cudaStream_t stream) {
   if (D <= 32)
-    return launch<T, 32>(q, k, v, o, B, Sq, Skv, H, KH, D, causal, window,
-                         is_global, q_offset, scale, stream);
+    return launch<T, 32>(q, k, v, o, lse, B, Sq, Skv, H, KH, D, causal,
+                         window, is_global, q_offset, scale, stream);
   if (D <= 64)
-    return launch<T, 64>(q, k, v, o, B, Sq, Skv, H, KH, D, causal, window,
-                         is_global, q_offset, scale, stream);
+    return launch<T, 64>(q, k, v, o, lse, B, Sq, Skv, H, KH, D, causal,
+                         window, is_global, q_offset, scale, stream);
   if (D <= 128)
-    return launch<T, 128>(q, k, v, o, B, Sq, Skv, H, KH, D, causal, window,
-                          is_global, q_offset, scale, stream);
-  return launch<T, 256>(q, k, v, o, B, Sq, Skv, H, KH, D, causal, window,
-                        is_global, q_offset, scale, stream);
+    return launch<T, 128>(q, k, v, o, lse, B, Sq, Skv, H, KH, D, causal,
+                          window, is_global, q_offset, scale, stream);
+  return launch<T, 256>(q, k, v, o, lse, B, Sq, Skv, H, KH, D, causal,
+                        window, is_global, q_offset, scale, stream);
 }
 
 }  // namespace
@@ -762,7 +775,8 @@ __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_tc_kernel(const __grid_constant__ CUtensorMap tq,
                         const __grid_constant__ CUtensorMap tk,
                         const __grid_constant__ CUtensorMap tv,
-                        const __grid_constant__ CUtensorMap to, int B,
+                        const __grid_constant__ CUtensorMap to,
+                        float* __restrict__ lse, int B,
                         int Sq, int Skv, int H, int KH, int causal,
                         int64_t window, int is_global, int64_t q_offset,
                         float scale_log2, int n_items) {
@@ -1042,6 +1056,16 @@ __global__ void __launch_bounds__(kThreads, 1)
       }
       const float inv0 = 1.f / fmaxf(l0, 1e-30f);
       const float inv1 = 1.f / fmaxf(l1, 1e-30f);
+      if (lse != nullptr && lane % 4 == 0) {
+        // m in natural-log units (a row that saw no key keeps -1e30)
+        const int64_t row0 = (static_cast<int64_t>(I.b) * H + I.h) * Sq +
+                             I.q0;
+        const float n0 = m0 <= kNegInf ? kNegInf : m0 * 0.6931471805599453f;
+        const float n1 = m1 <= kNegInf ? kNegInf : m1 * 0.6931471805599453f;
+        if (I.q0 + r < Sq) lse[row0 + r] = n0 + logf(fmaxf(l0, 1e-30f));
+        if (I.q0 + r + 8 < Sq)
+          lse[row0 + r + 8] = n1 + logf(fmaxf(l1, 1e-30f));
+      }
 #pragma unroll
       for (int j = 0; j < D / 8; ++j) {
         unsigned char* base = so + (j / 8) * C::kQSlab + c2 * 2;
@@ -1122,8 +1146,8 @@ int make_map(CUtensorMap* map, const void* ptr, int B, int rows, int heads,
 }
 
 template <int D>
-int launch(const void* q, const void* k, const void* v, void* o, int B,
-           int Sq, int Skv, int H, int KH, int causal, int64_t window,
+int launch(const void* q, const void* k, const void* v, void* o, float* lse,
+           int B, int Sq, int Skv, int H, int KH, int causal, int64_t window,
            int is_global, int64_t q_offset, float scale,
            cudaStream_t stream) {
   using C = Cfg<D>;
@@ -1147,7 +1171,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
   // one persistent block per SM (the shared memory allows no second)
   const int grid = static_cast<int>(items < sms ? items : sms);
   kern<<<grid, kThreads, C::kSmem, stream>>>(
-      tq, tk, tv, to, B, Sq, Skv, H, KH, causal, window, is_global,
+      tq, tk, tv, to, lse, B, Sq, Skv, H, KH, causal, window, is_global,
       q_offset, scale * 1.4426950408889634f, static_cast<int>(items));
   return static_cast<int>(cudaGetLastError());
 }
@@ -1161,7 +1185,8 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    int64_t KH, int64_t D, int64_t causal,
                                    int64_t window, int64_t is_global,
                                    int64_t q_offset, float scale,
-                                   int64_t bf16, cudaStream_t stream) {
+                                   int64_t bf16, float* lse,
+                                   cudaStream_t stream) {
   if (B == 0 || Sq == 0 || H == 0 || D == 0) return 0;
   if (D > 256 || Skv < 1 || KH < 1 || H % KH != 0 || q_offset < 0 ||
       B > 65535 || H > 65535 || Sq > (1LL << 30) || Skv > (1LL << 30))
@@ -1170,12 +1195,12 @@ extern "C" int flash_attention_fwd(const void* q, const void* k,
                       static_cast<int>(Skv), static_cast<int>(H),
                       static_cast<int>(KH), static_cast<int>(D)};
   if (bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, args[0], args[1], args[2],
+    return dispatch<__nv_bfloat16>(q, k, v, o, lse, args[0], args[1], args[2],
                                    args[3], args[4], args[5],
                                    static_cast<int>(causal != 0), window,
                                    static_cast<int>(is_global != 0),
                                    q_offset, scale, stream);
-  return dispatch<float>(q, k, v, o, args[0], args[1], args[2], args[3],
+  return dispatch<float>(q, k, v, o, lse, args[0], args[1], args[2], args[3],
                          args[4], args[5], static_cast<int>(causal != 0),
                          window, static_cast<int>(is_global != 0), q_offset,
                          scale, stream);
@@ -1187,7 +1212,7 @@ extern "C" int flash_attention_fwd_tc(const void* q, const void* k,
                                       int64_t KH, int64_t D, int64_t causal,
                                       int64_t window, int64_t is_global,
                                       int64_t q_offset, float scale,
-                                      cudaStream_t stream) {
+                                      float* lse, cudaStream_t stream) {
   if (B == 0 || Sq == 0 || H == 0) return 0;
   const uintptr_t addr =
       reinterpret_cast<uintptr_t>(q) | reinterpret_cast<uintptr_t>(k) |
@@ -1201,11 +1226,11 @@ extern "C" int flash_attention_fwd_tc(const void* q, const void* k,
             kh = static_cast<int>(KH), c = static_cast<int>(causal != 0),
             g = static_cast<int>(is_global != 0);
   if (D == 64)
-    return tc::launch<64>(q, k, v, o, b, sq, skv, h, kh, c, window, g,
+    return tc::launch<64>(q, k, v, o, lse, b, sq, skv, h, kh, c, window, g,
                           q_offset, scale, stream);
   if (D == 128)
-    return tc::launch<128>(q, k, v, o, b, sq, skv, h, kh, c, window, g,
+    return tc::launch<128>(q, k, v, o, lse, b, sq, skv, h, kh, c, window, g,
                            q_offset, scale, stream);
-  return tc::launch<256>(q, k, v, o, b, sq, skv, h, kh, c, window, g,
+  return tc::launch<256>(q, k, v, o, lse, b, sq, skv, h, kh, c, window, g,
                          q_offset, scale, stream);
 }

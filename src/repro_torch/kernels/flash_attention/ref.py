@@ -1,10 +1,12 @@
-"""Plain PyTorch version of the flash-attention forward
+"""Plain PyTorch versions of the flash-attention forward
 (`repro/kernels/flash_attention/ref.py`, which re-exports
-`repro/models/lm/attention.py:23-51`: `_mask` and `attention_ref`). The
-CPU path runs it, and `chip_smoke.py` holds the CUDA kernel against it on
-the card. It materialises the whole (Sq, Skv) score matrix per head.
-With `p_bf16` it emulates the rounding points of the tensor-core kernel
-instead."""
+`repro/models/lm/attention.py:23-51`: `_mask` and `attention_ref`) and
+backward (`flash_attention_bwd_ref`, the reference's custom-VJP backward
+`_flash_bwd`, `repro/models/lm/attention.py:107-146`). The CPU path runs
+them, and `chip_smoke.py` holds the CUDA kernels against them on the
+card. The forward materialises the whole (Sq, Skv) score matrix per head;
+with `p_bf16` it emulates the rounding points of the tensor-core kernel
+instead. The backward walks the keys in chunks, as the reference does."""
 import math
 
 import torch
@@ -24,6 +26,32 @@ def _mask(q_pos, kv_pos, *, causal, window, is_global):
     return ok
 
 
+def _scores(q, k, *, causal, window, is_global, q_offset):
+    """The masked float32 scores (B, KH, G, Sq, Skv): q k^T / sqrt(D),
+    -1e30 where masked."""
+    B, Sq, H, D = q.shape
+    KH = k.shape[2]
+    qr = q.reshape(B, Sq, KH, H // KH, D)
+    scores = torch.einsum("bqkgd,bskd->bkgqs", qr.to(torch.float32),
+                          k.to(torch.float32)) / math.sqrt(D)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    kv_pos = torch.arange(k.shape[1], device=q.device)
+    m = _mask(q_pos, kv_pos, causal=causal, window=window,
+              is_global=is_global)
+    return scores.masked_fill(~m[None, None, None], NEG_INF)
+
+
+def attention_lse_ref(q, k, *, causal=True, window=1 << 30, is_global=True,
+                      q_offset=0):
+    """The row log-sum-exp of the masked scores, (B, H, Sq) float32: the
+    `lse` the reference's `_fwd_scan` keeps for its backward (m + log l; a
+    row that sees no key gets -1e30 + log Skv, as there)."""
+    B, Sq, H, _ = q.shape
+    s = _scores(q, k, causal=causal, window=window, is_global=is_global,
+                q_offset=q_offset)
+    return torch.logsumexp(s, dim=-1).reshape(B, H, Sq)
+
+
 def attention_ref(q, k, v, *, causal=True, window=1 << 30, is_global=True,
                   q_offset=0, p_bf16=False, kv_tile=None):
     """Naive O(S^2) oracle. q (B,Sq,H,D); k/v (B,Skv,KH,D); head h reads
@@ -41,16 +69,8 @@ def attention_ref(q, k, v, *, causal=True, window=1 << 30, is_global=True,
     if kv_tile is not None and not p_bf16:
         raise ValueError("kv_tile only applies with p_bf16")
     B, Sq, H, D = q.shape
-    KH = k.shape[2]
-    G = H // KH
-    qr = q.reshape(B, Sq, KH, G, D)
-    scores = torch.einsum("bqkgd,bskd->bkgqs", qr.to(torch.float32),
-                          k.to(torch.float32)) / math.sqrt(D)
-    q_pos = q_offset + torch.arange(Sq, device=q.device)
-    kv_pos = torch.arange(k.shape[1], device=q.device)
-    m = _mask(q_pos, kv_pos, causal=causal, window=window,
-              is_global=is_global)
-    scores = scores.masked_fill(~m[None, None, None], NEG_INF)
+    scores = _scores(q, k, causal=causal, window=window,
+                     is_global=is_global, q_offset=q_offset)
     if not p_bf16:
         p = torch.softmax(scores, dim=-1)
         out = torch.einsum("bkgqs,bskd->bqkgd", p, v.to(torch.float32))
@@ -70,3 +90,48 @@ def attention_ref(q, k, v, *, causal=True, window=1 << 30, is_global=True,
                       v.to(torch.float32))
     out = (pv / l.clamp_min(1e-30)[..., None]).permute(0, 3, 1, 2, 4)
     return out.reshape(B, Sq, H, D).to(q.dtype)
+
+
+def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True,
+                            window=1 << 30, is_global=True, q_offset=0,
+                            chunk=512):
+    """The reference's `_flash_bwd`: (dq, dk, dv) in the dtypes of q, k,
+    v, from the forward's `out` (B, Sq, H, D) and `lse` (B, H, Sq) and the
+    output's gradient `dout`. Float32 throughout, over key chunks of
+    `chunk` (all keys at once when it does not divide Skv):
+    p = exp(s - lse), delta = rowsum(dout out), ds = p (dp - delta) /
+    sqrt(D); dk and dv summed over the query heads of each KV head. `out`
+    is the forward's output as returned (the reference keeps its float32
+    copy; the same values in float32)."""
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
+    G = H // KH
+    if Skv % chunk != 0:
+        chunk = Skv
+    scale = 1.0 / math.sqrt(D)
+    f32 = torch.float32
+    qf = q.to(f32).reshape(B, Sq, KH, G, D)
+    do = dout.to(f32).reshape(B, Sq, KH, G, D).permute(0, 2, 3, 1, 4)
+    of = out.to(f32).reshape(B, Sq, KH, G, D).permute(0, 2, 3, 1, 4)
+    delta = torch.sum(do * of, dim=-1)                  # (B,KH,G,Sq)
+    lse = lse.to(f32).reshape(B, KH, G, Sq)
+    q_pos = q_offset + torch.arange(Sq, device=q.device)
+    dq = torch.zeros((B, KH, G, Sq, D), dtype=f32, device=q.device)
+    dks, dvs = [], []
+    for c0 in range(0, Skv, chunk):
+        kc = k[:, c0:c0 + chunk].to(f32)
+        vc = v[:, c0:c0 + chunk].to(f32)
+        kv_pos = torch.arange(c0, c0 + chunk, device=q.device)
+        s = torch.einsum("bqkgd,bskd->bkgqs", qf, kc) * scale
+        msk = _mask(q_pos, kv_pos, causal=causal, window=window,
+                    is_global=is_global)
+        s = s.masked_fill(~msk[None, None, None], NEG_INF)
+        p = torch.exp(s - lse[..., None])               # (B,KH,G,Sq,C)
+        dvs.append(torch.einsum("bkgqs,bkgqd->bskd", p, do))
+        dp = torch.einsum("bkgqd,bskd->bkgqs", do, vc)
+        ds = p * (dp - delta[..., None]) * scale
+        dq = dq + torch.einsum("bkgqs,bskd->bkgqd", ds, kc)
+        dks.append(torch.einsum("bkgqs,bqkgd->bskd", ds, qf))
+    dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)
+    return (dq.to(q.dtype), torch.cat(dks, dim=1).to(k.dtype),
+            torch.cat(dvs, dim=1).to(v.dtype))

@@ -1,12 +1,24 @@
-"""Training launcher, the GNN branch of `repro/launch/train.py:50-72` with
-the checkpoint, caps-cache and feature-cache flags that
-`examples/train_gnn_commrand.py` gives its trainer.
+"""Training launcher (`repro/launch/train.py`): `--arch` selects a GNN
+model (the paper's pipeline) or a dense LM.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch graphsage \\
         --dataset tiny --device cpu --epochs 2 --ckpt-dir /tmp/ck
     PYTHONPATH=src python -m repro_torch.launch.train --arch graphsage \\
         --dataset reddit-like --cache dynamic --ckpt-dir /tmp/ck  # the card
+    PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
+        --reduced --steps 3 --device cpu
 
+LM archs (`train_lm`, the reference's `launch/train.py:22-47`) run the
+fault-tolerant `LMTrainer` on synthetic Zipf tokens (checkpoint / resume
+with `--ckpt-dir`, straggler monitor, optional int8 gradient compression);
+`--reduced` trains the smoke-scale variant, and without it the full-width
+config. Only dense LMs train: qwen2-moe-a2.7b and rwkv6-7b raise, since
+their kernels' backwards belong to a later slice; `--mesh` takes only
+`none` (sharded training is the distributed slice's).
+
+The GNN branch is `repro/launch/train.py:50-72` with the checkpoint,
+caps-cache and feature-cache flags that `examples/train_gnn_commrand.py`
+gives its trainer.
 `--arch graphsage|gcn|gat` trains that model at its full width
 (`repro_torch.configs.CONFIGS`: 3 layers, hidden 256, fanout 10 per hop;
 `--hidden` and `--layers` narrow it) on a synthetic graph through
@@ -17,8 +29,7 @@ step N (cursor: ...)`. `--caps-cache` memoizes the calibrated caps in a
 JSON file (the reference's format). `--cache` routes layer-0 feature
 reads through the device-resident cache: a static admission, or
 `dynamic[:admission]` for CLOCK re-admission at every epoch boundary.
-The run is on the CUDA device unless `--device` says otherwise. The LM
-archs are not trainable in the port yet.
+The run is on the CUDA device unless `--device` says otherwise.
 """
 from __future__ import annotations
 
@@ -33,6 +44,35 @@ from repro_torch.graphs import synthetic
 CACHES = ("degree_hot", "community_freq", "presampled_freq", "dynamic",
           "dynamic:degree_hot", "dynamic:community_freq",
           "dynamic:presampled_freq")
+
+
+def train_lm(args) -> None:
+    from repro_torch.data.pipeline import (BlockShuffler, LMStream,
+                                           SyntheticTokens)
+    from repro_torch.models.lm.transformer import check_trainable
+    from repro_torch.train.lm_loop import LMTrainer
+
+    cfg = LM_CONFIGS[args.arch]
+    if args.reduced:
+        cfg = cfg.reduced()
+    check_trainable(cfg)
+    tcfg = TrainConfig(learning_rate=args.lr, remat=not args.reduced,
+                       grad_compression=args.compress_grads,
+                       microbatches=args.microbatches)
+    corpus = SyntheticTokens(cfg.vocab_size, num_docs=4096,
+                             doc_len=args.seq * 2)
+    stream = LMStream(corpus, args.batch, args.seq,
+                      BlockShuffler(corpus.num_docs, 64,
+                                    mode=args.shuffle_mode))
+    tr = LMTrainer(cfg, tcfg, stream, ckpt_dir=args.ckpt_dir,
+                   ckpt_every=args.ckpt_every, seed=args.seed,
+                   device=args.device)
+    if tr.step:
+        print(f"resumed from step {tr.step}")
+    r = tr.run(args.steps)
+    print(f"{args.arch}: steps={args.steps} loss {r['loss_first']:.4f} -> "
+          f"{r['loss_last']:.4f} stragglers={r['straggler_fraction']:.1%} "
+          f"device: {tr.device}")
 
 
 def train_gnn(args) -> None:
@@ -77,7 +117,9 @@ def main(argv=None) -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True,
                     choices=list(LM_CONFIGS) + list(CONFIGS))
-    ap.add_argument("--batch", type=int, default=1024)
+    ap.add_argument("--batch", type=int, default=None,
+                    help="batch size (default: 8 sequences for an LM, 1024 "
+                         "roots for a GNN)")
     ap.add_argument("--lr", type=float, default=1e-3)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dataset", default="reddit-like",
@@ -108,12 +150,24 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default=None,
                     help="torch device to train on (default: the CUDA "
                          "device; without a card, pass cpu)")
+    # LM
+    ap.add_argument("--reduced", action="store_true",
+                    help="the smoke-scale variant of the LM config")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--seq", type=int, default=64)
+    ap.add_argument("--compress-grads", action="store_true")
+    ap.add_argument("--microbatches", type=int, default=1)
+    ap.add_argument("--shuffle-mode", default="block",
+                    choices=["rand", "block", "none"])
+    ap.add_argument("--mesh", default="none", choices=["none"],
+                    help="sharded LM training is not ported yet")
     args = ap.parse_args(argv)
     if args.arch in LM_CONFIGS:
-        raise NotImplementedError(
-            f"--arch {args.arch}: LM training is not ported yet; the port "
-            f"trains {sorted(CONFIGS)}")
-    train_gnn(args)
+        args.batch = args.batch or 8
+        train_lm(args)
+    else:
+        args.batch = args.batch or 1024
+        train_gnn(args)
 
 
 if __name__ == "__main__":

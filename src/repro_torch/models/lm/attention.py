@@ -1,13 +1,14 @@
-"""Attention for the LM serving path (`repro/models/lm/attention.py:152-187`):
-the prefill's flash attention, which goes through the hand-written CUDA
-kernel on the card (`kernels/flash_attention`), and the decode step's
+"""Attention for the LM path (`repro/models/lm/attention.py:152-187`): the
+train / prefill flash attention, which goes through the hand-written CUDA
+kernels on the card (`kernels/flash_attention`), and the decode step's
 single-token attention over the KV cache, plain PyTorch (the reference
 computes it outside any kernel too).
 
-Forward only: the reference trains through a custom-VJP jnp twin
-(`_flash_bwd`, `repro/models/lm/attention.py:107`), whose port belongs to
-the LM training slice, so `flash_attention` raises for an input that
-requires grad while grad mode is on.
+`flash_attention` is differentiable, as the reference's custom-VJP jnp
+twin is (`_flash_bwd`, `repro/models/lm/attention.py:107`): the forward
+saves the rows' log-sum-exp and the backward is the CUDA backward kernel
+on the card, its plain version on the CPU. Under `torch.no_grad()`
+(serving) it is the forward kernel alone.
 """
 from __future__ import annotations
 

@@ -1,7 +1,7 @@
-"""The LM serving path of the generic transformer
-(`repro/models/lm/transformer.py`), dense, MoE and RWKV families: `init`,
-the prefill / train forward (`apply`, `prefill`), the cache (keys and
-values, or RWKV's recurrent state) and the decode step. Hybrid SSM,
+"""The generic transformer (`repro/models/lm/transformer.py`), dense, MoE
+and RWKV families: `init`, the train forward (`apply`, with remat), the
+prefill, the cache (keys and values, or RWKV's recurrent state) and the
+decode step. Hybrid SSM,
 encoder-decoder, M-RoPE, learned positions and vision tokens belong to
 later slices and raise `NotImplementedError`.
 
@@ -17,6 +17,15 @@ directly, for a model whose float32 tree would not fit. The reference's
 sharding constraints (`shd.act_*`) are no-ops off a mesh and are dropped.
 The decode step writes the new key and value, or the new RWKV state and
 token shifts, into the cache in place.
+
+`apply` is the training forward: the layer weights are cast to the
+compute dtype once, before the layer loop (as the reference casts them
+before its scan; the float32 masters get the gradients through the
+casts), each layer runs under `torch.utils.checkpoint` with `remat`, and
+the token embedding's rows come from `gather_rows` on the float32 table,
+whose backward is the fixed-order `gather_agg_bwd_dx` scatter-add on the
+card. Only the dense family trains (`check_trainable`): the MoE and RWKV
+layers' kernels have no backward yet.
 """
 from __future__ import annotations
 
@@ -25,9 +34,11 @@ from typing import Any, Callable, Dict
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs import ModelConfig
 from repro_torch.devices import DeviceLike, resolve_device
+from repro_torch.kernels.gather_agg.ops import gather_rows
 from repro_torch.models.lm import rwkv6
 from repro_torch.models.lm.attention import decode_attention, flash_attention
 from repro_torch.models.lm.common import (activation, apply_rope, dense_init,
@@ -52,6 +63,17 @@ def _check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(on)} not ported yet (dense, MoE and "
             f"RWKV LMs only)")
+
+
+def check_trainable(cfg: ModelConfig) -> None:
+    """Raises for a config the port cannot train yet: MoE training needs a
+    backward through `moe_gmm`, RWKV training one through `wkv6_fwd`."""
+    _check_supported(cfg)
+    if cfg.moe or cfg.rwkv:
+        kernel = "moe_gmm" if cfg.moe else "wkv6_fwd"
+        raise NotImplementedError(
+            f"{cfg.name}: training needs a backward through {kernel}, which "
+            f"a later slice of the port brings; dense LMs train")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:
@@ -276,8 +298,10 @@ def _layer_train(cfg, p, x, positions, is_global, collect=False):
 def _embed_tokens(cfg, params, tokens, dtype):
     """Rows of the embedding in the compute dtype; gemma's tied embeddings
     are scaled by sqrt(d_model) computed in float32 and cast to the compute
-    dtype first (34.0 in bf16 at d_model 1152, not 33.94)."""
-    x = params["embed"][tokens].to(dtype)
+    dtype first (34.0 in bf16 at d_model 1152, not 33.94). The rows come
+    from `gather_rows` (`table[tokens]`), whose backward, in training, is
+    the bwd_dx kernel's fixed-order scatter-add."""
+    x = gather_rows(params["embed"], tokens).to(dtype)
     if cfg.tie_embeddings:
         scale = torch.tensor(math.sqrt(cfg.d_model), dtype=torch.float32,
                              device=x.device).to(dtype)
@@ -288,18 +312,42 @@ def _embed_tokens(cfg, params, tokens, dtype):
 # ---------------------------------------------------------------------------
 # full forward (train / prefill)
 # ---------------------------------------------------------------------------
-def apply(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor]):
-    """Prefill-style forward without remat over `batch["tokens"]` (B, S)
-    at positions 0..S-1. Returns (hidden (B,S,d), aux)."""
+def _cast_layers(layers: Params, dtype: torch.dtype) -> Params:
+    """The stacked layer tree with every float32 weight in the compute
+    dtype but the leaves of `_keeps_float32` (autograd carries the
+    gradients back to the float32 masters)."""
+    return _tree_map(lambda path, t: t if _keeps_float32(path)
+                     or t.dtype != torch.float32 else t.to(dtype), layers)
+
+
+def apply(cfg: ModelConfig, params: Params, batch: Dict[str, torch.Tensor],
+          remat: bool = True):
+    """Train / prefill forward over `batch["tokens"]` (B, S) at positions
+    0..S-1 (the reference's `apply`, `transformer.py:282-323`). The layer
+    weights are cast to the compute dtype before the loop; with `remat`
+    each layer runs under `torch.utils.checkpoint` (its activations are
+    recomputed in the backward). Returns (hidden (B,S,d), aux)."""
     _check_supported(cfg)
     tokens = batch["tokens"]
     B, S = tokens.shape
-    x = _embed_tokens(cfg, params, tokens, _dtype(cfg))
+    dtype = _dtype(cfg)
+    x = _embed_tokens(cfg, params, tokens, dtype)
     positions = torch.arange(S, device=x.device).expand(B, S)
+    # one cast of the stacked weights, unbound into per-layer views (the
+    # backward of `unbind` stacks the L gradients in one op)
+    unbound = _tree_map(lambda _, t: t.unbind(0),
+                        _cast_layers(params["layers"], dtype))
     aux = torch.zeros((), device=x.device)
     for i in range(cfg.num_layers):
-        x, a, _ = _layer_train(cfg, _layer(params["layers"], i), x,
-                               positions, cfg.is_global_layer(i))
+        p = _tree_map(lambda _, ts: ts[i], unbound)
+        glob = cfg.is_global_layer(i)
+
+        def body(x, p=p, glob=glob):
+            x, a, _ = _layer_train(cfg, p, x, positions, glob)
+            return x, a
+
+        x, a = checkpoint(body, x, use_reentrant=False) if remat \
+            else body(x)
         aux = aux + a
     return norm_apply(cfg, x, params["final_norm"]), aux
 

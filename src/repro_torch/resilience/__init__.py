@@ -18,9 +18,13 @@ non-finite step applies no update and escalates to rollback after the
 skip budget; a cache failing its residency integrity check is dropped
 for the uncached gather (cache rows are bit-copies, so the loss
 trajectory is unaffected); a dead or hung async producer is restarted
-from the cursor it owed (`pipeline.AsyncBatchStream`'s watchdog). The
-chaos soak (`repro/resilience/soak.py`) trains comm_rand x LABOR and waits
-for the LABOR sampler.
+from the cursor it owed (`pipeline.AsyncBatchStream`'s watchdog).
+
+  soak      the chaos harness (`repro/resilience/soak.py`): one fault of
+            each class into a comm_rand x LABOR + dynamic-cache run, the
+            recovered trajectory bit-identical to the fault-free run;
+            imported lazily (it pulls in the trainer, which imports this
+            package)
 """
 from repro_torch.resilience.faults import (FAULT_SITES,  # noqa: F401
                                            FaultPlan, FaultSpec,
@@ -30,8 +34,16 @@ from repro_torch.resilience.faults import (FAULT_SITES,  # noqa: F401
                                            install, maybe_raise)
 from repro_torch.resilience.guard import GuardConfig, as_guard  # noqa: F401
 
+
+def __getattr__(name):
+    if name == "soak":
+        import importlib
+        return importlib.import_module("repro_torch.resilience.soak")
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "FAULT_SITES", "FaultPlan", "FaultSpec", "GuardConfig",
     "InjectedFault", "active", "as_guard", "corrupt_checkpoint",
-    "corrupt_file", "fire", "inject", "install", "maybe_raise",
+    "corrupt_file", "fire", "inject", "install", "maybe_raise", "soak",
 ]

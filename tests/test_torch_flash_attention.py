@@ -13,7 +13,9 @@ from repro.kernels.flash_attention.ops import flash_attention_op as jax_op
 from repro.models.lm import attention as jax_attention
 from repro_torch.kernels.flash_attention import kernel
 from repro_torch.kernels.flash_attention.ops import flash_attention_op
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
+                                                     attention_ref,
+                                                     flash_attention_bwd_ref)
 from repro_torch.models.lm.attention import flash_attention
 
 TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -90,18 +92,26 @@ def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     _, (q, k, v) = _inputs(3, 1, 40, 40, 4, 1, 16, "bfloat16")
     out = kernel.flash_attention_fwd(q, k, v, window=16, is_global=False)
     assert out.shape == q.shape and out.dtype == torch.bfloat16
-    assert kernel.LAUNCHES == {"flash_attention_fwd": 0}
+    assert kernel.LAUNCHES == {"flash_attention_fwd": 0,
+                               "flash_attention_bwd": 0}
     assert kernel.ROUTES == {"tensor_core": 0, "simt": 0}
 
 
 def test_an_input_that_requires_grad_raises():
-    """Forward only: training through the kernel is a later slice."""
+    """An input that requires grad no longer raises: the op trains
+    through its backward (plain versions on the CPU) and q's gradient
+    equals `flash_attention_bwd_ref`'s; under no_grad it is the forward
+    alone, the same output."""
     _, (q, k, v) = _inputs(4, 1, 32, 32, 2, 1, 16, "float32")
     q.requires_grad_(True)
-    with pytest.raises(RuntimeError, match="forward only"):
-        flash_attention(q, k, v)
+    out = flash_attention(q, k, v)
+    out.backward(torch.ones_like(out))
     with torch.no_grad():
-        assert flash_attention(q, k, v).shape == q.shape
+        assert torch.equal(flash_attention(q, k, v), out.detach())
+    lse = attention_lse_ref(q.detach(), k)
+    dq, _, _ = flash_attention_bwd_ref(q.detach(), k, v, out.detach(), lse,
+                                       torch.ones_like(out))
+    torch.testing.assert_close(q.grad, dq, rtol=0, atol=0)
 
 
 # The emulation of the tensor-core kernel's rounding points

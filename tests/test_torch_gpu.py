@@ -22,7 +22,10 @@ from repro_torch.kernels.clock_refill.ref import (clock_refill_ref,
                                                   clock_walk_windows,
                                                   walk_args)
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
-from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.kernels.flash_attention.ref import (attention_lse_ref,
+                                                     attention_ref,
+                                                     flash_attention_bwd_ref)
+from repro_torch.kernels.flash_attention.ops import flash_attention_op
 from repro_torch.kernels.gather_agg import kernel, ref
 from repro_torch.kernels.gather_cached import kernel as cached_kernel
 from repro_torch.kernels.gather_cached.ref import gather_cached_ref
@@ -730,6 +733,95 @@ def test_flash_bf16_takes_the_simt_route_at_other_head_dims_or_misaligned(
         torch.testing.assert_close(out.float(),
                                    attention_ref(q, k, v, **kw).float(),
                                    rtol=2e-2, atol=2e-2)
+
+
+# (B, Sq, Skv, H, KH, D, causal, window, is_global, q_offset): GQA with G
+# 1, 2 and 4, causal / window / global, lengths that are no multiple of a
+# tile, Sq != Skv with an offset, every padded head dim, and a block whose
+# rows see no key (window 1 past the keys)
+FLASH_BWD_CASES = [(2, 40, 40, 4, 2, 16, True, 16, False, 0),
+                   (1, 130, 130, 4, 1, 256, True, 48, False, 0),
+                   (1, 200, 200, 4, 1, 256, True, 1 << 30, True, 0),
+                   (2, 70, 70, 2, 2, 64, True, 1 << 30, True, 0),
+                   (1, 97, 161, 8, 2, 128, True, 1 << 30, True, 64),
+                   (1, 65, 90, 4, 4, 100, False, 1 << 30, True, 0),
+                   (1, 150, 120, 4, 1, 128, False, 40, False, 100),
+                   (1, 33, 20, 2, 1, 32, True, 1, False, 30)]
+
+
+def _grad_close(got, want, dtype):
+    """float32 within rtol 1e-4 (atol 1e-4 of the largest |grad|), bf16
+    within 2e-2 of the largest |grad|."""
+    scale = float(want.float().abs().max()) + 1e-30
+    if dtype == "float32":
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4 * scale)
+    else:
+        err = float((got.float() - want.float()).abs().max())
+        assert err <= 2e-2 * scale, (err, scale)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", FLASH_BWD_CASES)
+def test_flash_attention_bwd_matches_plain_version(cuda, case, dtype):
+    """flash_attention_bwd against `flash_attention_bwd_ref` on the same
+    out and lse (the forward kernel's), the forward's lse against
+    `attention_lse_ref`, serving's output bit-identical with and without
+    the lse pointer, a bit-identical relaunch, one count per launch."""
+    B, Sq, Skv, H, KH, D, causal, window, is_global, q_offset = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng((Sq, Skv, D, 7))
+    q, dout = (torch.as_tensor(rng.normal(size=(B, Sq, H, D)), dtype=dt,
+                               device=cuda) for _ in range(2))
+    k, v = (torch.as_tensor(rng.normal(size=(B, Skv, KH, D)), dtype=dt,
+                            device=cuda) for _ in range(2))
+    kw = dict(causal=causal, window=window, is_global=is_global,
+              q_offset=q_offset)
+    out, lse = flash_kernel.flash_attention_fwd(q, k, v, return_lse=True,
+                                                **kw)
+    assert torch.equal(out, flash_kernel.flash_attention_fwd(q, k, v, **kw))
+    assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
+    torch.testing.assert_close(lse, attention_lse_ref(q, k, **kw),
+                               rtol=1e-5, atol=1e-4)
+    before = dict(flash_kernel.LAUNCHES)
+    got = flash_kernel.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    want = flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.shape == t.shape and g.dtype == dt
+        _grad_close(g, w, dtype)
+    again = flash_kernel.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert flash_kernel.LAUNCHES == dict(
+        before, flash_attention_bwd=before["flash_attention_bwd"] + 2)
+
+
+def test_flash_attention_op_trains_through_the_kernels(cuda):
+    """With grad on, the op's forward writes lse and its backward is the
+    kernel: q, k, v grads equal a direct `flash_attention_bwd` call; under
+    no_grad it is the forward alone."""
+    rng = np.random.default_rng(3)
+    q = torch.as_tensor(rng.normal(size=(2, 96, 4, 64)),
+                        dtype=torch.bfloat16, device=cuda)
+    k, v = (torch.as_tensor(rng.normal(size=(2, 96, 1, 64)),
+                            dtype=torch.bfloat16, device=cuda)
+            for _ in range(2))
+    dout = torch.as_tensor(rng.normal(size=q.shape), dtype=torch.bfloat16,
+                           device=cuda)
+    kw = dict(causal=True, window=32, is_global=False, q_offset=0)
+    before = dict(flash_kernel.LAUNCHES)
+    with torch.no_grad():
+        plain_out = flash_attention_op(q, k, v, **kw)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention_op(*leaves, **kw)
+    out.backward(dout)
+    assert torch.equal(out.detach(), plain_out)
+    assert flash_kernel.LAUNCHES == dict(
+        before, flash_attention_fwd=before["flash_attention_fwd"] + 2,
+        flash_attention_bwd=before["flash_attention_bwd"] + 1)
+    _, lse = flash_kernel.flash_attention_fwd(q, k, v, return_lse=True, **kw)
+    want = flash_kernel.flash_attention_bwd(q, k, v, plain_out, lse, dout,
+                                            **kw)
+    for leaf, w in zip(leaves, want):
+        assert torch.equal(leaf.grad, w)
 
 
 def test_flash_wrapper_refuses_what_the_kernel_does_not_take(cuda):
@@ -1612,3 +1704,53 @@ def test_gather_mean_on_the_card_matches_plain_version(cuda):
                                rtol=1e-5, atol=1e-6)
     assert torch.equal(got, gather_mean(x, idx, mask))
     assert not got[0].any()
+
+
+def test_reduced_lm_train_steps_on_the_card_match_the_cpu(cuda):
+    """Reduced gemma3-1b in float32 (TF32 off), 3 steps of the train step
+    (remat, chunked CE, clip, AdamW) from the same parameters and batches
+    on the card and on the CPU: losses within rtol 1e-4; per step 2 L
+    flash forwards (remat recomputes them), L flash backwards and one
+    bwd_dx (the token embedding), nothing else."""
+    from repro_torch.data.pipeline import LMStream, SyntheticTokens
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+
+    cfg = LM_CONFIGS["gemma3-1b"].reduced().scaled(dtype="float32")
+    params = transformer.init(cfg, torch.Generator().manual_seed(0),
+                              device="cpu")
+    it = iter(LMStream(SyntheticTokens(cfg.vocab_size, 64, 64), 4, 32))
+    data = [next(it) for _ in range(3)]
+    step = make_train_step(cfg, TrainConfig(learning_rate=1e-3))
+    losses = {}
+    for dev in ("cpu", cuda):
+        p = adamw.tree_map(lambda t: t.to(dev), params)
+        opt = adamw.init(p)
+        losses[str(dev)] = []
+        for toks, labels in data:
+            for m in (flash_kernel, kernel):
+                m.reset_launches()
+            p, opt, met = step(p, opt, {
+                "tokens": torch.from_numpy(toks).to(dev),
+                "labels": torch.from_numpy(labels).to(dev)})
+            losses[str(dev)].append(float(met["loss"]))
+            if dev != "cpu":
+                L = cfg.num_layers
+                assert flash_kernel.LAUNCHES == {
+                    "flash_attention_fwd": 2 * L, "flash_attention_bwd": L}
+                assert kernel.LAUNCHES == {"gather_agg_fwd": 0,
+                                           "gather_agg_bwd_dx": 1,
+                                           "gather_agg_bwd_dw": 0}
+    np.testing.assert_allclose(losses["cuda"], losses["cpu"], rtol=1e-4)
+
+
+def test_chaos_soak_on_the_card(cuda):
+    """The five scenarios of `resilience.soak` on the tiny graph on the
+    card: each fault fires, its recovery engages, and the run ends
+    bit-identical to the fault-free sync run."""
+    from repro_torch.resilience import soak
+
+    g = prepare(synthetic.load("tiny"), oracle=True)
+    for res in soak.run_all(g, device=cuda):
+        assert res.fired >= 1 and res.ok, res.summary()
+        assert res.meter[soak.EXPECT_METER[res.scenario]] >= 1

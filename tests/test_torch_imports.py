@@ -12,6 +12,7 @@ import torch
 from repro_torch.batching import BatchStream
 from repro_torch.configs import LM_CONFIGS, GNNConfig, TrainConfig
 from repro_torch.core.reorder import prepare
+from repro_torch.data.pipeline import LMStream, SyntheticTokens
 from repro_torch.graphs import synthetic
 from repro_torch.graphs.csr import DeviceGraph
 from repro_torch.kernels.clock_refill import kernel as walk_kernel
@@ -24,6 +25,7 @@ from repro_torch.pipeline import AsyncBatchStream, DeviceBatchBuilder
 from repro_torch.train.baselines import (induced_subgraph, train_clustergcn,
                                          train_fullbatch)
 from repro_torch.train.gnn_loop import GNNTrainer
+from repro_torch.train.lm_loop import LMTrainer
 
 SRC = Path(__file__).resolve().parents[1] / "src"
 
@@ -48,7 +50,7 @@ def test_port_modules_import_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 88          # every slice module was imported
+    assert n_modules >= 93          # every slice module was imported
 
 
 _EACH_FIRST = r"""
@@ -71,7 +73,7 @@ def test_each_port_module_imports_first():
     out = subprocess.run([sys.executable, "-c", _EACH_FIRST], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 88
+    assert int(out.stdout.split()[0]) >= 93
 
 
 # the async pipeline and observability slice's modules
@@ -89,6 +91,11 @@ SLICE15 = ["repro_torch.batching.policy", "repro_torch.core.hash32",
            "repro_torch.models.gnn.fullgraph", "repro_torch.sampling.device",
            "repro_torch.train.baselines"]
 
+# the chaos soak and LM training slice's modules
+SLICE16 = ["repro_torch.data", "repro_torch.data.pipeline",
+           "repro_torch.optim.compression", "repro_torch.resilience.soak",
+           "repro_torch.train.lm_loop"]
+
 _FRESH = r"""
 import importlib, sys
 importlib.import_module(sys.argv[1])
@@ -98,7 +105,7 @@ assert not bad, bad
 """
 
 
-@pytest.mark.parametrize("name", SLICE13 + SLICE15)
+@pytest.mark.parametrize("name", SLICE13 + SLICE15 + SLICE16)
 def test_slice_module_imports_first_without_jax(name):
     """Each new module, imported first in a fresh interpreter, loads
     neither jax nor repro (nor triton)."""
@@ -116,7 +123,8 @@ def tiny():
 @pytest.mark.parametrize("entry", ["trainer", "stream", "device_graph",
                                    "generate", "train_cli", "async_stream",
                                    "builder", "clustergcn", "fullbatch",
-                                   "induced_subgraph"])
+                                   "induced_subgraph", "lm_trainer",
+                                   "lm_cli"])
 def test_entry_points_raise_without_a_card(tiny, entry, monkeypatch):
     """No card and no explicit device: raise, never fall back."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -144,6 +152,14 @@ def test_entry_points_raise_without_a_card(tiny, entry, monkeypatch):
         elif entry == "train_cli":
             train_cli.main(["--arch", "graphsage", "--dataset", "tiny",
                             "--epochs", "1"])
+        elif entry == "lm_trainer":
+            cfg = LM_CONFIGS["gemma3-1b"].reduced()
+            LMTrainer(cfg, TrainConfig(), LMStream(
+                SyntheticTokens(cfg.vocab_size, num_docs=8, doc_len=16),
+                batch=2, seq=8))
+        elif entry == "lm_cli":
+            train_cli.main(["--arch", "gemma3-1b", "--reduced", "--steps",
+                            "1"])
         else:
             DeviceGraph.from_graph(tiny)
 
@@ -170,7 +186,8 @@ def test_flash_cpu_tensors_take_the_plain_path_and_count_no_launch():
     out = flash_kernel.flash_attention_fwd(q, k, v, window=4,
                                            is_global=False)
     assert out.shape == q.shape
-    assert flash_kernel.LAUNCHES == {"flash_attention_fwd": 0}
+    assert flash_kernel.LAUNCHES == {"flash_attention_fwd": 0,
+                                     "flash_attention_bwd": 0}
 
 
 def test_wkv6_cpu_tensors_take_the_plain_path_and_count_no_launch():
