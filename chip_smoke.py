@@ -354,6 +354,10 @@ FLASH_TC, FLASH_SIMT = "flash_fwd_tc_kernel", "flash_fwd_kernel"
 # the tensor-core one only, its decode step the mma.sync one only
 GMM_TC, GMM_MMA, GMM_SIMT = "gmm_tc_kernel", "gmm_mma_kernel", \
     "gmm_f32_kernel"
+# ... and of the flash backward's routes: the bf16 train step must spend
+# its backward time in the tensor-core kernels and never in the SIMT ones
+BWD_TC = ("dkdv_tc_kernel", "dq_tc_kernel")
+BWD_SIMT = ("::dkdv_kernel", "::dq_kernel")
 REPLACES = {
     "gather_agg_fwd": "src/repro/kernels/gather_agg/kernel.py:56",
     "gather_agg_bwd_dx": "src/repro/kernels/gather_agg/kernel.py:101",
@@ -3422,10 +3426,47 @@ def phase_soak(torch):
     return read_launches()
 
 
+def tc_bwd_visits(B, Sq, Skv, H, D, kw):
+    """The work the tensor-core backward's blocks do, from its skip
+    arithmetic (`csrc/flash_attention_bwd.cu`): (64-row Q tiles the dk / dv
+    kernel's 64-key tiles visit, KV tiles of BK keys the dq kernel's
+    128-row blocks visit), summed over the grid."""
+    causal, window, is_global, off = (kw["causal"], kw["window"],
+                                      kw["is_global"], kw["q_offset"])
+    p_last = off + Sq - 1
+    hi = min(Skv - 1, p_last) if causal else Skv - 1
+    keep_all = (0 if is_global else max(0, p_last - window + 1)) > hi
+    kv = 0
+    for k0 in range(0, Skv, 64):
+        i_lo, i_hi = 0, Sq - 1
+        if not keep_all:
+            if causal:
+                i_lo = max(i_lo, k0 - off)
+            if not is_global:
+                i_hi = min(i_hi, min(k0 + 64, Skv) - 1 + window - 1 - off)
+        kv += i_hi // 64 - i_lo // 64 + 1 if i_lo <= i_hi else 0
+    bk = 32 if D >= 256 else 64
+    dq = 0
+    for q0 in range(0, Sq, 128):
+        t_lo, t_hi = 0, -(-Skv // bk)
+        if not keep_all:
+            first, last = off + q0, off + min(q0 + 128, Sq) - 1
+            top = min(Skv - 1, last) if causal else Skv - 1
+            bot = 0 if is_global else max(0, first - window + 1)
+            t_lo = bot // bk
+            t_hi = top // bk + 1 if bot <= top else t_lo
+        dq += t_hi - t_lo
+    return kv * B * H, dq * B * H
+
+
 def check_flash_bwd(torch, label, q, k, v, dout, kw):
     """The training forward (with lse) and `flash_attention_bwd` at one
     shape against their plain versions; ms, plain ms, SDPA's ms and the
-    bounds of both. Returns (fwd readings, bwd readings)."""
+    bounds of both. bf16 takes the backward's tensor-core route: it is
+    also held to the float32 emulation of its rounding points
+    (`pds_bf16`) within 4e-3 of the largest |grad|, and the SIMT kernel
+    (its parent, which bf16 at other head dims still takes) is timed on
+    the same inputs in this call. Returns (fwd readings, bwd readings)."""
     import torch.nn.functional as Fn
 
     from repro_torch.kernels.flash_attention import kernel, ref
@@ -3441,8 +3482,26 @@ def check_flash_bwd(torch, label, q, k, v, dout, kw):
     lse_err = (lse - want_lse).abs().max().item()
     check(lse_err <= 1e-4, f"flash {label}: lse max abs err {lse_err}")
     del want_lse
+    kind = kernel.bwd_route(q, k, v, out, dout)
+    check(kind == ("tensor_core" if bf16 else "simt"),
+          f"flash {label}: the backward takes the {kind} route")
+    routes = dict(kernel.BWD_ROUTES)
     got = kernel.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
+    check(kernel.BWD_ROUTES[kind] == routes[kind] + 1,
+          f"flash {label}: backward routes {kernel.BWD_ROUTES}")
     want = ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
+    emu_rel = []
+    if bf16:
+        emu = ref.flash_attention_bwd_ref(
+            *(t.float() for t in (q, k, v, out)), lse, dout.float(),
+            pds_bf16=True, **kw)
+        for name, a, e in zip(("dq", "dk", "dv"), got, emu):
+            err = (a.float() - e).abs().max().item()
+            scale = e.abs().max().item()
+            check(err <= 4e-3 * scale, f"flash {label}: {name} max abs err "
+                  f"{err} > 4e-3 x {scale} against the emulation")
+            emu_rel.append(err / scale)
+        del emu
     errs, rel = [], []
     for name, a, b in zip(("dq", "dk", "dv"), got, want):
         scale = b.float().abs().max().item()
@@ -3497,6 +3556,9 @@ def check_flash_bwd(torch, label, q, k, v, dout, kw):
     def bwd():
         return kernel.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
 
+    def simt_bwd():
+        return kernel._launch_bwd("simt", q, k, v, out, lse, dout, **kw)
+
     def plain_bwd():
         return ref.flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
 
@@ -3507,7 +3569,10 @@ def check_flash_bwd(torch, label, q, k, v, dout, kw):
         return (ref.attention_ref(q, k, v, **kw),
                 ref.attention_lse_ref(q, k, **kw))
 
-    b = {"max_abs_err": max(errs), "rel_err": max(rel),
+    # the parent (SIMT) and the change in turns: parent, change, parent
+    simt_ms = [cuda_ms(torch, simt_bwd, reps=1, rounds=3, warmup=1)] \
+        if bf16 else []
+    b = {"max_abs_err": max(errs), "rel_err": max(rel), "route": kind,
          "bound_ms": bwd_b_ms, "bound_by": bwd_b_by,
          "ms": cuda_ms(torch, bwd, reps=3, rounds=3, warmup=1),
          "plain_ms": cuda_ms(torch, plain_bwd, reps=1, rounds=3, warmup=1),
@@ -3518,6 +3583,45 @@ def check_flash_bwd(torch, label, q, k, v, dout, kw):
          "ms": cuda_ms(torch, fwd, reps=3, rounds=3, warmup=1),
          "plain_ms": cuda_ms(torch, plain_fwd, reps=1, rounds=3, warmup=1),
          "library_ms": cuda_ms(torch, sdpa_fwd, reps=3, rounds=3, warmup=1)}
+    if bf16:
+        simt_ms.append(cuda_ms(torch, simt_bwd, reps=1, rounds=3, warmup=1))
+        b["simt_ms"] = min(simt_ms)
+        b["emu_rel_err"] = max(emu_rel)
+        # the tail: ms a block's unit of work on one SM, each kernel apart
+        # (a local layer's blocks carry equal work, a global one's do not):
+        # 10 calls in one profiler window, each kernel's time over the
+        # launches the trace holds. Late in a long run a short window
+        # misses its first launches, so it opens with a ~50 ms sleep
+        # kernel; a kernel the trace does not show is "not measured"
+        from torch.profiler import ProfilerActivity, profile
+        calls = 10
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            torch.cuda._sleep(100_000_000)
+            for _ in range(calls):
+                bwd()
+            torch.cuda.synchronize()
+        dev = [(e.key, e.device_time_total, e.count)
+               for e in prof.key_averages()]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        visits = dict(zip(("dkdv_tc_kernel", "dq_tc_kernel"),
+                          tc_bwd_visits(B, Sq, Skv, H, D, kw)))
+        split = []
+        for name in ("delta_kernel", *visits):
+            seen = sum(n for key, _, n in dev if name in key)
+            if seen == 0:
+                b[f"{name}_ms"] = None
+                split.append(f"{name} not measured (not in the trace)")
+                continue
+            ms = sum(t for key, t, _ in dev if name in key) / 1e3 / seen
+            b[f"{name}_ms"] = ms
+            per = (f" ({visits[name]} tile visits, "
+                   f"{ms * 1e3 * sms / visits[name]:.3f} us a visit on one "
+                   f"of {sms} SMs)" if name in visits else "")
+            split.append(f"{name} {ms:.4f} ms a launch ({seen} of {calls} in "
+                         f"the trace){per}")
+        log(f"[12 kernels] flash_attention_bwd {label} split: "
+            f"{'; '.join(split)}")
     backend = sdpa_backend(torch, sdpa_fwd)
     tflops = 10.0 * D * pairs * B * H / b["ms"] / 1e9
     log(f"[12 kernels] flash {label}: q {tuple(q.shape)} k {tuple(k.shape)} "
@@ -3526,12 +3630,19 @@ def check_flash_bwd(torch, label, q, k, v, dout, kw):
         f"lse  fwd+lse ms {f['ms']:.4f} (plain {f['plain_ms']:.4f}, SDPA "
         f"{f['library_ms']:.4f} via {backend}, bound {fwd_b_ms:.4f} "
         f"{fwd_b_by})")
-    log(f"[12 kernels] flash_attention_bwd {label}: dq/dk/dv max abs err "
-        f"{', '.join(f'{e:.3e}' for e in errs)} ({max(rel):.2e} of max "
-        f"|grad|)  bit-identical relaunch True  ms {b['ms']:.4f} "
-        f"({tflops:.1f} TFLOP/s of the 5 products)  plain_ms "
-        f"{b['plain_ms']:.4f}  library_ms {b['library_ms']:.4f} (SDPA "
-        f"backward)  bound_ms {bwd_b_ms:.4f} ({bwd_b_by})")
+    parent = ""
+    if bf16:
+        parent = (f"  against the emulation {max(emu_rel):.2e} of max "
+                  f"|grad| (tol 4e-3)  SIMT parent ms "
+                  f"{', '.join(f'{t:.4f}' for t in simt_ms)} ("
+                  f"{10.0 * D * pairs * B * H / b['simt_ms'] / 1e9:.1f} "
+                  f"TFLOP/s)")
+    log(f"[12 kernels] flash_attention_bwd {label}: route {kind}  dq/dk/dv "
+        f"max abs err {', '.join(f'{e:.3e}' for e in errs)} "
+        f"({max(rel):.2e} of max |grad|)  bit-identical relaunch True  ms "
+        f"{b['ms']:.4f} ({tflops:.1f} TFLOP/s of the 5 products){parent}  "
+        f"plain_ms {b['plain_ms']:.4f}  library_ms {b['library_ms']:.4f} "
+        f"(SDPA backward)  bound_ms {bwd_b_ms:.4f} ({bwd_b_by})")
     del o, qt, kt, vt
     return f, b
 
@@ -3564,10 +3675,16 @@ def phase_flash_train(torch, cfg):
         g, lo = shapes["global bfloat16"][i], shapes["local bfloat16"][i]
         out[kname] = {
             **{k: per * (n_glob * g[k] + n_loc * lo[k])
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "simt_ms") if k in g},
             "max_abs_err": max(r[i]["max_abs_err"] for r in shapes.values()),
             "bound_by": "/".join(sorted({g["bound_by"], lo["bound_by"]})),
             "shapes": {n: r[i] for n, r in shapes.items()}}
+    bwd = out["flash_attention_bwd"]
+    log(f"[12 kernels] flash_attention_bwd per train step ({n_glob} global "
+        f"+ {n_loc} local bf16 layers): ms {bwd['ms']:.2f} (SIMT parent "
+        f"{bwd['simt_ms']:.2f})  SDPA backward {bwd['library_ms']:.2f}  "
+        f"bound {bwd['bound_ms']:.3f}")
     return out
 
 
@@ -3617,6 +3734,10 @@ def phase_lm_train(torch, cfg):
                 flash_attention_bwd=L * TRAIN_STEPS,
                 gather_agg_bwd_dx=TRAIN_STEPS)
     check(launches == want, f"{TRAIN}: launches {launches} != {want}")
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    bwd_routes = dict(flash_kernel.BWD_ROUTES)
+    check(bwd_routes == {"tensor_core": L * TRAIN_STEPS, "simt": 0},
+          f"{TRAIN}: backward routes {bwd_routes}")
     check(all(math.isfinite(x) for x in losses), f"{TRAIN}: losses "
           f"{losses}")
     n = transformer.param_count(params)
@@ -3634,7 +3755,8 @@ def phase_lm_train(torch, cfg):
         f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} tokens/s; peak "
         f"{peak:.2f} GiB; launches a step: flash fwd "
         f"{launches['flash_attention_fwd'] / TRAIN_STEPS:g}, flash bwd "
-        f"{launches['flash_attention_bwd'] / TRAIN_STEPS:g}, bwd_dx "
+        f"{launches['flash_attention_bwd'] / TRAIN_STEPS:g} (all "
+        f"tensor_core), bwd_dx "
         f"{launches['gather_agg_bwd_dx'] / TRAIN_STEPS:g}, others 0")
     dev, wall_ms = profile_kernels(
         torch, lambda: step(params, opt, data[0])[2]["loss"].item())
@@ -3645,8 +3767,7 @@ def phase_lm_train(torch, cfg):
     for key, t, calls in dev[:12]:
         log(f"[12 profile] {TRAIN}: {t / 1e3:9.3f} ms  {calls:5d} calls  "
             f"{key[:100]}")
-    for tag, names in (("flash bwd", ("dkdv_kernel", "dq_kernel",
-                                      "delta_kernel")),
+    for tag, names in (("flash bwd", (*BWD_TC, "delta_kernel")),
                        ("flash fwd", (FLASH_TC, FLASH_SIMT)),
                        ("bwd_dx", DX_KERNELS)):
         rows = [(k, t, c) for k, t, c in dev if any(x in k for x in names)]
@@ -3655,8 +3776,7 @@ def phase_lm_train(torch, cfg):
             f"{sum(t for _, t, _ in rows) / 1e3:.3f} ms in "
             f"{sum(c for _, _, c in rows)} kernels ({', '.join(kinds)})")
     groups = {"matmul": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
-              "flash": ("flash_fwd", "dkdv_kernel", "dq_kernel",
-                        "delta_kernel"),
+              "flash": ("flash_fwd", *BWD_TC, "delta_kernel"),
               "elementwise and reductions": ("at::native",)}
     split = {g: sum(t for k, t, _ in dev if any(x in k for x in names))
              / 1e3 for g, names in groups.items()}
@@ -3667,6 +3787,8 @@ def phase_lm_train(torch, cfg):
     check(not slow, f"{TRAIN}: PyTorch's index backward ran: {slow}")
     check(not any(FLASH_SIMT in k for k, _, _ in dev),
           f"{TRAIN}: the bf16 forward took the SIMT kernel")
+    check(not any(x in k for k, _, _ in dev for x in BWD_SIMT),
+          f"{TRAIN}: the bf16 backward took the SIMT kernels")
     # the backward of `gather_rows(embed, tokens)` as the step calls it:
     # fanout 1, unit weights, the tokens' own plan
     tok = data[0]["tokens"].reshape(-1, 1).to(torch.int32).contiguous()

@@ -2,8 +2,9 @@
 library with a plain C interface, loaded with `ctypes`).
 
 Each `csrc/<name>.cu` builds at first use into `build/kernels/` under the
-repository root, named by a hash of its source and flags, so an edited
-source rebuilds and an unchanged one loads at once. `build_all` starts one
+repository root, named by a hash of its source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source or header rebuilds and
+an unchanged one loads at once. `build_all` starts one
 `nvcc` per source together and waits for all of them. Nothing here runs
 at import time: the CPU tests import every module on a machine without
 `nvcc`.
@@ -44,7 +45,8 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
+    src = (CSRC / f"{name}.cu").read_bytes() + b"".join(
+        p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     h = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}_{h}.so"
 

@@ -14,9 +14,12 @@ strides; the exact SIMT kernel (`flash_attention_fwd`) for float32 and
 for bf16 at any other D or alignment. There is no fallback from a failed
 launch to the other kernel or to the plain version. The forward writes
 the rows' log-sum-exp too when asked (`return_lse`, the training
-forward); the backward (one route, SIMT float32) takes it. The wrappers
-count their launches in `LAUNCHES` (kernel launches only, never the plain
-path) and which kernel each forward took in `ROUTES`.
+forward), which the backward takes. The backward has the same two routes
+(`bwd_route`): `flash_attention_bwd_tc` (wgmma fed by TMA, P and dS
+rounded to bf16 as operands of the dV, dK and dQ products) and the exact
+SIMT `flash_attention_bwd`. The wrappers count their launches in
+`LAUNCHES` (kernel launches only, never the plain path), which kernel
+each forward took in `ROUTES` and each backward in `BWD_ROUTES`.
 """
 from __future__ import annotations
 
@@ -36,6 +39,7 @@ from repro_torch.kernels.gather_agg.kernel import (_check, _device_of,
 LAUNCHES: Dict[str, int] = {"flash_attention_fwd": 0,
                             "flash_attention_bwd": 0}
 ROUTES: Dict[str, int] = {"tensor_core": 0, "simt": 0}
+BWD_ROUTES: Dict[str, int] = {"tensor_core": 0, "simt": 0}
 MAX_HEAD_DIM = 256
 TC_HEAD_DIMS = (64, 128, 256)
 
@@ -44,7 +48,7 @@ _I64 = ctypes.c_int64
 
 
 def reset_launches() -> None:
-    for counts in (LAUNCHES, ROUTES):
+    for counts in (LAUNCHES, ROUTES, BWD_ROUTES):
         for k in counts:
             counts[k] = 0
 
@@ -68,6 +72,16 @@ def route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> str:
     return "simt"
 
 
+def bwd_route(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              out: torch.Tensor, dout: torch.Tensor) -> str:
+    """The backward kernel a CUDA call takes: `route`'s rule, with out and
+    dout 16-byte aligned too."""
+    if route(q, k, v) == "tensor_core" \
+            and out.data_ptr() % 16 == 0 and dout.data_ptr() % 16 == 0:
+        return "tensor_core"
+    return "simt"
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("flash_attention")
     if not getattr(lib, "_typed", False):
@@ -87,6 +101,9 @@ def _bwd_lib() -> ctypes.CDLL:
         lib.flash_attention_bwd.argtypes = [_P] * 10 + [_I64] * 10 + [
             ctypes.c_float, _I64, _P]
         lib.flash_attention_bwd.restype = ctypes.c_int
+        lib.flash_attention_bwd_tc.argtypes = [_P] * 10 + [_I64] * 10 + [
+            ctypes.c_float, _P]
+        lib.flash_attention_bwd_tc.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -170,8 +187,11 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     the counterpart of the reference's `_flash_bwd`. out and dout: (B, Sq,
     H, D) like q; lse: (B, H, Sq) float32 from the same forward. dk and
     dv sum over the query heads of each KV head. On the card one C call
-    launches the delta pass and the dk / dv and dq kernels (SIMT, float32
-    sums, no atomics: a relaunch is bit-identical); CPU tensors take
+    launches the delta pass and the dk / dv and dq kernels (float32 sums,
+    no atomics: a relaunch is bit-identical) on the route `bwd_route`
+    picks. The tensor-core route rounds P and dS to bf16 as operands of
+    the dV, dK and dQ products: `ref.flash_attention_bwd_ref(...,
+    pds_bf16=True)` emulates it. CPU tensors take
     `ref.flash_attention_bwd_ref`."""
     dev = _device_of(q)
     kw = dict(causal=causal, window=window, is_global=is_global,
@@ -189,17 +209,34 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"not match q {tuple(q.shape)}")
     if q_offset < 0:
         raise ValueError(f"needs q_offset >= 0, got {q_offset}")
+    return _launch_bwd(bwd_route(q, k, v, out, dout), q, k, v, out, lse,
+                       dout, **kw)
+
+
+def _launch_bwd(kind, q, k, v, out, lse, dout, *, causal, window,
+                is_global, q_offset):
+    """One C call of the backward on route `kind`, on inputs
+    `flash_attention_bwd` has checked. "simt" also takes bf16, so
+    `chip_smoke.py` times the SIMT parent on the tensor-core route's
+    inputs through it."""
+    B, Sq, H, D = q.shape
+    Skv, KH = k.shape[1], k.shape[2]
     dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = _bwd_lib().flash_attention_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KH, D,
-        int(bool(causal)), int(window), int(bool(is_global)), int(q_offset),
-        1.0 / math.sqrt(D), int(q.dtype == torch.bfloat16), stream)
-    _raise_on(rc, "flash_attention_bwd")
+    delta = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KH, D,
+            int(bool(causal)), int(window), int(bool(is_global)),
+            int(q_offset), 1.0 / math.sqrt(D))
+    if kind == "tensor_core":
+        rc = _bwd_lib().flash_attention_bwd_tc(*args, stream)
+    else:
+        rc = _bwd_lib().flash_attention_bwd(
+            *args, int(q.dtype == torch.bfloat16), stream)
+    _raise_on(rc, f"flash_attention_bwd ({kind})")
     LAUNCHES["flash_attention_bwd"] += 1
+    BWD_ROUTES[kind] += 1
     return dq, dk, dv

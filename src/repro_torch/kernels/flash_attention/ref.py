@@ -6,7 +6,8 @@ backward (`flash_attention_bwd_ref`, the reference's custom-VJP backward
 them, and `chip_smoke.py` holds the CUDA kernels against them on the
 card. The forward materialises the whole (Sq, Skv) score matrix per head;
 with `p_bf16` it emulates the rounding points of the tensor-core kernel
-instead. The backward walks the keys in chunks, as the reference does."""
+instead. The backward walks the keys in chunks, as the reference does;
+with `pds_bf16` it emulates the tensor-core backward's rounding points."""
 import math
 
 import torch
@@ -94,7 +95,7 @@ def attention_ref(q, k, v, *, causal=True, window=1 << 30, is_global=True,
 
 def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True,
                             window=1 << 30, is_global=True, q_offset=0,
-                            chunk=512):
+                            chunk=512, pds_bf16=False):
     """The reference's `_flash_bwd`: (dq, dk, dv) in the dtypes of q, k,
     v, from the forward's `out` (B, Sq, H, D) and `lse` (B, H, Sq) and the
     output's gradient `dout`. Float32 throughout, over key chunks of
@@ -102,7 +103,13 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True,
     p = exp(s - lse), delta = rowsum(dout out), ds = p (dp - delta) /
     sqrt(D); dk and dv summed over the query heads of each KV head. `out`
     is the forward's output as returned (the reference keeps its float32
-    copy; the same values in float32)."""
+    copy; the same values in float32).
+
+    `pds_bf16`: the tensor-core kernel's rounding points. p and ds are
+    computed in float32 as above (ds from the unrounded p and dp) and
+    rounded to bf16 only as operands of the dv, dk and dq products, whose
+    sums stay float32 (what the TPU's MXU does to the reference's float32
+    einsums at DEFAULT precision)."""
     B, Sq, H, D = q.shape
     Skv, KH = k.shape[1], k.shape[2]
     G = H // KH
@@ -110,6 +117,10 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True,
         chunk = Skv
     scale = 1.0 / math.sqrt(D)
     f32 = torch.float32
+
+    def operand(t):
+        return t.to(torch.bfloat16).to(f32) if pds_bf16 else t
+
     qf = q.to(f32).reshape(B, Sq, KH, G, D)
     do = dout.to(f32).reshape(B, Sq, KH, G, D).permute(0, 2, 3, 1, 4)
     of = out.to(f32).reshape(B, Sq, KH, G, D).permute(0, 2, 3, 1, 4)
@@ -127,9 +138,9 @@ def flash_attention_bwd_ref(q, k, v, out, lse, dout, *, causal=True,
                     is_global=is_global)
         s = s.masked_fill(~msk[None, None, None], NEG_INF)
         p = torch.exp(s - lse[..., None])               # (B,KH,G,Sq,C)
-        dvs.append(torch.einsum("bkgqs,bkgqd->bskd", p, do))
+        dvs.append(torch.einsum("bkgqs,bkgqd->bskd", operand(p), do))
         dp = torch.einsum("bkgqd,bskd->bkgqs", do, vc)
-        ds = p * (dp - delta[..., None]) * scale
+        ds = operand(p * (dp - delta[..., None]) * scale)
         dq = dq + torch.einsum("bkgqs,bskd->bkgqd", ds, kc)
         dks.append(torch.einsum("bkgqs,bqkgd->bskd", ds, qf))
     dq = dq.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, D)

@@ -90,14 +90,19 @@ def test_ragged_lengths_match_attention_ref_and_jnp_twin(s, is_global, dtype):
 def test_cpu_tensors_take_the_plain_path_and_count_no_launch():
     kernel.reset_launches()
     _, (q, k, v) = _inputs(3, 1, 40, 40, 4, 1, 16, "bfloat16")
-    out = kernel.flash_attention_fwd(q, k, v, window=16, is_global=False)
+    kw = dict(window=16, is_global=False)
+    out = kernel.flash_attention_fwd(q, k, v, **kw)
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     assert kernel.LAUNCHES == {"flash_attention_fwd": 0,
                                "flash_attention_bwd": 0}
     assert kernel.ROUTES == {"tensor_core": 0, "simt": 0}
+    kernel.flash_attention_bwd(q, k, v, out, attention_lse_ref(q, k, **kw),
+                               torch.ones_like(out), **kw)
+    assert kernel.BWD_ROUTES == {"tensor_core": 0, "simt": 0}
+    assert kernel.LAUNCHES["flash_attention_bwd"] == 0
 
 
-def test_an_input_that_requires_grad_raises():
+def test_the_op_trains_through_its_backward():
     """An input that requires grad no longer raises: the op trains
     through its backward (plain versions on the CPU) and q's gradient
     equals `flash_attention_bwd_ref`'s; under no_grad it is the forward
@@ -194,3 +199,24 @@ def test_route_picks_the_kernel_from_dtype_head_dim_and_alignment():
         assert kernel.route(*qkv(d)) == "simt"
     assert [kernel.tc_kv_tile(d) for d in kernel.TC_HEAD_DIMS] == [128, 128,
                                                                    64]
+
+
+def test_bwd_route_picks_the_kernel_as_the_forward_does():
+    """The backward's choice: the forward's rule on q, k, v, with out and
+    dout 16-byte aligned too (TMA reads dout; the tensor-core kernel takes
+    every pointer aligned)."""
+    def t(d, dtype=torch.bfloat16, offset=0, heads=4):
+        flat = torch.zeros(offset + 4 * 8 * heads * d, dtype=dtype)
+        return flat[offset:].view(4, 8, heads, d)
+
+    for d in kernel.TC_HEAD_DIMS:
+        q, k, v, out, dout = t(d), t(d, heads=2), t(d, heads=2), t(d), t(d)
+        assert kernel.bwd_route(q, k, v, out, dout) == "tensor_core"
+        assert kernel.bwd_route(q, k, v, out, t(d, offset=1)) == "simt"
+        assert kernel.bwd_route(q, k, v, t(d, offset=1), dout) == "simt"
+        assert kernel.bwd_route(t(d, offset=1), k, v, out, dout) == "simt"
+        f = [x.float() for x in (q, k, v, out, dout)]
+        assert kernel.bwd_route(*f) == "simt"
+    for d in (16, 48, 100, 192):
+        assert kernel.bwd_route(t(d), t(d, heads=2), t(d, heads=2), t(d),
+                                t(d)) == "simt"

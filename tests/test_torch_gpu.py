@@ -737,8 +737,10 @@ def test_flash_bf16_takes_the_simt_route_at_other_head_dims_or_misaligned(
 
 # (B, Sq, Skv, H, KH, D, causal, window, is_global, q_offset): GQA with G
 # 1, 2 and 4, causal / window / global, lengths that are no multiple of a
-# tile, Sq != Skv with an offset, every padded head dim, and a block whose
-# rows see no key (window 1 past the keys)
+# tile, Sq != Skv with an offset, every padded head dim, and blocks whose
+# rows see no key (window 1 past the keys; a window that ends before the
+# last rows). bf16 at D 64, 128 and 256 takes the tensor-core route, at D
+# 16, 32, 48 and 100 the SIMT one
 FLASH_BWD_CASES = [(2, 40, 40, 4, 2, 16, True, 16, False, 0),
                    (1, 130, 130, 4, 1, 256, True, 48, False, 0),
                    (1, 200, 200, 4, 1, 256, True, 1 << 30, True, 0),
@@ -746,7 +748,11 @@ FLASH_BWD_CASES = [(2, 40, 40, 4, 2, 16, True, 16, False, 0),
                    (1, 97, 161, 8, 2, 128, True, 1 << 30, True, 64),
                    (1, 65, 90, 4, 4, 100, False, 1 << 30, True, 0),
                    (1, 150, 120, 4, 1, 128, False, 40, False, 100),
-                   (1, 33, 20, 2, 1, 32, True, 1, False, 30)]
+                   (1, 33, 20, 2, 1, 32, True, 1, False, 30),
+                   (2, 90, 75, 4, 2, 64, True, 24, False, 20),
+                   (1, 300, 260, 4, 2, 256, True, 1 << 30, True, 40),
+                   (1, 33, 20, 2, 1, 64, True, 1, False, 30),
+                   (1, 50, 50, 4, 2, 48, True, 1 << 30, True, 0)]
 
 
 def _grad_close(got, want, dtype):
@@ -760,13 +766,32 @@ def _grad_close(got, want, dtype):
         assert err <= 2e-2 * scale, (err, scale)
 
 
+def _emulation_close(got, q, k, v, out, lse, dout, kw):
+    """The tensor-core backward against the float32 emulation of its
+    rounding points (`pds_bf16=True` on the same bf16 values, its sums
+    left in float32): within 4e-3 of the largest |grad|. The two take the
+    same bf16 operands and part in the float32 sums' order (a weight on
+    the other side of a bf16 rounding boundary moves by one ulp) and in
+    the kernel's output rounding (half an ulp of bf16, at most 2^-8 of
+    the largest value)."""
+    f = [t.float() for t in (q, k, v, out)]
+    emu = flash_attention_bwd_ref(*f, lse, dout.float(), pds_bf16=True,
+                                  **kw)
+    for g, e in zip(got, emu):
+        err = float((g.float() - e).abs().max())
+        assert err <= 4e-3 * float(e.abs().max()), (err, float(e.abs().max()))
+
+
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("case", FLASH_BWD_CASES)
 def test_flash_attention_bwd_matches_plain_version(cuda, case, dtype):
     """flash_attention_bwd against `flash_attention_bwd_ref` on the same
     out and lse (the forward kernel's), the forward's lse against
     `attention_lse_ref`, serving's output bit-identical with and without
-    the lse pointer, a bit-identical relaunch, one count per launch."""
+    the lse pointer, a bit-identical relaunch, one count per launch and
+    route. bf16 at D 64, 128 and 256 takes the tensor-core route and is
+    also held to the emulation of its rounding points; float32 and other
+    head dims the SIMT route."""
     B, Sq, Skv, H, KH, D, causal, window, is_global, q_offset = case
     dt = getattr(torch, dtype)
     rng = np.random.default_rng((Sq, Skv, D, 7))
@@ -782,22 +807,31 @@ def test_flash_attention_bwd_matches_plain_version(cuda, case, dtype):
     assert lse.shape == (B, H, Sq) and lse.dtype == torch.float32
     torch.testing.assert_close(lse, attention_lse_ref(q, k, **kw),
                                rtol=1e-5, atol=1e-4)
+    kind = "tensor_core" if dtype == "bfloat16" and D in (64, 128, 256) \
+        else "simt"
+    assert flash_kernel.bwd_route(q, k, v, out, dout) == kind
     before = dict(flash_kernel.LAUNCHES)
+    routes = dict(flash_kernel.BWD_ROUTES)
     got = flash_kernel.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     want = flash_attention_bwd_ref(q, k, v, out, lse, dout, **kw)
     for g, w, t in zip(got, want, (q, k, v)):
         assert g.shape == t.shape and g.dtype == dt
         _grad_close(g, w, dtype)
+    if kind == "tensor_core":
+        _emulation_close(got, q, k, v, out, lse, dout, kw)
     again = flash_kernel.flash_attention_bwd(q, k, v, out, lse, dout, **kw)
     assert all(torch.equal(a, b) for a, b in zip(got, again))
     assert flash_kernel.LAUNCHES == dict(
         before, flash_attention_bwd=before["flash_attention_bwd"] + 2)
+    assert flash_kernel.BWD_ROUTES == dict(routes,
+                                           **{kind: routes[kind] + 2})
 
 
 def test_flash_attention_op_trains_through_the_kernels(cuda):
     """With grad on, the op's forward writes lse and its backward is the
-    kernel: q, k, v grads equal a direct `flash_attention_bwd` call; under
-    no_grad it is the forward alone."""
+    kernel, bf16 at D 64 on the tensor-core route: q, k, v grads equal a
+    direct `flash_attention_bwd` call; under no_grad it is the forward
+    alone."""
     rng = np.random.default_rng(3)
     q = torch.as_tensor(rng.normal(size=(2, 96, 4, 64)),
                         dtype=torch.bfloat16, device=cuda)
@@ -808,6 +842,7 @@ def test_flash_attention_op_trains_through_the_kernels(cuda):
                            device=cuda)
     kw = dict(causal=True, window=32, is_global=False, q_offset=0)
     before = dict(flash_kernel.LAUNCHES)
+    routes = dict(flash_kernel.BWD_ROUTES)
     with torch.no_grad():
         plain_out = flash_attention_op(q, k, v, **kw)
     leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
@@ -817,6 +852,8 @@ def test_flash_attention_op_trains_through_the_kernels(cuda):
     assert flash_kernel.LAUNCHES == dict(
         before, flash_attention_fwd=before["flash_attention_fwd"] + 2,
         flash_attention_bwd=before["flash_attention_bwd"] + 1)
+    assert flash_kernel.BWD_ROUTES == dict(
+        routes, tensor_core=routes["tensor_core"] + 1)
     _, lse = flash_kernel.flash_attention_fwd(q, k, v, return_lse=True, **kw)
     want = flash_kernel.flash_attention_bwd(q, k, v, plain_out, lse, dout,
                                             **kw)
@@ -1738,6 +1775,8 @@ def test_reduced_lm_train_steps_on_the_card_match_the_cpu(cuda):
                 L = cfg.num_layers
                 assert flash_kernel.LAUNCHES == {
                     "flash_attention_fwd": 2 * L, "flash_attention_bwd": L}
+                assert flash_kernel.BWD_ROUTES == {"tensor_core": 0,
+                                                   "simt": L}
                 assert kernel.LAUNCHES == {"gather_agg_fwd": 0,
                                            "gather_agg_bwd_dx": 1,
                                            "gather_agg_bwd_dw": 0}

@@ -145,6 +145,45 @@ def test_flash_backward_matches_jax_vjp(case):
                                      torch.from_numpy(do), **kw)
     for leaf, g in zip(leaves, direct):
         assert torch.equal(leaf.grad, g)
+    # the emulation flag off is the same function, bit for bit
+    off = flash_attention_bwd_ref(tq, tk, tv, got.detach(),
+                                  attention_lse_ref(tq, tk, **kw),
+                                  torch.from_numpy(do), pds_bf16=False, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(off, direct))
+
+
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_flash_backward_emulation_stays_near_jax_vjp(case):
+    """`flash_attention_bwd_ref(..., pds_bf16=True)`, the tensor-core
+    kernel's rounding points, on bf16-valued float32 inputs against
+    `jax.vjp` of the reference's `flash_attention` on the same values:
+    within 1e-2 of the largest |grad|. Rounding p and ds to bf16 moves
+    each term of the dv, dk and dq sums by at most 2^-9 of itself; summed
+    with mixed signs that stays far below 1e-2 of the largest gradient.
+    The flag must change the result (it rounds something)."""
+    b, s, h, kh, d, causal, window, is_global = case
+    rng = np.random.default_rng((s, h, kh, d, 2))
+
+    def bf16_values(shape):
+        x = torch.from_numpy(rng.normal(size=shape).astype(np.float32))
+        return x.to(torch.bfloat16).float()
+
+    tq, tdo = bf16_values((b, s, h, d)), bf16_values((b, s, h, d))
+    tk, tv = bf16_values((b, s, kh, d)), bf16_values((b, s, kh, d))
+    kw = dict(causal=causal, window=window, is_global=is_global)
+    out, vjp = jax.vjp(lambda x, y, z: jax_attention.flash_attention(
+        x, y, z, **kw), tq.numpy(), tk.numpy(), tv.numpy())
+    want = vjp(tdo.numpy())
+    tout = torch.from_numpy(np.array(out))
+    lse = attention_lse_ref(tq, tk, **kw)
+    emu = flash_attention_bwd_ref(tq, tk, tv, tout, lse, tdo, pds_bf16=True,
+                                  **kw)
+    plain = flash_attention_bwd_ref(tq, tk, tv, tout, lse, tdo, **kw)
+    for g, w in zip(emu, want):
+        w = np.asarray(w)
+        err = float(np.abs(g.numpy() - w).max())
+        assert err <= 1e-2 * float(np.abs(w).max()), err
+    assert not all(torch.equal(a, b) for a, b in zip(emu, plain))
 
 
 def _visited(Sq, Skv, BQ, BK, causal, window, is_global, q_offset):
@@ -182,34 +221,105 @@ def _visited(Sq, Skv, BQ, BK, causal, window, is_global, q_offset):
     return kv, qd, keep_all
 
 
-@pytest.mark.parametrize("case", [
+def _needed(Sq, Skv, BQ, BK, causal, window, is_global, q_offset):
+    """(Q tile, KV tile) pairs of BQ x BK tiles that hold an unmasked
+    pair, and those whose pairs within (Sq, Skv) are all unmasked (a row
+    or key past the end reads zeros and is never written)."""
+    m = _mask(q_offset + torch.arange(Sq), torch.arange(Skv), causal=causal,
+              window=window, is_global=is_global).numpy()
+    nq, nk = -(-Sq // BQ), -(-Skv // BK)
+    out = []
+    for fill in (False, True):
+        pad = np.full((nq * BQ, nk * BK), fill)
+        pad[:Sq, :Skv] = m
+        out.append(pad.reshape(nq, BQ, nk, BK))
+    return out[0].any(axis=(1, 3)), out[1].all(axis=(1, 3))
+
+
+def _check_skips(case, kv_tiles, q_tiles):
+    """The dk / dv kernel on `kv_tiles` (BQ, BK) and the dq kernel on
+    `q_tiles` visit every tile pair that holds an unmasked pair; when some
+    row sees no key, every tile. Returns dk / dv's visited and needed."""
+    Sq, Skv, _, causal, window, is_global, q_offset = case
+    kv, _, keep_all = _visited(Sq, Skv, *kv_tiles, causal, window,
+                               is_global, q_offset)
+    _, qd, _ = _visited(Sq, Skv, *q_tiles, causal, window, is_global,
+                        q_offset)
+    kv_need, _ = _needed(Sq, Skv, *kv_tiles, causal, window, is_global,
+                         q_offset)
+    q_need, _ = _needed(Sq, Skv, *q_tiles, causal, window, is_global,
+                        q_offset)
+    if keep_all:                # some row sees no key: nothing is skipped
+        assert kv.all() and qd.all()
+    assert not (kv_need & ~kv).any() and not (q_need & ~qd).any()
+    return kv, kv_need
+
+
+SKIP_CASES = [
     (4096, 4096, 32, True, 512, False, 0), (4096, 4096, 32, True, 1 << 30,
                                             True, 0),
     (130, 130, 32, True, 48, False, 0), (97, 161, 64, True, 1 << 30, True,
                                          64),
     (150, 120, 64, False, 40, False, 100), (33, 20, 64, True, 1, False, 30),
     (300, 300, 64, True, 1, False, 0), (70, 90, 32, False, 1 << 30, True,
-                                        0)])
+                                        0)]
+
+
+@pytest.mark.parametrize("case", SKIP_CASES)
 def test_backward_kernel_tile_skips_drop_only_masked_pairs(case):
     """Every (query, key) pair the mask lets through lies in a tile pair
-    that both backward kernels visit (the kernel's own skip arithmetic,
-    emulated); at gemma's local layers (S 4096, window 512) they visit
-    about a quarter of the causal tile pairs."""
-    Sq, Skv, BK, causal, window, is_global, q_offset = case
-    BQ = 64
-    kv, qd, keep_all = _visited(Sq, Skv, BQ, BK, causal, window, is_global,
-                                q_offset)
-    m = _mask(q_offset + torch.arange(Sq), torch.arange(Skv), causal=causal,
-              window=window, is_global=is_global).numpy()
-    nq, nk = kv.shape
-    pad = np.zeros((nq * BQ, nk * BK), bool)
-    pad[:Sq, :Skv] = m
-    needed = pad.reshape(nq, BQ, nk, BK).any(axis=(1, 3))
-    if keep_all:                # some row sees no key: nothing is skipped
-        assert kv.all() and qd.all()
-    assert not (needed & ~kv).any() and not (needed & ~qd).any()
+    that both SIMT backward kernels visit (64-row Q tiles, BK-key tiles:
+    the kernel's own skip arithmetic, emulated); at gemma's local layers
+    (S 4096, window 512) they visit about a quarter of the causal tile
+    pairs."""
+    BK = case[2]
+    kv, _ = _check_skips(case, (64, BK), (64, BK))
     if case[:6] == (4096, 4096, 32, True, 512, False):
+        nq, nk = kv.shape
         assert kv.sum() < 0.3 * np.tril(np.ones((nq, nk))).sum() * 2
+
+
+def _tc_edges(Sq, Skv, BQ, BK, causal, window, is_global, q_offset,
+              keep_all, dq):
+    """The tile pairs that the tensor-core kernels mask element by element
+    (`flash_attention_bwd.cu`'s `edge` rules written out): dk / dv (BQ-row
+    Q tiles against a BK-key tile) and dq (BQ-row blocks, whose ragged last
+    block is bounded by Sq)."""
+    nq, nk = -(-Sq // BQ), -(-Skv // BK)
+    edge = np.zeros((nq, nk), bool)
+    for qt in range(nq):
+        q0 = qt * BQ
+        p_first = q_offset + q0
+        p_last = q_offset + (min(q0 + BQ, Sq) if dq else q0 + BQ) - 1
+        for t in range(nk):
+            k0 = t * BK
+            edge[qt, t] = (keep_all or k0 + BK > Skv
+                           or (not dq and q0 + BQ > Sq)
+                           or (causal and k0 + BK - 1 > p_first)
+                           or (not is_global and p_last - k0 >= window))
+    return edge
+
+
+@pytest.mark.parametrize("case", SKIP_CASES)
+def test_tensor_core_tile_skips_and_masks_drop_only_masked_pairs(case):
+    """The tensor-core route's tiles: dk / dv over 64-key tiles and 64-row
+    Q tiles, dq over 128-row blocks and BK-key tiles (64, or 32 at D 256:
+    BK stands for the head dim). No unmasked pair falls in a skipped tile,
+    and every visited tile that the kernels do not mask element by element
+    holds only unmasked pairs in range."""
+    Sq, Skv, BK, causal, window, is_global, q_offset = case
+    kv, _ = _check_skips(case, (64, 64), (128, BK))
+    keep_all = _visited(Sq, Skv, 64, 64, causal, window, is_global,
+                        q_offset)[2]
+    for (bq, bk), visited, dq in (((64, 64), kv, False),
+                                  ((128, BK), _visited(
+                                      Sq, Skv, 128, BK, causal, window,
+                                      is_global, q_offset)[1], True)):
+        _, full = _needed(Sq, Skv, bq, bk, causal, window, is_global,
+                          q_offset)
+        edge = _tc_edges(Sq, Skv, bq, bk, causal, window, is_global,
+                         q_offset, keep_all, dq)
+        assert not (visited & ~edge & ~full).any()
 
 
 # ---------------------------------------------------------------------------
