@@ -282,12 +282,41 @@ run, exit code != 0):
               checkpoint every 3, a new trainer resuming for 3 more, the 9
               losses bit-identical to an uninterrupted run
 
+  13. the analysis gate, after phase 11 on its graph: (a) the op audit
+              (`repro_torch.analysis.op_audit`) on the card at the tiny
+              graph's shapes — donation, kernels (gather_agg and
+              gather_cached forward and backward launch their kernels, as
+              `LAUNCHES` and the profiler's kernel names show, with no
+              sync, no float64 and no feature-shaped fallback; the csrc
+              sources make no blocking runtime call), device_order,
+              fused_build, train_step (hash-stable records, eval and
+              `train_steps` syncs only in their windows) each ok,
+              sharded_step waiting for ROADMAP item 10; (b) the sync
+              gate: an 8-byte position (pageable) and an epoch's order
+              (page-locked) copied to the card behind a running kernel
+              return while it runs; 10 steps each of GraphSAGE sync and
+              async, with the
+              phase-4 plan as a static cache, with it as a dynamic cache
+              across the end of epoch 0 and its refill, GCN, GAT and
+              LABOR (phase 11's caps), at the phase-4 widths on the
+              reddit-602 graph, from fresh trainers; each run ungated,
+              then gated under `torch.cuda.set_sync_debug_mode("error")`
+              (the sync run evaluates 3 batches too): the allowed syncs
+              by window equal `promised_reads`, losses (and the eval)
+              bit-identical to the ungated run's, launches exactly phase
+              4's counts a step, median step ms gated and ungated; (c)
+              the repairs: with the parent's per-batch root copy, and with
+              the parent's AdamW (`torch.tensor(b, device=)` bases), a
+              gated GraphSAGE step raises; 10 ungated steps of parent and
+              change in turns, twice each: losses bit-identical, median ms
+
 It prints the `{"kernels": [...]}` line before the last, and as the last
 line `{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
 checkout of the repository, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -1929,6 +1958,7 @@ def phase_async(torch, graph, policy, plan, caps, eval_caps):
 LABOR, LABOR_ASYNC = "graphsage_labor", "graphsage_labor_async"
 FULL_RUN, CGCN, FULLBATCH = "graphsage_full", "clustergcn", "fullbatch"
 LABOR_STEPS, FULL_STEPS, CGCN_PPB, FB_EPOCHS = 20, 5, 2, 3
+LABOR_CAPS: list = []           # phase 11's calibrated caps, for phase 13
 # CUDA kernels of PyTorch's index backward and of its atomic scatters
 # (index_add_, scatter_add_, index_put_ with accumulate): a subgraph step
 # may launch none of them
@@ -2044,6 +2074,7 @@ def phase_labor(torch, graph, caps, eval_caps):
         lab = GNNTrainer(graph, cfg, tcfg, make_policy("labor"),
                          eval_caps=eval_caps, seed=0, device=DEVICE)
         set_up = time.perf_counter() - t0
+        LABOR_CAPS.extend(lab.caps)             # phase 13 reuses them
         check(lab.sampler.name == "labor", "labor binds another sampler")
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -2456,6 +2487,293 @@ def phase_prior_work(torch, graph, caps, eval_caps):
     runs.update(fb_runs)
     log(f"[11 done] phase 11: {time.perf_counter() - t_phase:.1f} s")
     return runs, readings
+
+
+# ---------------------------------------------------------------------------
+# phase 13: the analysis gate on the card
+# ---------------------------------------------------------------------------
+GATE_STEPS = 10
+# the GNN paths run under the sync gate: (config, policy, pipeline, cache)
+GATED = {"gate_sage_sync": ("graphsage", "comm_rand", "sync", None),
+         "gate_sage_async": ("graphsage", "comm_rand", "async", None),
+         "gate_sage_static": ("graphsage", "comm_rand", "sync", "static"),
+         "gate_sage_dynamic": ("graphsage", "comm_rand", "sync", "dynamic"),
+         "gate_gcn": ("gcn", "comm_rand", "sync", None),
+         "gate_gat": ("gat", "comm_rand", "sync", None),
+         "gate_labor": ("graphsage", "labor", "sync", None)}
+# the dynamic run starts this many steps before the end of epoch 0, so
+# that its steps cross the boundary and its refill
+GATE_BEFORE_BOUNDARY = 5
+
+
+def phase_gate_audit(torch):
+    """(a) the op audit (`repro_torch.analysis.op_audit`) on the card at
+    the tiny graph's shapes: every section ok, `kernels` run (not
+    skipped)."""
+    from repro_torch.analysis import op_audit
+    t0 = time.perf_counter()
+    rep = op_audit.audit_all(device=DEVICE)
+    for section in op_audit.SECTIONS:
+        log(f"[13 audit] {section:12s} "
+            f"{op_audit.section_status(rep[section])}")
+    k = rep["kernels"]
+    check("skipped" not in k, "the kernels section skipped on the card")
+    for name in ("gather_agg", "gather_cached"):
+        log(f"[13 audit] kernels {name}: launches {k[name]['launches']}  "
+            f"profiled {k[name]['profiled']} (trace kernels "
+            f"{k[name]['trace_kernels']}, windows {k[name]['windows']})  "
+            f"syncs {k[name]['syncs']}  "
+            f"feature gathers {k[name]['feature_gathers']}  "
+            f"indexing_backward {k[name]['indexing_backward']}")
+    ts = rep["train_step"]
+    log(f"[13 audit] train_step: {ts['ops']} ops, hash stable "
+        f"{ts['stable']}; eval {ts['eval']['ops']} ops, allowed "
+        f"{ts['eval']['allowed_syncs']}; train_steps(2) windows "
+        f"{ts['loop']['windows']} promised {ts['loop']['promised']}; "
+        f"csrc blocking calls {k['sources']['blocking_calls']}")
+    for section in op_audit.SECTIONS:
+        check(rep[section]["ok"], f"audit section {section}: "
+              f"{json.dumps(rep[section], default=str)[:2000]}")
+    log(f"[13 audit] {time.perf_counter() - t0:.1f} s")
+
+
+def phase_gate_copies(torch):
+    """The host-to-device copies the repaired paths make, each behind a
+    running kernel (a ~0.25 s `torch.cuda._sleep`): a batch's 8-byte
+    position from pageable memory (`batch_roots`) and an epoch's order of
+    151 x 1024 roots from page-locked memory (`to_device_int32`) must each
+    return while the kernel still runs (`query()` False): neither waits
+    for the device. Each is made once before, so that allocation is not
+    timed."""
+    import numpy as np
+    from repro_torch.batching.stream import batch_roots, to_device_int32
+    n = 151 * 1024
+    order = torch.zeros(n, dtype=torch.int32, device=DEVICE)
+    host = np.zeros(n, np.int32)
+    for what, fn in (
+            ("a position, 8 B pageable", lambda: batch_roots(order, 7, 1024)),
+            (f"an epoch's order, {n * 4} B page-locked",
+             lambda: to_device_int32(host, order.device))):
+        fn()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(500_000_000)
+        t0 = time.perf_counter()
+        fn()
+        ms = (time.perf_counter() - t0) * 1e3
+        running = not torch.cuda.current_stream().query()
+        torch.cuda.synchronize()
+        log(f"[13 copies] {what}: the host call {ms:.3f} ms behind a "
+            f"running kernel, which still runs after it: {running}")
+        check(running, f"{what}: the copy waited for the device")
+
+
+def gate_want(name: str, steps: int, n_eval: int):
+    """The launches `steps` train steps and `n_eval` eval batches of run
+    `name` make (phase 4's counts; the dynamic run refills once)."""
+    config, _, _, cache = GATED[name]
+    dx, dw = {"graphsage": (4, 0), "gcn": (4, 0), "gat": (9, 3)}[config]
+    want = {k: 0 for k in read_launches()}
+    want.update(gather_agg_fwd=3 * (steps + n_eval),
+                gather_agg_bwd_dx=dx * steps, gather_agg_bwd_dw=dw * steps)
+    if cache is not None:
+        want["gather_cached_fwd"] = steps + n_eval
+    if cache == "dynamic":
+        want["clock_refill"] = 1
+    return want
+
+
+def gated_run(torch, graph, name, make, val):
+    """`GATE_STEPS` steps of run `name` ungated from one fresh trainer,
+    then gated from another: allowed syncs by window equal to
+    `promised_reads`, losses bit-identical, launches as phase 4 counts
+    them; the sync run also evaluates `val` on both. Returns the gated
+    run's launches."""
+    from repro_torch.analysis.sync_gate import sync_gate
+    evaluate = name == "gate_sage_sync"
+    n_eval = -(-len(val) // 1024) if evaluate else 0
+    out = {}
+    for gated in (False, True):
+        tr = make()
+        try:
+            promised, losses, ms = {}, [], []
+            torch.cuda.synchronize()
+            reset_launches()                     # counts start here
+            gate_or_not = sync_gate() if gated else contextlib.nullcontext()
+            with gate_or_not as gate:
+                for _ in range(GATE_STEPS):
+                    for k, n in tr.promised_reads(1).items():
+                        promised[k] = promised.get(k, 0) + n
+                    t0 = time.perf_counter()
+                    losses += tr.train_steps(1)
+                    ms.append((time.perf_counter() - t0) * 1e3)
+                ev = tr.evaluate(val) if evaluate else None
+            torch.cuda.synchronize()
+            launches = read_launches()           # ... and are read here
+            if evaluate:
+                promised["eval"] = 1
+            out[gated] = (losses, ms, ev, launches,
+                          gate.counts() if gated else None, promised,
+                          tr.cache_meter.refills)
+        finally:
+            if tr.pipeline == "async":
+                tr.stream.close()
+            del tr
+            torch.cuda.empty_cache()
+    (lu, msu, evu, _, _, _, _), (lg, msg, evg, launches, counts, promised,
+                                 refills) = out[False], out[True]
+    want = gate_want(name, GATE_STEPS, n_eval)
+    log(f"[13 gate] {name}: {GATE_STEPS} steps under "
+        f"set_sync_debug_mode('error'): allowed syncs {counts} (promised "
+        f"{promised}); median step {statistics.median(msg):.2f} ms gated "
+        f"vs {statistics.median(msu):.2f} ms ungated (first "
+        f"{msg[0]:.2f} / {msu[0]:.2f}); loss {lg[0]:.4f} -> {lg[-1]:.4f}"
+        f"{'; refilled ' + str(refills) + ' rows' if refills else ''}; "
+        f"launches {launches}")
+    check(counts == promised,
+          f"{name}: allowed syncs {counts} != promised {promised}")
+    check(lg == lu, f"{name}: gated losses {lg} != ungated {lu}")
+    check(all(map(math.isfinite, lg)), f"{name}: non-finite loss")
+    check(evg == evu, f"{name}: gated eval {evg} != ungated {evu}")
+    check(launches == want, f"{name}: launches {launches} != {want}")
+    return launches
+
+
+def _parent_take(self, epoch, pos):
+    """`BatchStream._take` as it was before the gate: the batch's roots
+    copied from pageable host memory with a blocking `.to(device)`."""
+    import numpy as np
+    from repro_torch.batching.stream import build_at
+    import torch
+    roots = torch.as_tensor(np.asarray(self.root_batches(epoch)[pos]),
+                            dtype=torch.int32)
+    return build_at(self.g, roots.to(self.device), self.labels,
+                    self.fanouts, self.caps, self.sampler, self.seed, epoch,
+                    pos, self.epoch_ctx(epoch))
+
+
+def _parent_adamw_update(grads, state, params, *, lr, b1=0.9, b2=0.999,
+                         eps=1e-8, weight_decay=0.0):
+    """`optim.adamw.update` as it was before the gate: the bias
+    corrections' bases made with `torch.tensor(b, device=)`, a blocking
+    host-to-device copy each."""
+    import torch
+    from repro_torch.optim.adamw import tree_leaves, tree_unflatten
+    count = state["count"] + 1
+    c = count.to(torch.float32)
+    bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
+                                       device=c.device), c)
+    bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
+                                       device=c.device), c)
+    new_p, new_m, new_v = [], [], []
+    for g, m, v, p in zip(tree_leaves(grads), tree_leaves(state["m"]),
+                          tree_leaves(state["v"]), tree_leaves(params)):
+        g = g.to(torch.float32)
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * torch.square(g)
+        step = (m / bc1) / (torch.sqrt(v / bc2) + eps) \
+            + weight_decay * p.to(torch.float32)
+        new_p.append((p - lr * step).to(p.dtype))
+        new_m.append(m)
+        new_v.append(v)
+    return tree_unflatten(params, new_p), {
+        "m": tree_unflatten(params, new_m), "v": tree_unflatten(params, new_v),
+        "count": count}
+
+
+def _parents(root: bool, adamw: bool) -> contextlib.ExitStack:
+    """The pre-gate code paths (`root`: the per-batch root copy; `adamw`:
+    the bases' copies) patched in for the block."""
+    from unittest import mock
+
+    from repro_torch.batching.stream import BatchStream
+    from repro_torch.optim import adamw as adamw_module
+    stack = contextlib.ExitStack()
+    if root:
+        stack.enter_context(mock.patch.object(BatchStream, "_take",
+                                              _parent_take))
+    if adamw:
+        stack.enter_context(mock.patch.object(adamw_module, "update",
+                                              _parent_adamw_update))
+    return stack
+
+
+def phase_gate_repairs(torch, make):
+    """(c) what the gate found, against the repairs: with the parent's
+    root copy, and with the parent's AdamW, a gated GraphSAGE step raises;
+    then 10 ungated steps each of parent (both) and change in turns
+    (parent, change, change, parent) on fresh trainers from one seed:
+    losses bit-identical, median step ms."""
+    from repro_torch.analysis.sync_gate import sync_gate
+    for what in ("root", "adamw"):
+        tr = make()
+        try:
+            with _parents(what == "root", what == "adamw"):
+                with sync_gate():
+                    tr.train_steps(1)
+            raise AssertionError(f"the gate let the parent's {what} pass")
+        except RuntimeError as e:
+            check("synchroniz" in str(e), f"parent {what}: {e}")
+            log(f"[13 repair] parent {what}: the gated step raises "
+                f"({str(e).splitlines()[0][:80]})")
+        finally:
+            del tr
+    ms, losses = {"parent": [], "change": []}, {}
+    for kind in ("parent", "change", "change", "parent"):
+        tr = make()
+        with (_parents(True, True) if kind == "parent" else
+              contextlib.nullcontext()):
+            got, step_ms = timed_steps(torch, tr, GATE_STEPS)
+        del tr
+        torch.cuda.empty_cache()
+        ms[kind] += step_ms
+        check(losses.setdefault(kind, got) == got,
+              f"{kind}: losses differ between two runs")
+    check(losses["parent"] == losses["change"],
+          "the repairs changed the losses")
+    log(f"[13 repair] graphsage sync, {GATE_STEPS} steps x 2 runs each, in "
+        f"turns: median step parent {statistics.median(ms['parent']):.2f} "
+        f"ms, change {statistics.median(ms['change']):.2f} ms (means "
+        f"{statistics.mean(ms['parent']):.2f}, "
+        f"{statistics.mean(ms['change']):.2f}); losses bit-identical")
+
+
+def phase_gate(torch, graph, policy, plan, caps, eval_caps):
+    """Phase 13: (a) the op audit on the card; (b) the sync gate over every
+    GNN path at full width on the reddit-602 graph, from the graph, caps
+    and cache plan earlier phases built. Returns the gated runs'
+    launches."""
+    from repro_torch.batching import Cursor, make_policy
+    from repro_torch.configs import CONFIGS, TrainConfig
+    from repro_torch.featcache import dynamic
+    from repro_torch.train.gnn_loop import GNNTrainer
+    t_phase = time.perf_counter()
+    phase_gate_audit(torch)
+    phase_gate_copies(torch)
+    check(bool(LABOR_CAPS), "phase 11 left no LABOR caps")
+    val = graph.val_ids[:EVAL_BATCHES * TrainConfig().batch_size]
+    runs = {}
+    for name, (config, pol, pipeline, cache) in GATED.items():
+        def make(config=config, pol=pol, pipeline=pipeline, cache=cache):
+            c = None
+            if cache == "static":
+                c = plan.to(DEVICE)
+            elif cache == "dynamic":
+                c = dynamic.from_plan(plan.to(DEVICE))
+            labor = pol == "labor"
+            tr = GNNTrainer(graph, CONFIGS[config], TrainConfig(),
+                            make_policy("labor") if labor else policy,
+                            caps=tuple(LABOR_CAPS) if labor else caps,
+                            eval_caps=eval_caps, seed=0, device=DEVICE,
+                            cache=c, pipeline=pipeline)
+            if cache == "dynamic":
+                tr.stream.cursor = Cursor(
+                    0, tr.stream.num_batches() - GATE_BEFORE_BOUNDARY)
+            return tr
+        runs[name] = gated_run(torch, graph, name, make, val)
+        if name == "gate_sage_sync":
+            phase_gate_repairs(torch, make)
+    log(f"[13 done] phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return runs
 
 
 # ---------------------------------------------------------------------------
@@ -3987,6 +4305,7 @@ def main() -> int:
     prior_runs, readings[FULLBATCH] = phase_prior_work(torch, graph, caps,
                                                        eval_caps)
     runs.update(prior_runs)
+    runs.update(phase_gate(torch, graph, policy, plan, caps, eval_caps))
 
     del graph, tiny, plan
     torch.cuda.empty_cache()

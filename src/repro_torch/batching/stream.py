@@ -19,6 +19,14 @@ once per epoch on the stream's device (`epoch_ctx`). The reference hashes
 the raw words of its threefry epoch key instead; handed those words, the
 port's ranks and picks are the reference's.
 
+Roots reach the device without a wait: `epoch_roots(epoch)` copies the
+epoch's -1-padded numpy order to the device once per epoch, into one
+buffer allocated once (from page-locked memory on the card, so the copy
+does not wait for the device's queue), and `batch_roots` takes batch
+`pos`'s row out of it on the device, as `pipeline.DeviceBatchBuilder`
+does with its device-computed order. The position itself rides to the
+device as data, so a build issues the same ops at every cursor.
+
 The stream carries the feature cache (`cache=`) its consumers read layer-0
 features through. `_take(epoch, pos)` is the override point of the async
 pipeline: `repro_torch.pipeline.AsyncBatchStream` hands out the same
@@ -37,7 +45,7 @@ from repro_torch import featcache, sampling
 from repro_torch.batching.order import make_batches
 from repro_torch.batching.policy import BatchPolicy, as_policy
 from repro_torch.core import minibatch as mb
-from repro_torch.devices import DeviceLike, resolve_device
+from repro_torch.devices import DeviceLike, host_to_device, resolve_device
 from repro_torch.graphs.csr import DeviceGraph, Graph
 
 # stream salts: independent generator families over the same cursor
@@ -84,6 +92,26 @@ class Cursor:
     @staticmethod
     def from_state(d) -> "Cursor":
         return Cursor(int(d["epoch"]), int(d["pos"]))
+
+
+def to_device_int32(a, device: torch.device) -> torch.Tensor:
+    """An int32 copy of host array `a` on `device` (`host_to_device`)."""
+    return host_to_device(
+        torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)), device)
+
+
+def batch_roots(order: torch.Tensor, pos: int,
+                batch_size: int) -> torch.Tensor:
+    """Batch `pos`'s (B,) roots out of a device-resident -1-padded epoch
+    order ((num_batches * B,) int32): a row gather at a position that
+    rides to the device as data, so that no op of a build takes the
+    cursor as an argument. The position's 8 bytes go from pageable memory
+    without a wait (CUDA stages so small a copy at once;
+    `chip_smoke.py` phase 13 times one behind a running kernel), so no
+    build allocates page-locked memory."""
+    row = torch.tensor([pos], dtype=torch.int64).to(order.device,
+                                                    non_blocking=True)
+    return order.view(-1, batch_size).index_select(0, row).view(-1)
 
 
 def build_at(g: DeviceGraph, roots: torch.Tensor, labels: torch.Tensor,
@@ -144,6 +172,8 @@ class BatchStream:
             cache, graph, policy=self.policy, batch_size=batch_size,
             fanouts=self.fanouts, seed=seed, device=self.device)
         self._order_cache = (-1, None)        # (epoch, (n_batches, B) roots)
+        self._order_buf: Optional[torch.Tensor] = None  # device copy of it
+        self._order_epoch = -1
         self._epoch_ctx = (-1, None)          # (epoch, shared sampler state)
 
     # -- deterministic derivations ------------------------------------------
@@ -156,6 +186,19 @@ class BatchStream:
             self._order_cache = (epoch, make_batches(
                 order, self.batch_size, self.drop_last))
         return self._order_cache[1]
+
+    def epoch_roots(self, epoch: int) -> torch.Tensor:
+        """The (num_batches * B,) -1-padded root order of `epoch` on the
+        stream's device: `root_batches(epoch)` copied once per epoch,
+        without a wait, into a buffer allocated once."""
+        if self._order_epoch != epoch:
+            host = self.root_batches(epoch).reshape(-1)
+            if self._order_buf is None:
+                self._order_buf = torch.empty(host.shape, dtype=torch.int32,
+                                              device=self.device)
+            self._order_buf.copy_(to_device_int32(host, self.device))
+            self._order_epoch = epoch
+        return self._order_buf
 
     def num_batches(self, epoch: int = None) -> int:
         n = len(self.graph.train_ids)
@@ -170,18 +213,22 @@ class BatchStream:
                 self.sampler, shared_words(self.seed, epoch), self.g))
         return self._epoch_ctx[1]
 
-    def build(self, roots: np.ndarray, epoch: int, pos: int) -> mb.MiniBatch:
-        """The static-shape batch for these roots at cursor (epoch, pos)."""
-        r = torch.as_tensor(np.asarray(roots), dtype=torch.int32)
-        return build_at(self.g, r.to(self.device), self.labels, self.fanouts,
+    def build(self, roots, epoch: int, pos: int) -> mb.MiniBatch:
+        """The static-shape batch for these roots (a host array, or an
+        int32 tensor on the stream's device) at cursor (epoch, pos)."""
+        if not isinstance(roots, torch.Tensor):
+            roots = to_device_int32(roots, self.device)
+        return build_at(self.g, roots, self.labels, self.fanouts,
                         self.caps, self.sampler, self.seed, epoch, pos,
                         self.epoch_ctx(epoch))
 
     # -- iteration -----------------------------------------------------------
     def _take(self, epoch: int, pos: int) -> mb.MiniBatch:
         """Produce batch (epoch, pos) — the override point for async
-        streams. The base class builds it from the numpy epoch order."""
-        return self.build(self.root_batches(epoch)[pos], epoch, pos)
+        streams. The base class slices it out of the epoch's order on the
+        device (`epoch_roots`)."""
+        return self.build(batch_roots(self.epoch_roots(epoch), pos,
+                                      self.batch_size), epoch, pos)
 
     def epoch(self) -> Iterator[mb.MiniBatch]:
         """Yield the REMAINDER of the current epoch (all of it when the
@@ -228,18 +275,21 @@ def eval_batches(graph: Graph, ids: np.ndarray, batch_size: int, fanouts,
     g, labels = _device_inputs(graph, dev, device_graph, labels)
     fanouts, caps = tuple(fanouts), tuple(caps)
     sampler = sampling.resolve(
+        # analysis: allow[no-host-sync-in-hot-path] -- p is the caller's host float, no device value
         sampler, lambda: sampling.make_sampler("biased", p=float(p)))
     ranks = mb.sampler_epoch_ctx(sampler,
                                  shared_words(seed, 0, SALT_LABOR_EVAL), g)
-    for j, i in enumerate(range(0, len(ids), batch_size)):
-        pad = np.full(batch_size, -1, np.int64)
-        chunk = ids[i:i + batch_size]
-        pad[:len(chunk)] = chunk
-
+    n_chunks = -(-len(ids) // batch_size)
+    # every chunk's roots in one copy, -1 padded, sliced on the device
+    pad = np.full(n_chunks * batch_size, -1, np.int64)
+    pad[:len(ids)] = ids
+    order = to_device_int32(pad, dev)
+    for j in range(n_chunks):
         def draw(hop, M, fanout, j=j):
             gen = cursor_generator(dev, seed, 0, j, hop, SALT_EVAL)
             return sampler.draw(gen, M, fanout)
 
-        roots = torch.as_tensor(pad, dtype=torch.int32).to(dev)
-        yield mb._build_batch_impl(g, roots, labels, fanouts, caps, sampler,
-                                   draw, ranks)
+        yield mb._build_batch_impl(g, batch_roots(order, j, batch_size),
+                                   labels, fanouts, caps, sampler, draw,
+                                   ranks)
+

@@ -48,6 +48,7 @@ from typing import Dict, Tuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.sync_gate import allowed_sync
 from repro_torch.featcache.plan import (CachePlan, as_plan, build_plan,
                                         cache_ref_updates_np)
 from repro_torch.kernels.clock_refill.ops import clock_refill
@@ -245,7 +246,8 @@ def integrity_ok(state: DynamicCacheState) -> bool:
     ok &= (state.pos >= 0).sum() == resident.sum()
     ok &= ((state.pos >= -1) & (state.pos < C)).all()
     ok &= ((state.refbit == 0) | (state.refbit == 1)).all()
-    return bool(ok)
+    with allowed_sync("integrity"):
+        return bool(ok)
 
 
 def refill_np(state: Dict[str, np.ndarray],

@@ -86,6 +86,7 @@ def clock_refill(pos: torch.Tensor, slot_ids: torch.Tensor,
         if rounds is not None:
             raise ValueError("rounds: only the card's kernel decides "
                              "windows")
+        # analysis: allow[no-host-sync-in-hot-path] -- a CPU tensor viewed as numpy: host memory, no device involved
         clock_runs(cand_fs.numpy())         # raises on unsorted frequencies
         return clock_refill_ref(pos, slot_ids, refbit, slot_freq, hand,
                                 cand_ids, cand_fs)

@@ -9,7 +9,8 @@ the lower node id: `torch.sort(-cand_freq, stable=True)` over ids in
 ascending order, the reference's `lexsort((arange(N), -cand_freq))`.
 The rows come from the same `feats` matrix the uncached path reads, so
 the cache keeps exact copies. The one host read is the admitted count,
-which sizes the row copy; the walk's step count stays on the device.
+which sizes the row copy (the "refill" window of
+`analysis.sync_gate`); the walk's step count stays on the device.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from typing import Tuple
 
 import torch
 
+from repro_torch.analysis.sync_gate import allowed_sync
 from repro_torch.kernels.clock_refill.kernel import clock_refill as walk
 from repro_torch.kernels.clock_refill.ref import ClockWalk
 
@@ -40,7 +42,9 @@ def clock_refill(cache: torch.Tensor, pos: torch.Tensor,
     new frequencies (the caller resets the epoch counters)."""
     cand_ids, cand_fs = refill_candidates(pos, freq, slot_ids.shape[0])
     w = walk(pos, slot_ids, refbit, slot_freq, hand, cand_ids, cand_fs)
-    n = int(w.n_admitted)                   # the refill's one host read
+    with allowed_sync("refill"):
+        # analysis: allow[no-host-sync-in-hot-path] -- the refill's one host read, once per epoch boundary (window "refill")
+        n = int(w.n_admitted)
     rows = cache.clone()
     if n:
         rows.index_copy_(0, w.adm_slots[:n].long(),

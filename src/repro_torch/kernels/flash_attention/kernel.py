@@ -128,6 +128,20 @@ def _check_qkv(q, k, v, dev):
     return B, Sq, H, D, Skv, KH
 
 
+def _c_ints(causal, window, is_global, q_offset) -> tuple:
+    """The C calls' flag and integer arguments (causal, window, is_global,
+    q_offset)."""
+    # analysis: allow[no-host-sync-in-hot-path] -- host values for the C call's arguments, no device operand
+    causal, is_global = int(bool(causal)), int(bool(is_global))
+    # analysis: allow[no-host-sync-in-hot-path] -- host values for the C call's arguments, no device operand
+    return causal, int(window), is_global, int(q_offset)
+
+
+def _bf16_flag(t: torch.Tensor) -> int:
+    # analysis: allow[no-host-sync-in-hot-path] -- host values for the C call's arguments, no device operand
+    return int(t.dtype == torch.bfloat16)
+
+
 def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         *, causal: bool = True, window: int = 1 << 30,
                         is_global: bool = True, q_offset: int = 0,
@@ -163,15 +177,15 @@ def flash_attention_fwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return (out, lse) if return_lse else out
     stream = torch.cuda.current_stream(dev).cuda_stream
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, Sq,
-            Skv, H, KH, D, int(bool(causal)), int(window),
-            int(bool(is_global)), int(q_offset), 1.0 / math.sqrt(D))
+            Skv, H, KH, D, *_c_ints(causal, window, is_global, q_offset),
+            1.0 / math.sqrt(D))
     lse_ptr = None if lse is None else lse.data_ptr()
     kind = route(q, k, v)
     if kind == "tensor_core":
         rc = _lib().flash_attention_fwd_tc(*args, lse_ptr, stream)
     else:
-        rc = _lib().flash_attention_fwd(
-            *args, int(q.dtype == torch.bfloat16), lse_ptr, stream)
+        rc = _lib().flash_attention_fwd(*args, _bf16_flag(q), lse_ptr,
+                                        stream)
     _raise_on(rc, f"flash_attention_fwd ({kind})")
     LAUNCHES["flash_attention_fwd"] += 1
     ROUTES[kind] += 1
@@ -229,13 +243,12 @@ def _launch_bwd(kind, q, k, v, out, lse, dout, *, causal, window,
     args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             dk.data_ptr(), dv.data_ptr(), B, Sq, Skv, H, KH, D,
-            int(bool(causal)), int(window), int(bool(is_global)),
-            int(q_offset), 1.0 / math.sqrt(D))
+            *_c_ints(causal, window, is_global, q_offset),
+            1.0 / math.sqrt(D))
     if kind == "tensor_core":
         rc = _bwd_lib().flash_attention_bwd_tc(*args, stream)
     else:
-        rc = _bwd_lib().flash_attention_bwd(
-            *args, int(q.dtype == torch.bfloat16), stream)
+        rc = _bwd_lib().flash_attention_bwd(*args, _bf16_flag(q), stream)
     _raise_on(rc, f"flash_attention_bwd ({kind})")
     LAUNCHES["flash_attention_bwd"] += 1
     BWD_ROUTES[kind] += 1

@@ -166,6 +166,7 @@ def bwd_dx_plan(idx: torch.Tensor, n_src: int) -> BwdDxPlan:
     lib = _lib()
     temp = _PLAN_BYTES.get(E)
     if temp is None:
+        # analysis: allow[no-host-sync-in-hot-path] -- a host integer from the C side's size query, no device operand
         temp = _PLAN_BYTES[E] = int(lib.gather_agg_bwd_dx_plan_bytes(E))
     # one buffer: the sort's scratch (256-byte aligned), keys, order, the
     # edge ids it sorts, row_ptr
@@ -269,7 +270,11 @@ def gather_agg_bwd_dx_sorted(idx: torch.Tensor, w: Optional[torch.Tensor],
     dev = _device_of(g)
     flat = idx.reshape(-1)
     if dev.type == "cpu":
-        if flat.numel() > 1 and bool((flat[1:] < flat[:-1]).any()):
+        # the order check reads the CPU tensor's memory in place (the
+        # card's kernel traps instead)
+        # analysis: allow[no-host-sync-in-hot-path] -- a CPU tensor viewed as numpy: host memory, no device involved
+        a = flat.numpy()
+        if a.size > 1 and (a[1:] < a[:-1]).any():
             raise ValueError("gather_agg_bwd_dx_sorted: idx is not "
                              "non-decreasing")
         return gather_agg_bwd_dx_ref(idx, w, g, n_src)

@@ -81,10 +81,12 @@ def update(grads, state: Dict, params, *, lr, b1=0.9, b2=0.999, eps=1e-8,
     the old values."""
     count = state["count"] + 1
     c = count.to(torch.float32)
-    bc1 = 1.0 - torch.pow(torch.tensor(b1, dtype=torch.float32,
-                                       device=c.device), c)
-    bc2 = 1.0 - torch.pow(torch.tensor(b2, dtype=torch.float32,
-                                       device=c.device), c)
+    # the float32 bases are filled on the device: `torch.tensor(b1,
+    # device=...)` would be a blocking host-to-device copy every step
+    bc1 = 1.0 - torch.pow(torch.full((), b1, dtype=torch.float32,
+                                     device=c.device), c)
+    bc2 = 1.0 - torch.pow(torch.full((), b2, dtype=torch.float32,
+                                     device=c.device), c)
     new_p: List[torch.Tensor] = []
     new_m: List[torch.Tensor] = []
     new_v: List[torch.Tensor] = []

@@ -22,7 +22,9 @@ in int64, masked to 32 bits at every step (`core.hash32`).
 
 The static layout (community-sorted ids, block boundaries) is built ONCE
 per (graph, policy) in `OrderSpec`; per epoch only the two words change,
-and they ride into the device code as Python ints, not as a transfer.
+and they ride into the device code as one (2,) int64 tensor
+(`core.hash32.word_tensor`: one copy that does not wait), so every
+epoch's program issues the same ops.
 labor's roots are rand's whole-set permutation; clustergcn lists the
 train roots by hash-shuffled community union.
 """
@@ -37,6 +39,7 @@ import torch
 from repro_torch.batching.order import (SALT_BLOCK, SALT_ELEM, SALT_PERM,
                                         community_groups, epoch_words)
 from repro_torch.core.hash32 import hash_u32 as _hash_u32
+from repro_torch.core.hash32 import word_tensor
 from repro_torch.devices import DeviceLike, resolve_device
 
 
@@ -159,9 +162,11 @@ class OrderSpec:
 
 def device_epoch_order(spec: OrderSpec, words) -> torch.Tensor:
     """(T,) int32 root ids for one epoch, on the spec's device. `words` is
-    `epoch_words_for(seed, epoch)` (two integers; no transfer)."""
+    `epoch_words_for(seed, epoch)` (two integers, copied to the device
+    once without a wait) or their (2,) int64 tensor there."""
     if spec.kind == "norand":
         return spec.ids
+    words = word_tensor(words, spec.ids.device)
     if spec.kind == "rand":
         return _order_perm(words, spec.ids)
     if spec.kind == "comm_rand":

@@ -148,6 +148,7 @@ class AsyncBatchStream(BatchStream):
 
     def _produce_loop(self, epoch: int, pos: int, gen: int, q) -> None:
         while not self._stop.is_set() and gen == self._gen:
+            # analysis: allow[no-wall-clock] -- watchdog heartbeat: liveness only, never influences delivered batch data
             self._beat = time.monotonic()
             if self.num_batches(epoch) == 0:
                 return          # the consumer raises; nothing to build
@@ -170,6 +171,7 @@ class AsyncBatchStream(BatchStream):
             with obs_trace.span("queue_put_wait", cat="wait", epoch=epoch,
                                 pos=pos):
                 while gen == self._gen and not self._stop.is_set():
+                    # analysis: allow[no-wall-clock] -- watchdog heartbeat: liveness only, never influences delivered batch data
                     self._beat = time.monotonic()   # full queue: healthy
                     try:
                         q.put((epoch, pos, batch, ev), timeout=_POLL_S)
@@ -185,6 +187,7 @@ class AsyncBatchStream(BatchStream):
             self._stale.append(self._thread)
         self._queue = queue.Queue(maxsize=self.depth)
         self._next_out = (epoch, pos)
+        # analysis: allow[no-wall-clock] -- watchdog grace period on restart; batches remain pure in (epoch, pos)
         self._beat = time.monotonic()   # fresh grace period
         ready = None
         if self._side is not None:
@@ -199,6 +202,7 @@ class AsyncBatchStream(BatchStream):
     # -- consumer + watchdog ------------------------------------------------
     def _stalled(self) -> bool:
         return (self.stall_timeout_s is not None and self._beat is not None
+                # analysis: allow[no-wall-clock] -- stall detection compares heartbeats; recovery replays the same cursor bit-exactly
                 and time.monotonic() - self._beat > self.stall_timeout_s)
 
     def _recover(self, epoch: int, pos: int, reason: BaseException) -> None:

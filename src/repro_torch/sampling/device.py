@@ -260,6 +260,7 @@ class LaborSampler:
                 "DeviceGraph.max_degree is unset; rebuild the device graph "
                 "with DeviceGraph.from_graph for the LABOR sampler")
         N = g.num_nodes
+        # analysis: allow[no-host-sync-in-hot-path] -- g.max_degree is static Python metadata on DeviceGraph, not a device value
         D = max(int(g.max_degree), fanout, 1)
         valid, safe, start, deg = _row_meta(g, nodes)
         j = torch.arange(D, dtype=torch.int32, device=nodes.device)

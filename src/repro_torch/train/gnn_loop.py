@@ -45,7 +45,14 @@ Evaluation reads through the cache but never feeds the counters.
 Host reads: once per `train_steps` call or epoch (`_drain`: the losses,
 the cache counters and the guard's flags in one copy). The only others
 are the guard's skip-counter read, the refill's admitted count and
-integrity bool, and a checkpoint's copy to the host.
+integrity bool, a checkpoint's copy to the host (or from it, on resume
+and rollback), and one read at the end of each `evaluate`. Each sits in
+an `analysis.sync_gate.allowed_sync` window that names it ("drain",
+"guard", "refill", "integrity", "checkpoint", "eval"), and
+`promised_reads(n)` counts the windows `train_steps(n)` will open; under
+`sync_gate` (CUDA's sync debug mode at "error") any other synchronizing
+call raises. The batches reach the device without a wait: the sync
+stream copies each epoch's root order once and slices it on the device.
 
 Pipeline: `pipeline="sync"` (the default) builds each batch on the
 trainer's thread from the numpy epoch order; `pipeline="async"` takes
@@ -78,6 +85,7 @@ import numpy as np
 import torch
 
 from repro_torch import featcache, sampling
+from repro_torch.analysis.sync_gate import allowed_sync
 from repro_torch.batching import (BatchStream, CapsCalibrator, Cursor,
                                   as_policy, make_policy)
 from repro_torch.batching.stream import (SALT_DROPOUT, cursor_generator,
@@ -246,10 +254,11 @@ class GNNTrainer:
     def save(self) -> None:
         if not self.ckpt_dir:
             return
-        ckpt.save(self.ckpt_dir, self.global_step, self._state(),
-                  extra={"cursor": self.stream.cursor.state(),
-                         "fit": self._fit_state,
-                         "cache_epoch": self._cache_epoch})
+        with allowed_sync("checkpoint"):
+            ckpt.save(self.ckpt_dir, self.global_step, self._state(),
+                      extra={"cursor": self.stream.cursor.state(),
+                             "fit": self._fit_state,
+                             "cache_epoch": self._cache_epoch})
 
     def _on_corrupt_ckpt(self, step: int, err: Exception) -> None:
         """`restore_latest` fallback hook: meter each corrupt/partial
@@ -279,8 +288,9 @@ class GNNTrainer:
                                           self.stream.cursor.epoch))
 
     def _restore_latest(self):
-        return ckpt.restore_latest(self.ckpt_dir, self._state(),
-                                   on_corrupt=self._on_corrupt_ckpt)
+        with allowed_sync("checkpoint"):
+            return ckpt.restore_latest(self.ckpt_dir, self._state(),
+                                       on_corrupt=self._on_corrupt_ckpt)
 
     def _try_resume(self) -> None:
         step, tree, extra = self._restore_latest()
@@ -367,8 +377,7 @@ class GNNTrainer:
             # a checkpoint due at this step forces a guard read first: never
             # checkpoint mid-skip-burst, or a later rollback to that
             # checkpoint would lose the skipped batches for good
-            due_ckpt = bool(self.ckpt_dir and self.ckpt_every and
-                            self.global_step % self.ckpt_every == 0)
+            due_ckpt = self._ckpt_due(self.global_step)
             rolled = self._guard_check(force=due_ckpt)
             # refill BEFORE any checkpoint at this step: a boundary
             # checkpoint then carries the post-refill state and the advanced
@@ -436,7 +445,8 @@ class GNNTrainer:
                                     for t in words]).view(torch.float32))
         if not parts:
             return np.zeros(0, np.float32), np.zeros(0, np.int32)
-        host = torch.cat(parts).cpu().numpy()
+        with allowed_sync("drain"):
+            host = torch.cat(parts).cpu().numpy()
         rest = host[n:].view(np.int32)
         for (_, step), flag in zip(oks, rest[k:k + len(oks)]):
             if not flag:
@@ -460,9 +470,12 @@ class GNNTrainer:
             return False
         if skips is None:
             with obs_trace.span("guard_sync", cat="sync",
-                                step=self.global_step):
+                                step=self.global_step), \
+                    allowed_sync("guard"):
+                # analysis: allow[no-host-sync-in-hot-path] -- THE one guard read, amortized by the check_every cadence (window "guard")
                 self._skips_host = int(self.skips)
         else:                           # read by a drain already
+            # analysis: allow[no-host-sync-in-hot-path] -- a host integer the drain already read
             self._skips_host = int(skips)
         if self._skips_host <= g.max_consecutive_skips:
             return False
@@ -511,6 +524,49 @@ class GNNTrainer:
         self._pending_stats = []
         self._pending_ok = []
 
+    def _ckpt_due(self, step: int) -> bool:
+        return bool(self.ckpt_dir and self.ckpt_every and
+                    step % self.ckpt_every == 0)
+
+    def promised_reads(self, n: int) -> Dict[str, int]:
+        """The host reads `train_steps(n)` promises from the trainer's
+        present state, by window (the "Host reads" paragraph; windows with
+        no read left out): one drain; with a guard, a read at each step
+        whose count is a multiple of `check_every` or that is due a
+        checkpoint; with the dynamic cache, the refill's admitted count
+        and integrity bool at each epoch boundary the steps cross; and the
+        copy of each checkpoint due. Assumes every step is finite (a
+        rollback reads more)."""
+        reads = {"drain": 1}
+
+        def add(name):
+            reads[name] = reads.get(name, 0) + 1
+
+        c = self.stream.cursor
+        epoch, pos = c.epoch, c.pos
+        if pos >= self.stream.num_batches(epoch):
+            epoch, pos = epoch + 1, 0
+        cache_epoch = self._cache_epoch
+        dynamic_cache = isinstance(self.cache, DynamicCacheState)
+        g = self.guard
+        for step in range(self.global_step + 1, self.global_step + n + 1):
+            if pos >= self.stream.num_batches(epoch):
+                epoch, pos = epoch + 1, 0
+            pos += 1
+            due = self._ckpt_due(step)
+            if g is not None and (due or (g.check_every > 0 and
+                                          step % g.check_every == 0)):
+                add("guard")
+            at_end = pos >= self.stream.num_batches(epoch)
+            if dynamic_cache and (epoch > cache_epoch or
+                                  (epoch == cache_epoch and at_end)):
+                add("refill")
+                add("integrity")
+                cache_epoch = epoch + 1 if at_end else epoch
+            if due:
+                add("checkpoint")
+        return reads
+
     # -- loops --------------------------------------------------------------
     def _guard_ints(self) -> List[torch.Tensor]:
         return [self.skips] if self.guard is not None else []
@@ -545,7 +601,9 @@ class GNNTrainer:
                     "cache_hit": 0.0, "cache_refill": 0, "straggler": 0.0}
         ep = self.cache_meter.note_epoch(mark) if self.cache is not None \
             else {"hit_rate": 0.0, "refills": 0}
+        # analysis: allow[no-host-sync-in-hot-path] -- host numpy, reduced after the epoch's one drain
         return {"loss": float(np.mean(loss_h)), "time": dt,
+                # analysis: allow[no-host-sync-in-hot-path] -- host numpy, reduced after the epoch's one drain
                 "uniq": float(np.mean(ints_h[:len(uniq)])),
                 "cache_hit": ep["hit_rate"], "cache_refill": ep["refills"],
                 "straggler": self.straggler.fraction_since(smark)}
@@ -560,6 +618,7 @@ class GNNTrainer:
         self._dev_timer.flush("train_steps")
         if self.guard is not None:
             self._guard_check(force=True, skips=ints_h[-1])
+        # analysis: allow[no-host-sync-in-hot-path] -- host numpy the n-step drain already read
         return loss_h.tolist()
 
     def evaluate(self, ids: np.ndarray) -> Dict:
@@ -584,7 +643,9 @@ class GNNTrainer:
             tot_l += gnn_softmax_ce(logits, batch.labels, m) * n
             tot_a += accuracy(logits, batch.labels, m) * n
             tot_n += n
-        l, a, n = torch.stack([tot_l, tot_a, tot_n]).tolist()
+        with allowed_sync("eval"):
+            # analysis: allow[no-host-sync-in-hot-path] -- the pass's one read, after its last batch (window "eval")
+            l, a, n = torch.stack([tot_l, tot_a, tot_n]).tolist()
         return {"loss": l / max(n, 1), "acc": a / max(n, 1)}
 
     def _snapshot(self) -> List[torch.Tensor]:

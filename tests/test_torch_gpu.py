@@ -1793,3 +1793,70 @@ def test_chaos_soak_on_the_card(cuda):
     for res in soak.run_all(g, device=cuda):
         assert res.fired >= 1 and res.ok, res.summary()
         assert res.meter[soak.EXPECT_METER[res.scenario]] >= 1
+
+
+# ---------------------------------------------------------------------------
+# the sync gate (repro_torch.analysis)
+# ---------------------------------------------------------------------------
+def _gate_trainer(tiny, **kw):
+    from repro_torch.analysis import op_audit
+    return op_audit.make_trainer(tiny, "cuda", **kw)
+
+
+def test_planted_item_in_a_gated_train_step_raises(cuda):
+    """A `.item()` inside the step is a sync the gate refuses; the same
+    run without it passes, and the gate restores the debug mode."""
+    from repro_torch.analysis.sync_gate import sync_gate
+    tiny = prepare(synthetic.load("tiny"), oracle=True)
+    tr = _gate_trainer(tiny)
+    tr.train_steps(1)
+    step = tr.train_step
+
+    def planted(*a, **k):
+        loss, ok = step(*a, **k)
+        loss.item()
+        return loss, ok
+    tr.train_step = planted
+    mode = torch.cuda.get_sync_debug_mode()
+    with pytest.raises(RuntimeError, match="synchronizing"):
+        with sync_gate():
+            tr.train_steps(2)
+    assert torch.cuda.get_sync_debug_mode() == mode
+    tr.train_step = step
+    with sync_gate():
+        tr.train_steps(2)
+
+
+@pytest.mark.parametrize("pipeline", ["sync", "async"])
+def test_gated_sage_steps_pass_with_the_promised_reads(cuda, tmp_path,
+                                                       pipeline):
+    """The real SAGE step with the dynamic cache, a guard read every 3
+    steps and a checkpoint every 4 runs across an epoch boundary under
+    the gate; the windows it opened are the docstring's, as
+    `promised_reads` counts them, and the losses equal an ungated run's
+    bit for bit."""
+    from repro_torch.analysis.sync_gate import sync_gate
+    from repro_torch.batching import Cursor
+    from repro_torch.resilience.guard import GuardConfig
+    tiny = prepare(synthetic.load("tiny"), oracle=True)
+    losses = []
+    for gated in (False, True):
+        tr = _gate_trainer(tiny, ckpt_dir=str(tmp_path / f"ck{gated}"),
+                           ckpt_every=4, pipeline=pipeline)
+        tr.guard = GuardConfig(check_every=3)
+        nb = tr.stream.num_batches()
+        tr.stream.cursor = Cursor(0, nb - 4)
+        promised = tr.promised_reads(8)
+        assert promised == {"drain": 1, "guard": 4, "refill": 1,
+                            "integrity": 1, "checkpoint": 2}
+        try:
+            if gated:
+                with sync_gate() as gate:
+                    losses.append(tr.train_steps(8))
+                assert gate.counts() == promised
+            else:
+                losses.append(tr.train_steps(8))
+        finally:
+            if pipeline == "async":
+                tr.stream.close()
+    assert losses[0] == losses[1]

@@ -50,7 +50,7 @@ def test_port_modules_import_neither_jax_nor_repro():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     n_modules = int(out.stdout.split()[0])
-    assert n_modules >= 93          # every slice module was imported
+    assert n_modules >= 100         # every slice module was imported
 
 
 _EACH_FIRST = r"""
@@ -73,7 +73,7 @@ def test_each_port_module_imports_first():
     out = subprocess.run([sys.executable, "-c", _EACH_FIRST], env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.split()[0]) >= 93
+    assert int(out.stdout.split()[0]) >= 100
 
 
 # the async pipeline and observability slice's modules
@@ -96,6 +96,12 @@ SLICE16 = ["repro_torch.data", "repro_torch.data.pipeline",
            "repro_torch.optim.compression", "repro_torch.resilience.soak",
            "repro_torch.train.lm_loop"]
 
+# the analysis gate's modules
+SLICE18 = ["repro_torch.analysis", "repro_torch.analysis.__main__",
+           "repro_torch.analysis.config", "repro_torch.analysis.lint",
+           "repro_torch.analysis.op_audit", "repro_torch.analysis.rules",
+           "repro_torch.analysis.sync_gate"]
+
 _FRESH = r"""
 import importlib, sys
 importlib.import_module(sys.argv[1])
@@ -105,7 +111,7 @@ assert not bad, bad
 """
 
 
-@pytest.mark.parametrize("name", SLICE13 + SLICE15 + SLICE16)
+@pytest.mark.parametrize("name", SLICE13 + SLICE15 + SLICE16 + SLICE18)
 def test_slice_module_imports_first_without_jax(name):
     """Each new module, imported first in a fresh interpreter, loads
     neither jax nor repro (nor triton)."""
