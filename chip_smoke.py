@@ -309,6 +309,37 @@ run, exit code != 0):
               the parent's AdamW (`torch.tensor(b, device=)` bases), a
               gated GraphSAGE step raises; 10 ungated steps of parent and
               change in turns, twice each: losses bit-identical, median ms
+  14. MoE training, after phase 12: qwen2-moe-a2.7b at full width (d_model
+              2048, 16 heads over 16 KV heads of 128, 60 experts top-4 of
+              d_ff 1408 plus the 5632-wide shared expert, vocab 152064)
+              with its depth cut from 24 layers to 2 (1,763,977,216
+              float32 parameters; at about 36 bytes a parameter in
+              training, 24 layers would need about 500 GB), float32
+              masters, bf16 compute, remat, chunked CE, clip, AdamW lr
+              1e-3, batch 4 x 4096 of `SyntheticTokens` (4 dispatch groups
+              of capacity 344 a layer): (a) after (b)'s first 6 steps, one
+              more step with the three backward kernels spied, and each of layer 0's five backward
+              launches (the gated backward, dx of the down product and of
+              both gated weights, dw of the down weight and of both gated
+              weights) at those inputs: route (mma_sync), max error
+              against its plain version within 2^-7 x max |plain|, a
+              bit-identical relaunch, ms beside the plain version,
+              `torch.bmm` of the same products and the bound of the
+              occupied rows; the same launches in float32 on the simt
+              route within 1e-5 x max |plain|; (b) 6 steps, then the same
+              6 from a second draw of the same seed: finite losses, the
+              relaunch bit-identical, exact launches a step (8 moe_gmm_fwd
+              all tensor_core, 2 gated backward, 4 dx, 4 dw on mma_sync, 4
+              flash forwards, 2 backwards, 1 bwd_dx; every other 0), step
+              ms, tokens/s, peak GiB, the parameter count; a profiled step
+              (kernels by device time, the idle share, the time in expert
+              products forward and backward, flash, matmuls, AdamW and the
+              rest), with no `indexing_backward`, `index_add_` or
+              accumulating scatter kernel (the gathers and non-accumulating
+              scatters that run are logged); (c) reduced qwen2-moe in
+              float32, 5 steps on the card and on the CPU from the same
+              parameters and batches: losses, aux and grad norms within
+              rtol 1e-4
 
 It prints the `{"kernels": [...]}` line before the last, and as the last
 line `{"ok": true, "device": {...}}`. Without a CUDA device, or outside a
@@ -317,6 +348,7 @@ checkout of the repository, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import faulthandler
 import json
 import math
 import statistics
@@ -370,11 +402,30 @@ SERVE_PARAMS = {"gemma3-1b": 999_826_048, MOE: 14_316_308_480,
 # float32 masters, AdamW moments and remat: 4 x 4096, 6 steps
 TRAIN = "gemma3-1b_train"
 TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 4, 4096, 6
+# MoE training: qwen2-moe-a2.7b at full width with its depth cut from 24
+# layers to 2 (one card holds the float32 masters, gradients and AdamW
+# moments of 2), at phase 12's batch and steps
+MOE_TRAIN = f"{MOE}_train"
+MOE_TRAIN_LAYERS, MOE_TRAIN_PARAMS = 2, 1_763_977_216
+MOE_WIDTHS = (2048, 1408)            # d_model, expert d_ff
+# launches a step of the 2-layer run: per layer the gated and the down
+# product, each twice under remat, and their backward's five launches;
+# the attention's flash kernels and the token embedding's bwd_dx
+MOE_TRAIN_LAUNCHES = {"moe_gmm_fwd": 8, "moe_gmm_gated_bwd": 2,
+                      "moe_gmm_bwd_dx": 4, "moe_gmm_bwd_dw": 4,
+                      "flash_attention_fwd": 4, "flash_attention_bwd": 2,
+                      "gather_agg_bwd_dx": 1}
+GMM_BWD_KERNELS = ("moe_gmm_bwd_dx", "moe_gmm_bwd_dw", "moe_gmm_gated_bwd")
+# CUDA kernels of PyTorch's index backward, index_add_ and accumulating
+# scatters (scatter_add_'s functor is ReduceAdd): the MoE step runs none
+MOE_ATOMIC = ("indexing_backward", "indexFunc", "scatter_add", "ReduceAdd")
 # what one reading of each path sums over
 PER = {**{run: "train step" for run in RUNS}, SERVE: "prefill",
        MOE_SERVE: "prefill", MOE_DECODE: "decode step",
        RWKV_SERVE: "prefill", "graphsage_dynamic": "epoch-boundary refill",
-       TRAIN: "train step"}
+       TRAIN: "train step",
+       MOE_TRAIN: "train step (its first, from the fresh router; every "
+                  "launch of both layers timed at its own inputs)"}
 DEVICE = "cuda"
 # the CUDA names of the flash kernels: the bf16 prefills must spend their
 # attention time in the tensor-core one and never in the SIMT one
@@ -383,6 +434,8 @@ FLASH_TC, FLASH_SIMT = "flash_fwd_tc_kernel", "flash_fwd_kernel"
 # the tensor-core one only, its decode step the mma.sync one only
 GMM_TC, GMM_MMA, GMM_SIMT = "gmm_tc_kernel", "gmm_mma_kernel", \
     "gmm_f32_kernel"
+# ... and of its backward's routes (bf16 on mma_sync, float32 on simt)
+GMM_BWD, GMM_BWD_SIMT = "bwd_mma_kernel", "bwd_f32_kernel"
 # ... and of the flash backward's routes: the bf16 train step must spend
 # its backward time in the tensor-core kernels and never in the SIMT ones
 BWD_TC = ("dkdv_tc_kernel", "dq_tc_kernel")
@@ -400,6 +453,9 @@ REPLACES = {
     "flash_attention_bwd": "src/repro/models/lm/attention.py:107 "
                            "(_flash_bwd: a jnp custom VJP, not a Pallas "
                            "kernel)",
+    **{k: "src/repro/models/lm/moe.py:125-127 (the expert einsums, "
+          "differentiated by JAX: no Pallas backward)"
+       for k in ("moe_gmm_bwd_dx", "moe_gmm_bwd_dw", "moe_gmm_gated_bwd")},
 }
 SOURCES = {"gather_agg_fwd": "src/repro_torch/csrc/gather_agg.cu",
            "gather_agg_bwd_dx": "src/repro_torch/csrc/gather_agg.cu",
@@ -410,7 +466,10 @@ SOURCES = {"gather_agg_fwd": "src/repro_torch/csrc/gather_agg.cu",
            "wkv6_fwd": "src/repro_torch/csrc/wkv6.cu",
            "clock_refill": "src/repro_torch/csrc/clock_refill.cu",
            "flash_attention_bwd":
-               "src/repro_torch/csrc/flash_attention_bwd.cu"}
+               "src/repro_torch/csrc/flash_attention_bwd.cu",
+           **{k: "src/repro_torch/csrc/moe_gmm_bwd.cu"
+              for k in ("moe_gmm_bwd_dx", "moe_gmm_bwd_dw",
+                        "moe_gmm_gated_bwd")}}
 
 
 def log(msg: str) -> None:
@@ -1052,7 +1111,8 @@ def phase_train(torch, graph, trainer, name, reference=None):
             "gather_agg_bwd_dw": dw_per_step * steps,
             "gather_cached_fwd": steps + n_eval if cached else 0,
             "flash_attention_fwd": 0, "flash_attention_bwd": 0,
-            "moe_gmm_fwd": 0, "wkv6_fwd": 0, "clock_refill": 0}
+            "moe_gmm_fwd": 0, "moe_gmm_bwd_dx": 0, "moe_gmm_bwd_dw": 0,
+            "moe_gmm_gated_bwd": 0, "wkv6_fwd": 0, "clock_refill": 0}
     check(launches == want, f"{name}: launches {launches} != {want}")
     from repro_torch.kernels.gather_agg import kernel
     plans = kernel.PLANS["gather_agg_bwd_dx"]
@@ -4209,7 +4269,542 @@ def phase_lm(torch, runs, readings):
         f"{time.perf_counter() - t0:.1f} s")
 
 
+# ---------------------------------------------------------------------------
+# phase 14: MoE training (qwen2-moe-a2.7b at full width, 2 layers)
+# ---------------------------------------------------------------------------
+# the (E, a, b) weights among each backward entry point's arguments, by
+# position where present (the others are (E, C, w) buffers, read by row)
+GMM_BWD_WEIGHTS = {"moe_gmm_bwd_dx": (1, 3), "moe_gmm_bwd_dw": (),
+                   "moe_gmm_gated_bwd": (1, 2)}
+# one MoE layer's backward calls, in order
+GMM_BWD_CALLS = (("moe_gmm_bwd_dx", "dh = dog wd^T"),
+                 ("moe_gmm_bwd_dw", "dwd = h^T dog"),
+                 ("moe_gmm_gated_bwd", "(dg, du) from (x, wg, wu, dh)"),
+                 ("moe_gmm_bwd_dx", "dxe = dg wg^T + du wu^T"),
+                 ("moe_gmm_bwd_dw", "(dwg, dwu) = x^T (dg, du)"))
+
+
+def _gmm_bwd_bound(torch, bufs, weights, outs, rows, n_products, peak):
+    """(ms, by) of one backward launch: each (E, C, w) buffer of `bufs`
+    read at its occupied rows, each (E, a, b) weight of `weights` at the
+    experts holding a row, each output written whole; 2 x occupied rows x
+    d x f operations a product."""
+    R, occ_e = _occupied(torch, rows, bufs[0].shape[1])
+    n_bytes = (sum(t.numel() * t.element_size() for t in outs)
+               + sum(R * t.shape[2] * t.element_size() for t in bufs)
+               + sum(occ_e * t[0].numel() * t.element_size()
+                     for t in weights) + rows.numel() * 4)
+    d, f = MOE_WIDTHS
+    return _bound_ms(n_bytes, 2.0 * R * d * f * n_products, peak)
+
+
+def capture_gmm_bwd(torch, step, params, opt, batch, layer):
+    """One train step, its result dropped, with the three backward entry
+    points spied: the (name, args, keywords) of `layer`'s five calls, in
+    order (GMM_BWD_CALLS); no other layer's buffers outlive the step. The
+    layers' backward passes come in reverse."""
+    from repro_torch.kernels.moe_gmm import kernel
+    real = {n: getattr(kernel, n) for n in GMM_BWD_KERNELS}
+    names, kept = [], []
+    first = len(GMM_BWD_CALLS) * (MOE_TRAIN_LAYERS - 1 - layer)
+
+    def spy(name):
+        def call(*args, **kw):
+            if first <= len(names) < first + len(GMM_BWD_CALLS):
+                kept.append((name, tuple(a.detach() for a in args), kw))
+            names.append(name)
+            return real[name](*args, **kw)
+        return call
+
+    for n in GMM_BWD_KERNELS:
+        setattr(kernel, n, spy(n))
+    try:
+        step(params, opt, batch)
+    finally:
+        for n in GMM_BWD_KERNELS:
+            setattr(kernel, n, real[n])
+    check(names == [n for n, _ in GMM_BWD_CALLS] * MOE_TRAIN_LAYERS,
+          f"{MOE_TRAIN}: backward calls {names}")
+    return kept
+
+
+@contextlib.contextmanager
+def plain_gmm_bwd():
+    """The three backward entry points replaced by their plain versions,
+    on the card: the yardstick of (b)'s full-width gradients and losses
+    (the forward and its kernels unchanged)."""
+    from repro_torch.kernels.moe_gmm import kernel, ref
+    real = {n: getattr(kernel, n) for n in GMM_BWD_KERNELS}
+
+    def dw(x, dy, dy2=None, rows=None):
+        w = ref.moe_gmm_bwd_dw_ref(x, dy, rows)
+        return w if dy2 is None else (w, ref.moe_gmm_bwd_dw_ref(x, dy2, rows))
+    kernel.moe_gmm_bwd_dx = ref.moe_gmm_bwd_dx_ref
+    kernel.moe_gmm_bwd_dw = dw
+    kernel.moe_gmm_gated_bwd = ref.moe_gmm_gated_bwd_ref
+    try:
+        yield
+    finally:
+        for n in GMM_BWD_KERNELS:
+            setattr(kernel, n, real[n])
+
+
+def check_gmm_bwd(torch, label, name, args, rows):
+    """One backward launch at its real inputs: the bf16 launch (mma_sync)
+    and the same inputs in float32 (simt) against the plain version,
+    relaunched, timed beside the plain version, `torch.bmm` of the same
+    products and the bound."""
+    from repro_torch.kernels.moe_gmm import kernel, ref
+    plain = {"moe_gmm_gated_bwd": lambda *a: ref.moe_gmm_gated_bwd_ref(
+                 *a, rows=rows),
+             "moe_gmm_bwd_dx": lambda *a: ref.moe_gmm_bwd_dx_ref(
+                 *a, rows=rows),
+             "moe_gmm_bwd_dw": lambda *a: tuple(
+                 ref.moe_gmm_bwd_dw_ref(a[0], dy, rows) for dy in a[1:])}
+    n_products = {"moe_gmm_gated_bwd": 2, "moe_gmm_bwd_dx": len(args) // 2,
+                  "moe_gmm_bwd_dw": len(args) - 1}[name]
+
+    def library(a):
+        if name == "moe_gmm_bwd_dx":        # dy w^T per pair
+            return [torch.bmm(a[i], a[i + 1].mT) for i in (0, 2)[:len(a) // 2]]
+        if name == "moe_gmm_bwd_dw":        # x^T dy per dy
+            return [torch.bmm(a[0].mT, dy) for dy in a[1:]]
+        return [torch.bmm(a[0], a[1]), torch.bmm(a[0], a[2])]   # g, u
+
+    def as_tuple(t):
+        return t if isinstance(t, tuple) else (t,)
+
+    got = {}
+    for dtype, kind, rel, peak in (
+            (torch.bfloat16, "mma_sync", 2.0 ** -7, BF16_FLOPS_PER_S),
+            (torch.float32, "simt", 1e-5, F32_FLOPS_PER_S)):
+        a = [t.to(dtype) for t in args]
+
+        def fn():
+            return getattr(kernel, name)(*a, rows=rows)
+        routes = dict(kernel.ROUTES)
+        out = as_tuple(fn())
+        check(kernel.ROUTES == dict(routes, **{kind: routes[kind] + 1}),
+              f"{label}: routes {kernel.ROUTES} (was {routes})")
+        check(all(torch.equal(x, y) for x, y in zip(out, as_tuple(fn()))),
+              f"{label} {kind}: differs between launches")
+        want = as_tuple(plain[name](*a))
+        err = max(float((x.float() - w.float()).abs().max())
+                  for x, w in zip(out, want))
+        scale = max(float(w.float().abs().max()) for w in want)
+        check(all(bool(torch.isfinite(x).all()) for x in out),
+              f"{label} {kind}: non-finite")
+        check(err <= rel * scale, f"{label} {kind}: max abs err {err} > "
+              f"{rel:.1e} x {scale:.3e}")
+        weights = GMM_BWD_WEIGHTS[name]
+        b_ms, b_by = _gmm_bwd_bound(
+            torch, [t for i, t in enumerate(a) if i not in weights],
+            [a[i] for i in weights if i < len(a)], out, rows, n_products,
+            peak)
+        r = {"route": kind, "max_abs_err": err, "bound_ms": b_ms,
+             "bound_by": b_by, "ms": cuda_ms(torch, fn),
+             "plain_ms": cuda_ms(torch, lambda: plain[name](*a))}
+        r["library_ms"] = cuda_ms(torch, lambda: library(a)) \
+            if dtype == torch.bfloat16 else None
+        del out, want
+        got[kind] = r
+        R, occ_e = _occupied(torch, rows, a[0].shape[1])
+        log(f"[14 kernels] {name} {label} {str(dtype)[6:]}: "
+            f"{' '.join(str(tuple(t.shape)) for t in a)}  rows {R} of "
+            f"{rows.shape[0] * a[0].shape[1]} occupied, {occ_e} of "
+            f"{rows.shape[0]} experts  route {kind}  "
+            f"max_abs_err {err:.3e} (tol {rel:.1e} x max |plain| "
+            f"{scale:.3e})  bit-identical relaunch True  ms {r['ms']:.4f}  "
+            f"plain_ms {r['plain_ms']:.4f}  library_ms "
+            + (f"{r['library_ms']:.4f} (torch.bmm x{n_products})"
+               if r["library_ms"] is not None else "n/a")
+            + f"  bound_ms {b_ms:.4f} ({b_by}; {b_ms / r['ms']:.1%} of it)")
+        del a
+        torch.cuda.empty_cache()
+    return got
+
+
+def gmm_bwd_readings(torch, point, layers):
+    """(a) at one step: each backward launch of each of `layers` ((label,
+    a thunk giving that layer's five calls, GMM_BWD_CALLS), so that one
+    layer's inputs are held at a time) at its own inputs, and per kernel
+    the sums over those launches. `library_ms` is `torch.bmm` of the
+    products (one call a product: dx's and dw's function, summed over a
+    launch's pairs); the gated backward's epilogue has no PyTorch call,
+    so its `library_ms` is null and the bmm of its two products stands
+    beside it as `bmm_ms`."""
+    per = {}
+    for layer, calls_of in layers:
+        calls = calls_of()
+        with torch.no_grad():
+            for (name, args, kw), (_, label) in zip(calls, GMM_BWD_CALLS):
+                per.setdefault(name, []).append(check_gmm_bwd(
+                    torch, f"{point}, {layer}: {label}", name, args,
+                    kw["rows"]))
+        del calls
+        torch.cuda.empty_cache()
+    out = {}
+    for name, rs in per.items():
+        bf = [r["mma_sync"] for r in rs]
+        out[name] = {
+            **{k: sum(r[k] for r in bf)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
+            "bmm_ms": sum(r["library_ms"] for r in bf),
+            "simt_ms": sum(r["simt"]["ms"] for r in rs),
+            "max_abs_err": max(r[k]["max_abs_err"] for r in rs
+                               for k in r),
+            "bound_by": "/".join(sorted({r["bound_by"] for r in bf})),
+            "route": "mma_sync",
+            "shapes": {f"launch {j}": r for j, r in enumerate(rs)}}
+        if name == "moe_gmm_gated_bwd":
+            out[name]["library_ms"] = None
+        log(f"[14 kernels] {name} {point}, the sum of its {len(rs)} "
+            f"launches over {', '.join(lb for lb, _ in layers)}, each timed "
+            f"at its own inputs: ms {out[name]['ms']:.3f}  plain_ms "
+            f"{out[name]['plain_ms']:.3f}  torch.bmm of its products "
+            f"{out[name]['bmm_ms']:.3f} (library_ms "
+            f"{out[name]['library_ms']})  bound_ms "
+            f"{out[name]['bound_ms']:.3f}  (simt on float32 copies "
+            f"{out[name]['simt_ms']:.3f})")
+    return out
+
+
+def uniform_gmm_bwd_calls(torch, top_k):
+    """One layer's five backward calls at the training step's buffers
+    (E 60, 4 groups of capacity 344, d 2048, f 1408) with every one of
+    the step's 16,384 x top_k assignments kept and spread evenly (273 or
+    274 rows a group, every expert): inputs drawn from a seed, weights
+    LeCun-scaled, buffers and gradients unit-normal and zero past `rows`,
+    as the dispatch and combine leave them."""
+    E, G, Cg = 60, 4, 344
+    d, f = MOE_WIDTHS
+    n, C = TRAIN_BATCH * TRAIN_SEQ * top_k, G * Cg
+    counts = torch.full((E * G,), n // (E * G), dtype=torch.int32)
+    counts[:n % (E * G)] += 1
+    rows = counts.view(E, G).to(DEVICE)
+    live = (torch.arange(C, device=DEVICE) % Cg)[None, :] < \
+        rows.repeat_interleave(Cg, dim=1)
+    gen = torch.Generator(device=DEVICE).manual_seed(33)
+
+    def draw(*shape, scale=1.0, masked=True):
+        t = torch.randn(shape, generator=gen, device=DEVICE) * scale
+        return (t * live[..., None] if masked else t).to(torch.bfloat16)
+    x, h, dog = draw(E, C, d), draw(E, C, f), draw(E, C, d)
+    dh, dg, du = draw(E, C, f), draw(E, C, f), draw(E, C, f)
+    wg, wu = (draw(E, d, f, scale=d ** -0.5, masked=False)
+              for _ in range(2))
+    wd = draw(E, f, d, scale=f ** -0.5, masked=False)
+    kw = {"rows": rows}
+    return [("moe_gmm_bwd_dx", (dog, wd), kw),
+            ("moe_gmm_bwd_dw", (h, dog), kw),
+            ("moe_gmm_gated_bwd", (x, wg, wu, dh), kw),
+            ("moe_gmm_bwd_dx", (dg, wg, du, wu), kw),
+            ("moe_gmm_bwd_dw", (x, dg, du), kw)]
+
+
+def moe_train_profile(torch, cfg, tcfg, step, params, opt, batch, med,
+                      point):
+    """One profiled step: kernels by device time, the idle share of the
+    median step, the time by kind (AdamW's elementwise kernels from its
+    update profiled alone on the step's clipped gradients, taken out of
+    the glue); fails on an atomic scatter kernel."""
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import value_and_grad
+    dev, wall_ms = profile_kernels(
+        torch, lambda: step(params, opt, batch)[2]["loss"].item())
+    busy = sum(t for _, t, _ in dev) / 1e3
+    log(f"[14 profile] {MOE_TRAIN} {point}: one step, kernels {busy:.2f} "
+        f"ms, device idle share {1 - busy / med:.3f} of the median step "
+        f"{med:.2f} ms (profiled wall {wall_ms:.2f} ms)")
+    for key, t, calls in dev[:14]:
+        log(f"[14 profile] {MOE_TRAIN} {point}: {t / 1e3:9.3f} ms  "
+            f"{calls:5d} calls  {key[:100]}")
+    groups = {"expert products forward": (GMM_TC, GMM_MMA, GMM_SIMT),
+              "expert products backward": (GMM_BWD, GMM_BWD_SIMT),
+              "flash": ("flash_fwd", *BWD_TC, "delta_kernel"),
+              "matmuls": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
+              "bwd_dx (embedding)": DX_KERNELS}
+    split, seen = {}, set()
+    for g, names in groups.items():
+        rows = [(k, t) for k, t, _ in dev if k not in seen
+                and any(x in k for x in names)]
+        seen.update(k for k, _ in rows)
+        split[g] = sum(t for _, t in rows) / 1e3
+    grads = adamw.clip_by_global_norm(
+        value_and_grad(cfg, params, batch, tcfg.remat)[2], tcfg.grad_clip)[0]
+    opt_dev, _ = profile_kernels(torch, lambda: adamw.update(
+        grads, opt, params, lr=tcfg.learning_rate,
+        weight_decay=tcfg.weight_decay))
+    del grads
+    split["AdamW (its update alone)"] = sum(t for _, t, _ in opt_dev) / 1e3
+    split["glue (elementwise, reductions, gathers, CE)"] = busy - sum(
+        split.values())
+    log(f"[14 profile] {MOE_TRAIN} {point}: by kind "
+        f"{', '.join(f'{g} {t:.2f} ms' for g, t in split.items())}")
+    bad = [k for k, _, _ in dev if any(x in k for x in MOE_ATOMIC)]
+    check(not bad, f"{MOE_TRAIN}: atomic or indexing-backward kernels ran: "
+          f"{bad}")
+    logged = [(k, c) for k, _, c in dev
+              if any(x in k for x in ("scatter", "index", "gather"))]
+    for k, c in logged:
+        log(f"[14 profile] {MOE_TRAIN} {point}: gather / scatter kernel (no "
+            f"accumulation) {c} calls: {k[:140]}")
+    check(not any(GMM_MMA in k or GMM_SIMT in k for k, _, _ in dev),
+          f"{MOE_TRAIN}: a bf16 forward left the tensor-core route")
+    check(not any(GMM_BWD_SIMT in k for k, _, _ in dev),
+          f"{MOE_TRAIN}: a bf16 backward took the simt kernel")
+    return split
+
+
+def _named_leaves(tree, prefix=""):
+    if isinstance(tree, dict):
+        for k in sorted(tree):
+            yield from _named_leaves(tree[k], f"{prefix}{k}.")
+    elif isinstance(tree, (list, tuple)):
+        for i, t in enumerate(tree):
+            yield from _named_leaves(t, f"{prefix}{i}.")
+    else:
+        yield prefix[:-1], tree
+
+
+def moe_train_grads(torch, cfg, tcfg, params, batch):
+    """(b) one full-width step's gradients through the backward kernels
+    against the same step's through their plain versions on the card
+    (the forward, its kernels included, unchanged): the loss and aux
+    bit-identical, and every leaf, each layer of a stacked one on its own,
+    within 2^-7 x max |plain| of it, the kernels' own tolerance (a float32
+    sum in another order rounds some bf16 gradient one ulp the other way,
+    which carries into the layers below)."""
+    from repro_torch.train.train_step import value_and_grad
+    loss, (_, aux), got = value_and_grad(cfg, params, batch, tcfg.remat)
+    with plain_gmm_bwd():
+        loss_p, (_, aux_p), want = value_and_grad(cfg, params, batch,
+                                                  tcfg.remat)
+    check(torch.equal(loss, loss_p) and torch.equal(aux, aux_p),
+          f"{MOE_TRAIN}: loss {float(loss)} / {float(loss_p)}")
+    worst, moe = {}, []
+    for (name, g), (_, w) in zip(_named_leaves(got), _named_leaves(want)):
+        parts = enumerate(zip(g, w)) if name.startswith("layers.") \
+            else [(None, (g, w))]
+        for layer, (a, b) in parts:
+            key = name if layer is None else f"{name}[{layer}]"
+            scale = float(b.abs().max())
+            err = float((a - b).abs().max())
+            rel = err / scale if scale else err
+            worst[key] = rel
+            check(math.isfinite(err) and err <= 2.0 ** -7 * scale,
+                  f"{MOE_TRAIN}: gradient of {key} max abs err {err} > "
+                  f"2^-7 x {scale}")
+            if name.startswith("layers.moe."):
+                moe.append(f"{key} {err:.3e} of {scale:.3e}")
+    del got, want
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:3]
+    log(f"[14 train] {MOE_TRAIN}: one step's gradients through the "
+        f"backward kernels against their plain versions on the card: loss "
+        f"{float(loss)} and aux {float(aux)} bit-identical; {len(worst)} "
+        f"leaves (each layer on its own) within 2^-7 x max |plain|, worst "
+        f"{', '.join(f'{k} {v:.2e}' for k, v in top)}; MoE leaves max abs "
+        f"err of max |plain|: {'; '.join(moe)}")
+
+
+def phase_moe_train(torch, runs, readings):
+    """Phase 14 (a), (b): qwen2-moe-a2.7b, 2 layers at full width. Returns
+    the seconds of each part."""
+    from repro_torch.configs import LM_CONFIGS, TrainConfig
+    from repro_torch.data.pipeline import LMStream, SyntheticTokens
+    from repro_torch.kernels.flash_attention import kernel as flash_kernel
+    from repro_torch.kernels.moe_gmm import kernel as gmm_kernel
+    from repro_torch.models.lm import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    secs = {}
+    t0 = time.perf_counter()
+    cfg = LM_CONFIGS[MOE].scaled(num_layers=MOE_TRAIN_LAYERS)
+    check((cfg.d_model, cfg.moe_d_ff) == MOE_WIDTHS, f"{cfg.name} widths")
+    corpus = SyntheticTokens(cfg.vocab_size, num_docs=4096,
+                             doc_len=2 * TRAIN_SEQ)
+    it = iter(LMStream(corpus, TRAIN_BATCH, TRAIN_SEQ))
+    data = [{"tokens": torch.from_numpy(t).to(DEVICE),
+             "labels": torch.from_numpy(lb).to(DEVICE)}
+            for t, lb in (next(it) for _ in range(TRAIN_STEPS + 1))]
+    tcfg = TrainConfig(learning_rate=1e-3)
+    step = make_train_step(cfg, tcfg)
+
+    def fresh():
+        params = transformer.init(
+            cfg, torch.Generator(device=DEVICE).manual_seed(0),
+            device=DEVICE)
+        return params, adamw.init(params)
+
+    def run(timed):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        params, opt = fresh()
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t1
+        losses, auxs, ms = [], [], []
+        if timed:
+            torch.cuda.reset_peak_memory_stats()
+            reset_launches()
+        for batch in data[:TRAIN_STEPS]:
+            t1 = time.perf_counter()
+            params, opt, m = step(params, opt, batch)
+            losses.append(float(m["loss"]))
+            ms.append((time.perf_counter() - t1) * 1e3)
+            auxs.append(float(m["aux"]))
+        return params, opt, losses, auxs, ms, init_s
+
+    params, opt, losses, auxs, ms, init_s = run(True)
+    launches = read_launches()
+    routes = dict(gmm_kernel.ROUTES)
+    flash_routes = dict(flash_kernel.BWD_ROUTES)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n = transformer.param_count(params)
+    want = {k: 0 for k in launches}
+    want.update({k: v * TRAIN_STEPS for k, v in MOE_TRAIN_LAUNCHES.items()})
+    check(launches == want, f"{MOE_TRAIN}: launches {launches} != {want}")
+    n_bwd = sum(MOE_TRAIN_LAUNCHES[k] for k in GMM_BWD_KERNELS)
+    check(routes == {"tensor_core": MOE_TRAIN_LAUNCHES["moe_gmm_fwd"]
+                     * TRAIN_STEPS, "mma_sync": n_bwd * TRAIN_STEPS,
+                     "simt": 0}, f"{MOE_TRAIN}: moe_gmm routes {routes}")
+    check(flash_routes == {"tensor_core": MOE_TRAIN_LAYERS * TRAIN_STEPS,
+                           "simt": 0},
+          f"{MOE_TRAIN}: flash backward routes {flash_routes}")
+    check(all(map(math.isfinite, losses + auxs)), f"{MOE_TRAIN}: losses "
+          f"{losses} aux {auxs}")
+    check(n == MOE_TRAIN_PARAMS, f"{MOE_TRAIN}: {n} params")
+    med = statistics.median(ms)
+    log(f"[14 train] {MOE_TRAIN}: {cfg.num_layers} of 24 layers, d_model "
+        f"{cfg.d_model}, heads {cfg.num_heads} over {cfg.num_kv_heads} KV of "
+        f"{cfg.head_dim}, {cfg.num_experts} experts top-{cfg.top_k} of "
+        f"d_ff {cfg.moe_d_ff}, shared {cfg.shared_d_ff}, vocab "
+        f"{cfg.padded_vocab}: {n} float32 params (init {init_s:.2f} s on "
+        f"the card); batch {TRAIN_BATCH} x {TRAIN_SEQ}, {cfg.dtype} compute, "
+        f"remat, chunked CE, clip {tcfg.grad_clip}, AdamW lr "
+        f"{tcfg.learning_rate} wd {tcfg.weight_decay}")
+    log(f"[14 train] {MOE_TRAIN}: losses {losses}; aux {auxs}; step ms "
+        f"(host clock through the loss's read) {[round(x, 2) for x in ms]},"
+        f" median {med:.2f} (steps 2-6: {statistics.median(ms[1:]):.2f}); "
+        f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} tokens/s; peak "
+        f"{peak:.2f} GiB; launches a step "
+        f"{ {k: v / TRAIN_STEPS for k, v in launches.items() if v} }, "
+        f"others 0; moe_gmm routes {routes}")
+    secs["training"] = time.perf_counter() - t0
+
+    # (a) and the profile at two steps, each profiled step the one whose
+    # launches were timed: the one after the timed run's 6, and the first,
+    # from the fresh router; then one layer's launches at the occupancy no
+    # step of this data reaches, every assignment kept
+    split, got = {}, {}
+    for point, batch in (("after 6 steps", data[TRAIN_STEPS]),
+                         ("first step", data[0])):
+        if point == "first step":
+            del params, opt
+            torch.cuda.empty_cache()
+            params, opt = fresh()
+        t1 = time.perf_counter()
+        got[point] = gmm_bwd_readings(torch, point, [
+            (f"layer {i}", lambda i=i: capture_gmm_bwd(
+                torch, step, params, opt, batch, i))
+            for i in range(MOE_TRAIN_LAYERS)])
+        torch.cuda.empty_cache()
+        secs[f"kernels, {point}"] = time.perf_counter() - t1
+        split[point] = moe_train_profile(torch, cfg, tcfg, step, params, opt,
+                                         batch, med, point)
+        alone = sum(got[point][k]["ms"] for k in GMM_BWD_KERNELS)
+        log(f"[14 profile] {MOE_TRAIN} {point}: the expert products' "
+            f"backward takes {split[point]['expert products backward']:.3f}"
+            f" ms of device time in the step, and {alone:.3f} ms as the "
+            f"same {n_bwd} launches at the same inputs timed alone (each "
+            f"10 calls in a row, median of 5)")
+    t1 = time.perf_counter()
+    del opt
+    torch.cuda.empty_cache()
+    moe_train_grads(torch, cfg, tcfg, params, data[0])
+    del params
+    torch.cuda.empty_cache()
+    t2 = time.perf_counter()
+    uniform = gmm_bwd_readings(
+        torch, "uniform routing (synthetic)",
+        [("one layer", lambda: uniform_gmm_bwd_calls(torch, cfg.top_k))])
+    torch.cuda.empty_cache()
+    secs["kernels, uniform routing"] = time.perf_counter() - t2
+    readings[MOE_TRAIN] = got["first step"]
+    for name in GMM_BWD_KERNELS:
+        for key, r in (("after_6_steps", got["after 6 steps"]),
+                       ("uniform_routing_one_layer", uniform)):
+            readings[MOE_TRAIN][name][key] = {
+                k: v for k, v in r[name].items() if k != "shapes"}
+    readings[MOE_TRAIN]["profile_ms"] = split
+    again = run(False)
+    check(again[2] == losses and again[3] == auxs,
+          f"{MOE_TRAIN}: relaunch losses {again[2]} != {losses}")
+    del again
+    torch.cuda.empty_cache()
+    log(f"[14 train] {MOE_TRAIN}: a second draw from the same seed repeats "
+        f"the {TRAIN_STEPS} losses and aux losses bit for bit")
+    with plain_gmm_bwd():
+        plain = run(False)
+    check(plain[2][0] == losses[0], f"{MOE_TRAIN}: first loss "
+          f"{plain[2][0]} with the plain backward != {losses[0]}")
+    log(f"[14 train] {MOE_TRAIN}: the same {TRAIN_STEPS} steps with the "
+        f"backward kernels replaced by their plain versions on the card: "
+        f"losses {plain[2]}; aux {plain[3]} (the kernels': {losses}; "
+        f"{auxs})")
+    del plain
+    torch.cuda.empty_cache()
+    secs["gradients, relaunch, plain-backward run"] = \
+        time.perf_counter() - t1 - secs["kernels, uniform routing"]
+    runs[MOE_TRAIN] = launches
+    return secs
+
+
+def phase_moe_small(torch):
+    """(c): reduced qwen2-moe in float32, 5 steps on the card and on the
+    CPU from the same parameters and batches."""
+    from repro_torch.configs import LM_CONFIGS, TrainConfig
+    from repro_torch.data.pipeline import LMStream, SyntheticTokens
+    from repro_torch.models.lm import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train.train_step import make_train_step
+    f32 = LM_CONFIGS[MOE].reduced().scaled(dtype="float32")
+    it = iter(LMStream(SyntheticTokens(f32.vocab_size, 256, 128), 8, 64))
+    data = [next(it) for _ in range(5)]
+    step = make_train_step(f32, TrainConfig(learning_rate=1e-3))
+    params = transformer.init(f32, torch.Generator().manual_seed(0),
+                              device="cpu")
+    got = {}
+    for dev in ("cpu", DEVICE):
+        p = adamw.tree_map(lambda t: t.to(dev), params)
+        opt = adamw.init(p)
+        got[dev] = []
+        for toks, labels in data:
+            p, opt, m = step(p, opt, {"tokens": torch.from_numpy(toks).to(dev),
+                                      "labels": torch.from_numpy(labels)
+                                      .to(dev)})
+            got[dev].append({k: float(m[k]) for k in ("loss", "aux",
+                                                      "grad_norm")})
+    worst = {k: max(abs(a[k] - b[k]) / abs(b[k]) for a, b in
+                    zip(got[DEVICE], got["cpu"]))
+             for k in ("loss", "aux", "grad_norm")}
+    check(max(worst.values()) <= 1e-4, f"reduced moe card vs cpu: {got}")
+    log(f"[14 card vs cpu] {f32.name} float32, 5 steps: card {got[DEVICE]} "
+        f"cpu {got['cpu']}, max rel diff {worst} (tol 1e-4)")
+
+
+def phase_moe(torch, runs, readings):
+    """Phase 14."""
+    t0 = time.perf_counter()
+    secs = phase_moe_train(torch, runs, readings)
+    t1 = time.perf_counter()
+    phase_moe_small(torch)
+    secs["reduced card vs cpu"] = time.perf_counter() - t1
+    log(f"[14 done] {', '.join(f'{k} {v:.1f} s' for k, v in secs.items())}"
+        f"; phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
+    faulthandler.enable(file=sys.stderr, all_threads=True)
     try:
         import torch
     except ImportError:
@@ -4352,6 +4947,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_serve_card_vs_cpu(torch, RWKV, "8")
     phase_lm(torch, runs, readings)
+    phase_moe(torch, runs, readings)
 
     kernels = []
     for name in REPLACES:

@@ -72,6 +72,10 @@ HOT_FUNCTIONS: Dict[str, Tuple[str, ...]] = {
     "repro_torch/models/gnn/models.py": ("sage_layer", "gcn_layer",
                                          "gat_layer", "apply_gnn"),
     "repro_torch/models/gnn/fullgraph.py": ("sage_subgraph_apply",),
+    # the MoE layer every LM train step runs, forward and backward: its
+    # routing, its dispatch / combine Functions and their gathers
+    "repro_torch/models/lm/moe.py": ("moe_ffn", "route", "forward",
+                                     "backward"),
     **{f"repro_torch/kernels/{k}/{m}.py": ("*",)
        for k in _KERNEL_PACKAGES for m in ("ops", "kernel")},
 }

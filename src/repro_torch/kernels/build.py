@@ -25,7 +25,7 @@ BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 SOURCES = ("gather_agg", "gather_cached", "flash_attention", "moe_gmm",
-           "wkv6", "clock_refill", "flash_attention_bwd")
+           "wkv6", "clock_refill", "flash_attention_bwd", "moe_gmm_bwd")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 

@@ -1,22 +1,30 @@
-"""Wrapper of the hand-written CUDA grouped expert matmul
+"""Wrappers of the hand-written CUDA grouped expert matmul
 (`csrc/moe_gmm.cu`), the counterpart of `moe_gmm_pallas` in
-`repro/kernels/moe_gmm/kernel.py`, with the epilogues the MoE layer uses.
+`repro/kernels/moe_gmm/kernel.py`, with the epilogues the MoE layer uses,
+and of its backward (`csrc/moe_gmm_bwd.cu`: `moe_gmm_bwd_dx`,
+`moe_gmm_bwd_dw`, `moe_gmm_gated_bwd`), which has no TPU kernel: the
+reference differentiates the layer's einsums (`repro/models/lm/moe.py:
+125-127`) with JAX.
 
 Dispatch goes by the tensors' device: CPU tensors take the plain PyTorch
 versions (`ref.py`), CUDA tensors launch a kernel — or raise. On the card
 `route` picks the kernel: "tensor_core" (wgmma fed by TMA) for bf16 with
 16 < C <= 4096, E <= 256, d and f multiples of 8 and 16-byte aligned
 pointers; "mma_sync" for bf16 otherwise (decode, odd widths); "simt" for
-float32. There is no
-fallback from a failed launch to another route or to the plain version.
-Both ops count their launches in the one key of `LAUNCHES` (kernel
-launches only, never the plain path) and which kernel each took in
-`ROUTES`.
+float32. The backward has two routes: "mma_sync" for bf16, "simt" for
+float32 (`bwd_route`); its bf16 kernel takes d and f that are multiples of
+8 and 16-byte aligned tensors, and a call with others raises ValueError. There is no fallback from a failed launch to
+another route or to the plain version. Each entry point counts its
+launches in its key of `LAUNCHES` (kernel launches only, never the plain
+path) and the kernel each took in `ROUTES`.
 
 `rows` (optional, int32 (E, G) on x's device): group g of expert e holds
 C / G rows of x, and its rows past rows[e, g] are zero. The kernels skip
 the tiles and experts that hold no such row and write zeros there, so the
-output is the one without `rows`; the plain versions ignore it.
+output is the one without `rows`; the plain versions ignore it. The
+backward treats those rows as zero whatever they hold: dx and the gated
+backward write zeros there, dw does not sum them; so do their plain
+versions.
 """
 from __future__ import annotations
 
@@ -28,9 +36,13 @@ import torch
 from repro_torch.kernels import build
 from repro_torch.kernels.gather_agg.kernel import (_check, _device_of,
                                                    _raise_on)
-from repro_torch.kernels.moe_gmm.ref import moe_gmm_gated_ref, moe_gmm_ref
+from repro_torch.kernels.moe_gmm.ref import (moe_gmm_bwd_dw_ref,
+                                             moe_gmm_bwd_dx_ref,
+                                             moe_gmm_gated_bwd_ref,
+                                             moe_gmm_gated_ref, moe_gmm_ref)
 
-LAUNCHES: Dict[str, int] = {"moe_gmm_fwd": 0}
+LAUNCHES: Dict[str, int] = {"moe_gmm_fwd": 0, "moe_gmm_bwd_dx": 0,
+                            "moe_gmm_bwd_dw": 0, "moe_gmm_gated_bwd": 0}
 ROUTES: Dict[str, int] = {"tensor_core": 0, "mma_sync": 0, "simt": 0}
 MAX_GRID = 65535               # the kernels' grid: E in grid.z, C / 16
 #                                row tiles in grid.y
@@ -66,11 +78,29 @@ def route(x: torch.Tensor, *ws: torch.Tensor) -> str:
     return "mma_sync"
 
 
+def bwd_route(x: torch.Tensor) -> str:
+    """The backward kernels' route: "mma_sync" for bf16, "simt" for
+    float32."""
+    return "simt" if x.dtype == torch.float32 else "mma_sync"
+
+
 def _lib() -> ctypes.CDLL:
     lib = build.load("moe_gmm")
     if not getattr(lib, "_typed", False):
         lib.moe_gmm_fwd.argtypes = [_P] * 5 + [_I64] * 7 + [_P]
         lib.moe_gmm_fwd.restype = ctypes.c_int
+        lib._typed = True
+    return lib
+
+
+def _bwd_lib() -> ctypes.CDLL:
+    lib = build.load("moe_gmm_bwd")
+    if not getattr(lib, "_typed", False):
+        for name, n_ptr in (("moe_gmm_bwd_dx", 6), ("moe_gmm_bwd_dw", 6),
+                            ("moe_gmm_gated_bwd", 7)):
+            fn = getattr(lib, name)
+            fn.argtypes = [_P] * n_ptr + [_I64] * 6 + [_P]
+            fn.restype = ctypes.c_int
         lib._typed = True
     return lib
 
@@ -167,3 +197,133 @@ def moe_gmm_gated_fwd(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
         return out
     _launch(x, wg, wu, rows, G, out, _GATED)
     return out
+
+
+def _check_same(dev: torch.device, dtype: torch.dtype, **ts) -> None:
+    """Every tensor 3-D, contiguous, on `dev` in `dtype` (float32 or
+    bfloat16)."""
+    if dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"inputs must be float32 or bfloat16, got {dtype}")
+    for name, t in ts.items():
+        _check(name, t, dtype, 3, dev)
+
+
+def _bwd_launch(name: str, ts, widths, *args) -> None:
+    """Launch `name` on the route of ts[0]'s dtype; the bf16 kernel's
+    16-byte loads need every one of `widths` a multiple of 8 and every
+    tensor of `ts` (None for an absent one) 16-byte aligned."""
+    x = ts[0]
+    kind = bwd_route(x)
+    if kind == "mma_sync" and (any(w % 8 for w in widths) or any(
+            t.data_ptr() % 16 for t in ts if t is not None)):
+        raise ValueError(f"{name}: the bf16 kernel takes widths {widths} "
+                         f"that are multiples of 8 and 16-byte aligned "
+                         f"tensors")
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = getattr(_bwd_lib(), name)(*args, 1 if kind == "mma_sync" else 2,
+                                   stream)
+    _raise_on(rc, f"{name} ({kind})")
+    LAUNCHES[name] += 1
+    ROUTES[kind] += 1
+
+
+def _ptr(t: Optional[torch.Tensor]):
+    return None if t is None else t.data_ptr()
+
+
+def _grid_ok(E: int, M: int, *widths: int) -> None:
+    if E > MAX_GRID or -(-M // 16) > MAX_GRID or max(widths) > 1 << 30:
+        raise ValueError(f"shape {(E, M, *widths)} beyond the kernel's grid")
+
+
+def moe_gmm_bwd_dx(dy: torch.Tensor, w: torch.Tensor,
+                   dy2: Optional[torch.Tensor] = None,
+                   w2: Optional[torch.Tensor] = None,
+                   rows: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """dx[e] = dy[e] @ w[e]^T (+ dy2[e] @ w2[e]^T) -> (E, C, m) in dy's
+    dtype: one float32 accumulator over both pairs, rounded once; the rows
+    past `rows` are zero. dy, dy2: (E, C, n); w, w2: (E, m, n), read as
+    stored (no transposed copy). The input gradient of `moe_gmm_fwd`
+    (w = wd) and, with both pairs, of the gated one's buffer."""
+    if (dy2 is None) != (w2 is None):
+        raise ValueError("dy2 and w2 come together")
+    G = _groups(rows, dy)
+    if _device_of(dy).type == "cpu":
+        return moe_gmm_bwd_dx_ref(dy, w, dy2, w2, rows)
+    dev = dy.device
+    two = {} if dy2 is None else {"dy2": dy2, "w2": w2}
+    _check_same(dev, dy.dtype, dy=dy, w=w, **two)
+    E, C, n = dy.shape
+    m = w.shape[1]
+    if w.shape != (E, m, n) or any(
+            t.shape != s.shape for t, s in ((dy2, dy), (w2, w)) if
+            t is not None):
+        raise ValueError(f"shapes dy {tuple(dy.shape)} and w "
+                         f"{tuple(w.shape)} (and the second pair) disagree")
+    _grid_ok(E, C, n, m)
+    out = torch.empty((E, C, m), dtype=dy.dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    _bwd_launch("moe_gmm_bwd_dx", (dy, w, dy2, w2), (n, m), dy.data_ptr(),
+                w.data_ptr(), _ptr(dy2), _ptr(w2), out.data_ptr(),
+                _ptr(rows), E, C, n, m, G)
+    return out
+
+
+def moe_gmm_bwd_dw(x: torch.Tensor, dy: torch.Tensor,
+                   dy2: Optional[torch.Tensor] = None,
+                   rows: Optional[torch.Tensor] = None):
+    """dw[e] = x[e]^T @ dy[e] -> (E, m, n) in x's dtype, summed in float32
+    over the rows `rows` names as occupied, in one fixed order (no split
+    over C, no atomics), rounded once; with dy2, (dw, dw2) from one launch
+    over the same x tile. x: (E, C, m); dy, dy2: (E, C, n). The weight
+    gradient of `moe_gmm_fwd` (x = h, dy = the output's gradient) and of
+    the gated one (x, dg, du)."""
+    G = _groups(rows, x)
+    if _device_of(x).type == "cpu":
+        dw = moe_gmm_bwd_dw_ref(x, dy, rows)
+        return dw if dy2 is None else (dw, moe_gmm_bwd_dw_ref(x, dy2, rows))
+    dev = x.device
+    _check_same(dev, x.dtype, x=x, dy=dy,
+                **({} if dy2 is None else {"dy2": dy2}))
+    E, C, m = x.shape
+    n = dy.shape[2]
+    if dy.shape[:2] != (E, C) or (dy2 is not None and dy2.shape != dy.shape):
+        raise ValueError(f"shapes x {tuple(x.shape)} and dy "
+                         f"{tuple(dy.shape)} disagree")
+    _grid_ok(E, m, n, C)
+    outs = [torch.empty((E, m, n), dtype=x.dtype, device=dev)
+            for _ in range(1 if dy2 is None else 2)]
+    if outs[0].numel():
+        _bwd_launch("moe_gmm_bwd_dw", (x, dy, dy2), (m, n), x.data_ptr(),
+                    dy.data_ptr(), _ptr(dy2), outs[0].data_ptr(),
+                    outs[1].data_ptr() if dy2 is not None else None,
+                    _ptr(rows), E, C, m, n, G)
+    return outs[0] if dy2 is None else tuple(outs)
+
+
+def moe_gmm_gated_bwd(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
+                      dh: torch.Tensor, rows: Optional[torch.Tensor] = None):
+    """(dg, du) of h = silu(x wg) * (x wu) (`moe_gmm_gated_fwd`) for the
+    gradient dh, each (E, C, f) in x's dtype: g and u recomputed in two
+    float32 accumulators and rounded as the forward rounds them (bf16), du
+    = dh silu(g) and dg = dh u silu'(g) each rounded once (the formulas of
+    `moe_gmm_gated_bwd_ref`); the rows past `rows` are zero. Shapes as
+    `moe_gmm_gated_fwd`, dh as its output."""
+    G = _groups(rows, x)
+    if _device_of(x).type == "cpu":
+        return moe_gmm_gated_bwd_ref(x, wg, wu, dh, rows)
+    dev = _check_inputs(x, wg, wu)
+    E, C, d = x.shape
+    f = wg.shape[2]
+    _check("dh", dh, x.dtype, 3, dev)
+    if dh.shape != (E, C, f):
+        raise ValueError(f"dh {tuple(dh.shape)} != {(E, C, f)}")
+    dg, du = (torch.empty((E, C, f), dtype=x.dtype, device=dev)
+              for _ in range(2))
+    if dg.numel():
+        _bwd_launch("moe_gmm_gated_bwd", (x, wg, wu, dh), (d, f),
+                    x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
+                    dh.data_ptr(), dg.data_ptr(), du.data_ptr(), _ptr(rows),
+                    E, C, d, f, G)
+    return dg, du

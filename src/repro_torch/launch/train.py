@@ -7,13 +7,16 @@ model (the paper's pipeline) or a dense LM.
         --dataset reddit-like --cache dynamic --ckpt-dir /tmp/ck  # the card
     PYTHONPATH=src python -m repro_torch.launch.train --arch gemma3-1b \\
         --reduced --steps 3 --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.train \\
+        --arch qwen2-moe-a2.7b --layers 2 --batch 4 --seq 4096  # the card
 
 LM archs (`train_lm`, the reference's `launch/train.py:22-47`) run the
 fault-tolerant `LMTrainer` on synthetic Zipf tokens (checkpoint / resume
 with `--ckpt-dir`, straggler monitor, optional int8 gradient compression);
 `--reduced` trains the smoke-scale variant, and without it the full-width
-config. Only dense LMs train: qwen2-moe-a2.7b and rwkv6-7b raise, since
-their kernels' backwards belong to a later slice; `--mesh` takes only
+config; `--layers` cuts its depth (qwen2-moe-a2.7b's 24 layers do not fit
+one card in training; 2 do). Dense and MoE LMs train: rwkv6-7b raises,
+since its kernel's backward belongs to a later slice; `--mesh` takes only
 `none` (sharded training is the distributed slice's).
 
 The GNN branch is `repro/launch/train.py:50-72` with the checkpoint,
@@ -55,6 +58,8 @@ def train_lm(args) -> None:
     cfg = LM_CONFIGS[args.arch]
     if args.reduced:
         cfg = cfg.reduced()
+    if args.layers:
+        cfg = cfg.scaled(num_layers=args.layers)
     check_trainable(cfg)
     tcfg = TrainConfig(learning_rate=args.lr, remat=not args.reduced,
                        grad_compression=args.compress_grads,
@@ -134,7 +139,8 @@ def main(argv=None) -> None:
     ap.add_argument("--hidden", type=int, default=None,
                     help="hidden width (default: the config's)")
     ap.add_argument("--layers", type=int, default=None,
-                    help="layers (default: the config's)")
+                    help="layers (default: the config's; for an LM, its "
+                         "depth cut to this many)")
     ap.add_argument("--ckpt-dir", default=None,
                     help="checkpoint + resume (cursor travels with weights)")
     ap.add_argument("--ckpt-every", type=int, default=50,

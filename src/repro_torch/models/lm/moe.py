@@ -25,6 +25,20 @@ token's K contributions in that order and adds them one by one: the same
 sums, with no atomics (`index_add_` on CUDA would add bf16 values in a
 different order on every run). The reference's sharding constraints
 (`shd.act_*`) are no-ops off a mesh and are dropped.
+
+Training. A buffer row holds at most one (token, k) assignment, so the
+dispatch and the combine are each other's transposes, and both backward
+passes are gathers (`_Dispatch`, `_Combine`): the dispatch's gradient
+adds a token's kept rows one by one in ascending expert order from zeros
+in the compute dtype (the order in which the reference's scatter-add over
+the sorted assignments meets them); the combine's gives each occupied row
+its one assignment's weight times its token's gradient, each weight the
+dot product of its token's gradient and its row. A token's weights in
+ascending expert order are a permutation of its top-k weights
+(`_PermuteLast`), whose backward is the inverse permutation. Nothing in
+the layer's backward scatters with accumulation; the router's top-k keeps
+PyTorch's own backward (one write per selected position). The expert
+products' backward is the grouped matmul's (`kernels/moe_gmm/ops.py`).
 """
 from __future__ import annotations
 
@@ -91,6 +105,81 @@ def route(topi: torch.Tensor, num_experts: int, capacity: int):
     return order, slot, keep, dest
 
 
+class _Dispatch(torch.autograd.Function):
+    """xe = [x; 0][src]: each buffer row the token it holds, or zeros. Its
+    backward: dx[t] = the sum of dxe over the token's kept rows row_k[t, j]
+    (ascending expert order), added one by one from zeros."""
+
+    @staticmethod
+    def forward(ctx, x, src, row_k, keep_k):
+        ctx.save_for_backward(row_k, keep_k)
+        return torch.cat([x, x.new_zeros((1, x.shape[1]))])[src]
+
+    @staticmethod
+    def backward(ctx, dxe):
+        row_k, keep_k = ctx.saved_tensors
+        dx = dxe.new_zeros((row_k.shape[0], dxe.shape[1]))
+        for j in range(row_k.shape[1]):
+            kept = keep_k[:, j, None]
+            rows = dxe.index_select(0, torch.where(keep_k[:, j], row_k[:, j],
+                                                   0))
+            dx = dx + torch.where(kept, rows, torch.zeros_like(rows))
+        return dx, None, None, None
+
+
+class _Combine(torch.autograd.Function):
+    """y[t] = sum over j of keep_k[t, j] * og[row_k[t, j]] * w_k[t, j], added
+    one by one in j order from zeros in og's dtype. Its backward: dog[r] =
+    w * dy[token] for the assignment row r holds (`asg[r]`, the flat (t, j)
+    index, or T * K for an empty row, which gets zeros), and dw_k[t, j] =
+    <dy[t], og[row_k[t, j]]> summed in float32 (zero when dropped)."""
+
+    @staticmethod
+    def forward(ctx, og, w_k, row_k, keep_k, asg):
+        ctx.save_for_backward(og, w_k, row_k, keep_k, asg)
+        y = og.new_zeros((row_k.shape[0], og.shape[1]))
+        for j in range(row_k.shape[1]):
+            kept = keep_k[:, j]
+            yj = og[torch.where(kept, row_k[:, j], 0)] * \
+                kept[:, None].to(og.dtype)
+            y = y + yj * w_k[:, j, None]
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        og, w_k, row_k, keep_k, asg = ctx.saved_tensors
+        T, K = row_k.shape
+        dy = dy.contiguous()
+        held = asg < T * K
+        a = torch.where(held, asg, 0)
+        dyr = dy.index_select(0, a // K) * w_k.reshape(-1)[a][:, None]
+        dog = torch.where(held[:, None], dyr, torch.zeros_like(dyr))
+        del dyr
+        dyf = dy.to(torch.float32)
+        dw = torch.zeros((T, K), dtype=torch.float32, device=dy.device)
+        for j in range(K):
+            kept = keep_k[:, j]
+            rows = og.index_select(0, torch.where(kept, row_k[:, j], 0))
+            dot = (dyf * rows.to(torch.float32)).sum(-1)
+            dw[:, j] = torch.where(kept, dot, torch.zeros_like(dot))
+        return dog, dw.to(w_k.dtype), None, None, None
+
+
+class _PermuteLast(torch.autograd.Function):
+    """t gathered along its last axis by `perm` (a permutation of it per
+    row); the backward gathers by the inverse permutation."""
+
+    @staticmethod
+    def forward(ctx, t, perm):
+        ctx.save_for_backward(perm)
+        return torch.gather(t, -1, perm)
+
+    @staticmethod
+    def backward(ctx, g):
+        perm, = ctx.saved_tensors
+        return torch.gather(g, -1, torch.argsort(perm, dim=-1)), None
+
+
 def moe_ffn(x: torch.Tensor, p, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (T, d) token-major, in the compute dtype. Returns (out (T, d),
     the load-balancing aux loss, a float32 scalar)."""
@@ -118,16 +207,22 @@ def moe_ffn(x: torch.Tensor, p, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     aux = E * torch.mean(torch.sum(frac_tokens * frac_probs, -1)) \
         * cfg.router_aux_coef
 
-    # ---- dispatch: each assignment's buffer row, in (token, k) order ----
+    # ---- dispatch: each assignment's buffer row, in (token, k) order;
+    # then per token in ascending expert order (a token's experts are
+    # distinct), and for each buffer row its assignment's flat index in
+    # that order (T * K: empty; drops all land on the spare row) ----
     order, slot, _, _ = route(topi, E, C)
     slot_f = torch.empty_like(slot).scatter_(1, order, slot)
     keep_f = slot_f < C
     row_f = torch.where(keep_f, topi.reshape(G, Tg * K) * GC
                         + groups[:, None] * C + slot_f, E * GC)
-    token_f = groups[:, None] * Tg + torch.arange(Tg * K, device=dev) // K
-    src = torch.full((E * GC + 1,), T, dtype=torch.long, device=dev)
-    src[row_f.reshape(-1)] = token_f.reshape(-1)    # drops: the spare row
-    xe = torch.cat([x, x.new_zeros((1, d))])[src[:-1]].view(E, GC, d)
+    _, perm = torch.sort(topi, dim=-1)
+    row_k = torch.gather(row_f.view(G, Tg, K), 2, perm).reshape(T, K)
+    keep_k = torch.gather(keep_f.view(G, Tg, K), 2, perm).reshape(T, K)
+    asg = torch.full((E * GC + 1,), T * K, dtype=torch.long, device=dev)
+    asg[row_k.reshape(-1)] = torch.arange(T * K, device=dev)
+    asg = asg[:-1]
+    xe = _Dispatch.apply(x, asg // K, row_k, keep_k).view(E, GC, d)
 
     # ---- grouped expert matmul: the gated one gives h, then the down
     # product, each output in the compute dtype as the reference's einsums
@@ -140,16 +235,8 @@ def moe_ffn(x: torch.Tensor, p, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
 
     # ---- combine: each token's K weighted outputs in ascending expert
     # order, added one by one from zeros in the compute dtype ----
-    _, perm = torch.sort(topi, dim=-1)      # a token's experts are distinct
-    row_k = torch.gather(row_f.view(G, Tg, K), 2, perm)
-    keep_k = torch.gather(keep_f.view(G, Tg, K), 2, perm)
-    w_k = torch.gather(topv, 2, perm).to(dt)
-    y = torch.zeros((G, Tg, d), dtype=dt, device=dev)
-    for j in range(K):
-        kept = keep_k[..., j]
-        yj = og[torch.where(kept, row_k[..., j], 0)] * kept[..., None].to(dt)
-        y = y + yj * w_k[..., j, None]
-    y = y.reshape(T, d)
+    w_k = _PermuteLast.apply(topv, perm).reshape(T, K).to(dt)
+    y = _Combine.apply(og, w_k, row_k, keep_k, asg)
 
     # ---- shared expert (qwen2-moe) ----
     if cfg.shared_d_ff:

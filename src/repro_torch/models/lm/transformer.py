@@ -24,8 +24,9 @@ before its scan; the float32 masters get the gradients through the
 casts), each layer runs under `torch.utils.checkpoint` with `remat`, and
 the token embedding's rows come from `gather_rows` on the float32 table,
 whose backward is the fixed-order `gather_agg_bwd_dx` scatter-add on the
-card. Only the dense family trains (`check_trainable`): the MoE and RWKV
-layers' kernels have no backward yet.
+card. The dense and MoE families train (`check_trainable`); the MoE
+layer's backward runs through the grouped matmul's backward kernels and
+gathers (`moe.py`). RWKV's chunked WKV kernel has no backward yet.
 """
 from __future__ import annotations
 
@@ -66,14 +67,13 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 
 def check_trainable(cfg: ModelConfig) -> None:
-    """Raises for a config the port cannot train yet: MoE training needs a
-    backward through `moe_gmm`, RWKV training one through `wkv6_fwd`."""
+    """Raises for a config the port cannot train yet: RWKV training needs
+    a backward through `wkv6_fwd`. Dense and MoE LMs train."""
     _check_supported(cfg)
-    if cfg.moe or cfg.rwkv:
-        kernel = "moe_gmm" if cfg.moe else "wkv6_fwd"
+    if cfg.rwkv:
         raise NotImplementedError(
-            f"{cfg.name}: training needs a backward through {kernel}, which "
-            f"a later slice of the port brings; dense LMs train")
+            f"{cfg.name}: training needs a backward through wkv6_fwd, which "
+            f"a later slice of the port brings; dense and MoE LMs train")
 
 
 def _dtype(cfg: ModelConfig) -> torch.dtype:

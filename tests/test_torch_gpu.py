@@ -1135,6 +1135,190 @@ def test_moe_gmm_refuses_rows_it_cannot_read_on_the_card(cuda):
     assert (gmm_kernel.LAUNCHES, gmm_kernel.ROUTES) == before
 
 
+# (E, C, G, d, f) of the backward kernels: a second row tile of 2 rows in
+# two groups, qwen2-moe's ragged prefill group (C 344, d 2040, f 1400:
+# multiples of 8 that no 128-wide tile divides) and its training step's
+# four groups of 344 at narrow widths, in both dtypes; odd widths in
+# float32 only (the bf16 kernel refuses them)
+GMM_BWD_CASES = [(4, 130, 2, 128, 64), (4, 344, 1, 2040, 1400),
+                 (6, 1376, 4, 64, 96)]
+GMM_BWD_ODD = (3, 130, 1, 77, 33)
+
+
+def _bwd_inputs(case, dtype, device):
+    """x with `rows` (expert 0 empty, 1 full, 2 ending mid-tile), wg, wu,
+    wd LeCun-scaled, and unit-normal output gradients dh (E, C, f) and dog
+    (E, C, d), nonzero past `rows` too (the kernels must not read them)."""
+    E, C, G, d, f = case
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng((*case, len(dtype), 7))
+    rows, x = _rows_and_input(E, C, G, d, rng, dt, device)
+
+    def draw(*shape, scale=1.0):
+        return torch.as_tensor(rng.normal(size=shape) * scale, dtype=dt,
+                               device=device)
+    return (rows, x, draw(E, d, f, scale=d ** -0.5),
+            draw(E, d, f, scale=d ** -0.5), draw(E, f, d, scale=f ** -0.5),
+            draw(E, C, f), draw(E, C, d))
+
+
+def _bwd_calls(x, wg, wu, wd, dh, dog, rows):
+    """Each backward entry point as the MoE layer calls it, beside its
+    plain version: (name, key of LAUNCHES, kernel call, plain call)."""
+    from repro_torch.kernels.moe_gmm import ref as gref
+    dg, du = (t.contiguous() for t in (dh, dh.flip(1)))
+    h = dh.flip(2).contiguous()
+    return [
+        ("gated_bwd", "moe_gmm_gated_bwd",
+         lambda r: gmm_kernel.moe_gmm_gated_bwd(x, wg, wu, dh, rows=r),
+         lambda r: gref.moe_gmm_gated_bwd_ref(x, wg, wu, dh, r)),
+        ("dx, one pair (dh)", "moe_gmm_bwd_dx",
+         lambda r: gmm_kernel.moe_gmm_bwd_dx(dog, wd, rows=r),
+         lambda r: gref.moe_gmm_bwd_dx_ref(dog, wd, rows=r)),
+        ("dx, two pairs (dxe)", "moe_gmm_bwd_dx",
+         lambda r: gmm_kernel.moe_gmm_bwd_dx(dg, wg, du, wu, rows=r),
+         lambda r: gref.moe_gmm_bwd_dx_ref(dg, wg, du, wu, rows=r)),
+        ("dw, one dy (dwd)", "moe_gmm_bwd_dw",
+         lambda r: gmm_kernel.moe_gmm_bwd_dw(h, dog, rows=r),
+         lambda r: gref.moe_gmm_bwd_dw_ref(h, dog, rows=r)),
+        ("dw, two dy (dwg, dwu)", "moe_gmm_bwd_dw",
+         lambda r: gmm_kernel.moe_gmm_bwd_dw(x, dg, du, rows=r),
+         lambda r: (gref.moe_gmm_bwd_dw_ref(x, dg, rows=r),
+                    gref.moe_gmm_bwd_dw_ref(x, du, rows=r)))]
+
+
+@pytest.mark.parametrize("case, dtype", [
+    *((c, t) for c in GMM_BWD_CASES for t in ("float32", "bfloat16")),
+    (GMM_BWD_ODD, "float32")])
+def test_moe_gmm_backward_kernels_match_plain_versions(cuda, case, dtype):
+    """moe_gmm_gated_bwd, moe_gmm_bwd_dx (one and two pairs) and
+    moe_gmm_bwd_dw (one and two dy) against their plain versions on the
+    card, with and without `rows`: within 2^-7 x max |plain| in bf16 (each
+    output rounded once; a float32 sum in another order may round an
+    element the other way, and a recomputed g one bf16 ulp off moves
+    silu'(g)) and 1e-5 x max |plain| in float32; the route (mma_sync for
+    bf16, simt for float32); bit-identical relaunch; one count per launch
+    in its key and its route."""
+    rows, x, wg, wu, wd, dh, dog = _bwd_inputs(case, dtype, cuda)
+    kind = "simt" if dtype == "float32" else "mma_sync"
+    assert gmm_kernel.bwd_route(x) == kind
+    rel = 2.0 ** -7 if dtype == "bfloat16" else 1e-5
+    for name, key, run, plain in _bwd_calls(x, wg, wu, wd, dh, dog, rows):
+        for r in (None, rows):
+            before = (gmm_kernel.LAUNCHES[key], gmm_kernel.ROUTES[kind])
+            got, again = run(r), run(r)
+            assert (gmm_kernel.LAUNCHES[key], gmm_kernel.ROUTES[kind]) == (
+                before[0] + 2, before[1] + 2), name
+            want = plain(r)
+            got, again, want = (t if isinstance(t, tuple) else (t,)
+                                for t in (got, again, want))
+            for a, b, w in zip(got, again, want):
+                assert a.dtype == x.dtype and a.shape == w.shape, name
+                assert torch.equal(a, b), f"{name}: relaunch differs"
+                err = float((a.float() - w.float()).abs().max())
+                assert err <= rel * float(w.float().abs().max()), \
+                    f"{name} rows={r is not None}: {err}"
+            if r is not None and key != "moe_gmm_bwd_dw":
+                assert all(bool(a[0].eq(0).all()) for a in got), name
+
+
+def test_moe_gmm_bwd_dw_at_the_training_shape_relaunches_bit_identically(
+        cuda):
+    """moe_gmm_bwd_dw of two dy over qwen2-moe-a2.7b's training buffer
+    (E 60, 4 groups of 344, d 2048, f 1408; rows drawn up to each group's
+    capacity, some experts empty): two launches give the same bits (no
+    atomics, no split over C), within 2^-7 x max |plain|; an expert with
+    no row gets exact zeros."""
+    E, G, Cg, d, f = 60, 4, 344, 2048, 1408
+    rng = np.random.default_rng(14)
+    rows_np = rng.integers(0, Cg + 1, (E, G))
+    rows_np[:3] = 0
+    rows = torch.as_tensor(rows_np, dtype=torch.int32, device=cuda)
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    x = torch.randn((E, G * Cg, d), generator=gen, device=cuda,
+                    dtype=torch.bfloat16)
+    dg, du = (torch.randn((E, G * Cg, f), generator=gen, device=cuda,
+                          dtype=torch.bfloat16) for _ in range(2))
+    a = gmm_kernel.moe_gmm_bwd_dw(x, dg, du, rows=rows)
+    b = gmm_kernel.moe_gmm_bwd_dw(x, dg, du, rows=rows)
+    assert all(torch.equal(p, q) for p, q in zip(a, b))
+    assert all(bool(t[:3].eq(0).all()) for t in a)
+    from repro_torch.kernels.moe_gmm.ref import moe_gmm_bwd_dw_ref
+    want = moe_gmm_bwd_dw_ref(x, dg, rows)
+    err = float((a[0].float() - want.float()).abs().max())
+    assert err <= 2.0 ** -7 * float(want.float().abs().max())
+
+
+def test_moe_gmm_backward_wrappers_refuse_what_the_kernels_do_not_take(
+        cuda):
+    x = torch.zeros((2, 24, 16), device=cuda, dtype=torch.bfloat16)
+    w = torch.zeros((2, 16, 8), device=cuda, dtype=torch.bfloat16)
+    dh = torch.zeros((2, 24, 8), device=cuda, dtype=torch.bfloat16)
+    before = (dict(gmm_kernel.LAUNCHES), dict(gmm_kernel.ROUTES))
+    bad = [(lambda: gmm_kernel.moe_gmm_gated_bwd(x, w, w, dh.float()),
+            TypeError),
+           (lambda: gmm_kernel.moe_gmm_gated_bwd(x, w, w, dh[:, :8]),
+            ValueError),
+           (lambda: gmm_kernel.moe_gmm_bwd_dx(dh, w.transpose(1, 2)),
+            ValueError),
+           (lambda: gmm_kernel.moe_gmm_bwd_dx(dh, w, dh), ValueError),
+           (lambda: gmm_kernel.moe_gmm_bwd_dx(dh, w, dh.float(), w.float()),
+            TypeError),
+           (lambda: gmm_kernel.moe_gmm_bwd_dw(x, dh[:, :8]), ValueError),
+           (lambda: gmm_kernel.moe_gmm_bwd_dw(x, dh.cpu()), ValueError),
+           (lambda: gmm_kernel.moe_gmm_bwd_dw(
+               x, dh, rows=torch.zeros((2, 5), dtype=torch.int32,
+                                       device=cuda)), ValueError)]
+    # the bf16 kernel's 16-byte loads: odd widths, a misaligned tensor
+    _, xo, wgo, wuo, wdo, dho, dogo = _bwd_inputs(GMM_BWD_ODD, "bfloat16",
+                                                  cuda)
+    bad += [(lambda: gmm_kernel.moe_gmm_gated_bwd(xo, wgo, wuo, dho),
+             ValueError),
+            (lambda: gmm_kernel.moe_gmm_bwd_dx(dogo, wdo), ValueError),
+            (lambda: gmm_kernel.moe_gmm_bwd_dw(xo, dho), ValueError)]
+    flat = torch.zeros(2 * 24 * 16 + 1, device=cuda, dtype=torch.bfloat16)
+    shifted = flat[1:].view(2, 24, 16)
+    bad.append((lambda: gmm_kernel.moe_gmm_bwd_dw(shifted, dh), ValueError))
+    for call, err in bad:
+        with pytest.raises(err):
+            call()
+    assert (gmm_kernel.LAUNCHES, gmm_kernel.ROUTES) == before
+
+
+def test_moe_ffn_gradients_on_the_card_match_the_cpu(cuda):
+    """Reduced qwen2-moe-a2.7b's MoE layer in float32 at T 8192 (two
+    dispatch groups, capacity drops at factor 0.5): the gradients of x
+    and of every leaf through the simt backward kernels and the gathers
+    within rtol 1e-5 (x max |cpu|) of the CPU's plain versions; five
+    backward launches, no atomic scatter."""
+    cfg = LM_CONFIGS["qwen2-moe-a2.7b"].reduced().scaled(
+        dtype="float32", capacity_factor=0.5)
+    rng = np.random.default_rng(33)
+    p = {k: (rng.normal(size=s) / np.sqrt(s[-2])).astype(np.float32)
+         for k, s in moe_module.moe_shapes(cfg).items()}
+    x = rng.normal(size=(8192, cfg.d_model)).astype(np.float32)
+    dy = rng.normal(size=x.shape).astype(np.float32)
+    grads = {}
+    for dev in ("cpu", cuda):
+        tx = torch.as_tensor(x, device=dev).requires_grad_()
+        tp = {k: torch.as_tensor(v, device=dev).requires_grad_()
+              for k, v in p.items()}
+        before = dict(gmm_kernel.LAUNCHES)
+        y, aux = moe_module.moe_ffn(tx, tp, cfg)
+        ((y * torch.as_tensor(dy, device=dev)).sum() + 0.5 * aux).backward()
+        grads[str(dev)] = {"x": tx.grad.cpu(),
+                           **{k: t.grad.cpu() for k, t in tp.items()}}
+        if dev != "cpu":
+            assert {k: n - before[k] for k, n in
+                    gmm_kernel.LAUNCHES.items()} == {
+                "moe_gmm_fwd": 2, "moe_gmm_bwd_dx": 2, "moe_gmm_bwd_dw": 2,
+                "moe_gmm_gated_bwd": 1}
+    for k, want in grads["cpu"].items():
+        got = grads[str(cuda)][k]
+        tol = 1e-5 * float(want.abs().max())
+        assert float((got - want).abs().max()) <= tol, k
+
+
 def test_moe_generate_on_the_card_matches_the_cpu(cuda):
     """Reduced qwen2-moe-a2.7b in float32, same parameters and prompts:
     prefill and 8 decode steps' logits within rtol 1e-4 / atol 1e-5

@@ -18,6 +18,7 @@ from repro_torch.graphs.csr import DeviceGraph
 from repro_torch.kernels.clock_refill import kernel as walk_kernel
 from repro_torch.kernels.flash_attention import kernel as flash_kernel
 from repro_torch.kernels.gather_agg import kernel
+from repro_torch.kernels.moe_gmm import kernel as moe_kernel
 from repro_torch.kernels.rwkv6_chunk import kernel as wkv_kernel
 from repro_torch.launch import train as train_cli
 from repro_torch.launch.serve import generate
@@ -206,6 +207,28 @@ def test_wkv6_cpu_tensors_take_the_plain_path_and_count_no_launch():
     out, s_f = wkv_kernel.wkv6_fwd(r, k, v, logw, u)
     assert out.shape == r.shape and s_f.shape == (1, 2, 16, 16)
     assert wkv_kernel.LAUNCHES == {"wkv6_fwd": 0}
+
+
+def test_moe_gmm_cpu_tensors_take_the_plain_path_and_count_no_launch():
+    """The grouped matmul's forward and its three backward entry points on
+    CPU tensors (through autograd, with `rows`): plain versions, and every
+    key of `LAUNCHES` and `ROUTES` stays 0."""
+    from repro_torch.kernels.moe_gmm.ops import moe_gmm, moe_gmm_gated
+    moe_kernel.reset_launches()
+    rng = np.random.default_rng((0, 4))
+    x, wg, wu = (torch.as_tensor(rng.normal(size=s), dtype=torch.float32)
+                 .requires_grad_() for s in ((3, 8, 6), (3, 6, 5), (3, 6, 5)))
+    wd = torch.as_tensor(rng.normal(size=(3, 5, 6)),
+                         dtype=torch.float32).requires_grad_()
+    rows = torch.tensor([[0, 2], [4, 4], [1, 3]], dtype=torch.int32)
+    h = moe_gmm_gated(x, wg, wu, rows=rows)
+    moe_gmm(h, wd, rows=rows).sum().backward()
+    assert all(t.grad is not None for t in (x, wg, wu, wd))
+    assert moe_kernel.LAUNCHES == {"moe_gmm_fwd": 0, "moe_gmm_bwd_dx": 0,
+                                   "moe_gmm_bwd_dw": 0,
+                                   "moe_gmm_gated_bwd": 0}
+    assert moe_kernel.ROUTES == {"tensor_core": 0, "mma_sync": 0,
+                                 "simt": 0}
 
 
 def test_clock_refill_cpu_tensors_take_the_plain_path_and_count_no_launch():

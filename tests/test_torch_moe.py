@@ -112,19 +112,32 @@ def test_plain_gmm_takes_shapes_the_pallas_kernel_refuses(shape, dtype):
                                  _t(w).to(getattr(torch, dtype))).numpy())
 
 
-def test_cpu_tensors_count_no_launch_and_the_op_is_forward_only():
+def test_cpu_tensors_count_no_launch_and_the_ops_train():
+    """CPU tensors take the plain versions and count no launch, forward
+    and backward: the ops' backward (no longer refused under grad) gives
+    the gradients of `moe_gmm_ref` / `moe_gmm_gated_ref` through autograd
+    within rtol = atol = 1e-5 (the backward's plain versions sum in
+    another order), with and without grad mode."""
     x, w = (_t(a) for a in _gmm_inputs(2, 8, 16, 8, 2))
+    wu = w.flip(2).contiguous()
     before = (dict(gmm_kernel.LAUNCHES), dict(gmm_kernel.ROUTES))
     gmm_kernel.moe_gmm_fwd(x, w)
     moe_gmm(x, w)
     moe_gmm_gated(x, w, w)
-    assert (gmm_kernel.LAUNCHES, gmm_kernel.ROUTES) == before
-    with pytest.raises(RuntimeError, match="forward only"):
-        moe_gmm_gated(x, w, w.clone().requires_grad_())
-    with pytest.raises(RuntimeError, match="forward only"):
-        moe_gmm(x.requires_grad_(), w)
     with torch.no_grad():
         moe_gmm(x, w)
+    g = torch.as_tensor(np.random.default_rng(3).normal(size=(2, 8, 8)),
+                        dtype=torch.float32)
+    for op, plain, ws in ((moe_gmm, moe_gmm_ref, (w,)),
+                          (moe_gmm_gated, moe_gmm_gated_ref, (w, wu))):
+        got = [t.clone().requires_grad_() for t in (x, *ws)]
+        want = [t.clone().requires_grad_() for t in (x, *ws)]
+        (op(*got) * g).sum().backward()
+        (plain(*want) * g).sum().backward()
+        for a, b in zip(got, want):
+            np.testing.assert_allclose(a.grad.numpy(), b.grad.numpy(),
+                                       rtol=1e-5, atol=1e-5)
+    assert (gmm_kernel.LAUNCHES, gmm_kernel.ROUTES) == before
 
 
 # ---------------------------------------------------------------------------
