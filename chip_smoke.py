@@ -317,28 +317,39 @@ run, exit code != 0):
               training, 24 layers would need about 500 GB), float32
               masters, bf16 compute, remat, chunked CE, clip, AdamW lr
               1e-3, batch 4 x 4096 of `SyntheticTokens` (4 dispatch groups
-              of capacity 344 a layer): (a) after (b)'s first 6 steps, one
-              more step with the three backward kernels spied, and each of layer 0's five backward
-              launches (the gated backward, dx of the down product and of
-              both gated weights, dw of the down weight and of both gated
-              weights) at those inputs: route (mma_sync), max error
-              against its plain version within 2^-7 x max |plain|, a
-              bit-identical relaunch, ms beside the plain version,
-              `torch.bmm` of the same products and the bound of the
-              occupied rows; the same launches in float32 on the simt
-              route within 1e-5 x max |plain|; (b) 6 steps, then the same
-              6 from a second draw of the same seed: finite losses, the
-              relaunch bit-identical, exact launches a step (8 moe_gmm_fwd
-              all tensor_core, 2 gated backward, 4 dx, 4 dw on mma_sync, 4
-              flash forwards, 2 backwards, 1 bwd_dx; every other 0), step
-              ms, tokens/s, peak GiB, the parameter count; a profiled step
-              (kernels by device time, the idle share, the time in expert
-              products forward and backward, flash, matmuls, AdamW and the
-              rest), with no `indexing_backward`, `index_add_` or
-              accumulating scatter kernel (the gathers and non-accumulating
-              scatters that run are logged); (c) reduced qwen2-moe in
-              float32, 5 steps on the card and on the CPU from the same
-              parameters and batches: losses, aux and grad norms within
+              of capacity 344 a layer): (a) at the first step (fresh
+              router) and at the step after (b)'s 6, each of both layers'
+              five backward launches (the gated backward, dx of the down
+              product and of both gated weights, dw of the down weight and
+              of both gated weights) at its own inputs, then one layer's
+              five at every one of the 65,536 assignments kept (synthetic,
+              from a seed): route (bf16 dx and dw tensor_core, the gated
+              backward mma_sync), max error against its plain version
+              within 2^-7 x max |plain|, a bit-identical relaunch, ms
+              beside the plain version, `torch.bmm` of the same products
+              and the bound of the occupied rows; each tensor-core launch
+              also beside its parent, the mma_sync kernel on the same
+              inputs (same tolerance, bit-identical relaunch, timed
+              parent, change, parent); the same launches in float32 on the
+              simt route within 1e-5 x max |plain|; one full-width step's
+              gradients through the kernels against the plain backward's
+              on the card (loss and aux bit-identical, every leaf within
+              2^-7 x max |plain|); (b) 6 steps, then the same 6 from a
+              second draw of the same seed, then with the plain backward:
+              finite losses, the relaunch bit-identical, exact launches a
+              step (8 moe_gmm_fwd, 2 gated backward, 4 dx, 4 dw: 16 on
+              tensor_core, the 2 gated on mma_sync; 4 flash forwards, 2
+              backwards, 1 bwd_dx; every other 0), step ms, tokens/s,
+              peak GiB, the parameter count; a profiled step at each of
+              (a)'s two steps (kernels by device time, the idle share,
+              the time in expert products forward and backward, flash,
+              matmuls, AdamW and the rest; the tensor-core backward kernel
+              present, no dx or dw mma_sync instance), with no
+              `indexing_backward`, `index_add_` or accumulating scatter
+              kernel (the gathers and non-accumulating scatters that run
+              are logged); (c) reduced qwen2-moe in float32, 5 steps on
+              the card and on the CPU from the same parameters and
+              batches: losses, aux and grad norms within
               rtol 1e-4
 
 It prints the `{"kernels": [...]}` line before the last, and as the last
@@ -434,8 +445,12 @@ FLASH_TC, FLASH_SIMT = "flash_fwd_tc_kernel", "flash_fwd_kernel"
 # the tensor-core one only, its decode step the mma.sync one only
 GMM_TC, GMM_MMA, GMM_SIMT = "gmm_tc_kernel", "gmm_mma_kernel", \
     "gmm_f32_kernel"
-# ... and of its backward's routes (bf16 on mma_sync, float32 on simt)
-GMM_BWD, GMM_BWD_SIMT = "bwd_mma_kernel", "bwd_f32_kernel"
+# ... and of its backward's routes (bf16 dx and dw on tensor_core, the
+# gated backward on mma_sync, float32 on simt), and the template
+# arguments of dx's and dw's mma_sync instances (their MODE)
+GMM_BWD_TC, GMM_BWD, GMM_BWD_SIMT = "bwd_tc_kernel", "bwd_mma_kernel", \
+    "bwd_f32_kernel"
+GMM_BWD_DX, GMM_BWD_DW = 0, 1
 # ... and of the flash backward's routes: the bf16 train step must spend
 # its backward time in the tensor-core kernels and never in the SIMT ones
 BWD_TC = ("dkdv_tc_kernel", "dq_tc_kernel")
@@ -4350,10 +4365,13 @@ def plain_gmm_bwd():
 
 
 def check_gmm_bwd(torch, label, name, args, rows):
-    """One backward launch at its real inputs: the bf16 launch (mma_sync)
-    and the same inputs in float32 (simt) against the plain version,
-    relaunched, timed beside the plain version, `torch.bmm` of the same
-    products and the bound."""
+    """One backward launch at its real inputs: the bf16 launch on its route
+    (`bwd_route`: tensor_core for dx and dw, mma_sync for the gated
+    backward) and the same inputs in float32 (simt) against the plain
+    version, relaunched, timed beside the plain version, `torch.bmm` of
+    the same products and the bound; a bf16 tensor-core launch also beside
+    its parent, the mma_sync kernel on the same inputs (held to the same
+    tolerance, relaunched, timed in turns: parent, change, parent)."""
     from repro_torch.kernels.moe_gmm import kernel, ref
     plain = {"moe_gmm_gated_bwd": lambda *a: ref.moe_gmm_gated_bwd_ref(
                  *a, rows=rows),
@@ -4363,6 +4381,7 @@ def check_gmm_bwd(torch, label, name, args, rows):
                  ref.moe_gmm_bwd_dw_ref(a[0], dy, rows) for dy in a[1:])}
     n_products = {"moe_gmm_gated_bwd": 2, "moe_gmm_bwd_dx": len(args) // 2,
                   "moe_gmm_bwd_dw": len(args) - 1}[name]
+    want_route = "mma_sync" if name == "moe_gmm_gated_bwd" else "tensor_core"
 
     def library(a):
         if name == "moe_gmm_bwd_dx":        # dy w^T per pair
@@ -4374,14 +4393,28 @@ def check_gmm_bwd(torch, label, name, args, rows):
     def as_tuple(t):
         return t if isinstance(t, tuple) else (t,)
 
+    def held(out, want, what, rel, scale):
+        err = max(float((x.float() - w.float()).abs().max())
+                  for x, w in zip(out, want))
+        check(all(bool(torch.isfinite(x).all()) for x in out),
+              f"{label} {what}: non-finite")
+        check(err <= rel * scale, f"{label} {what}: max abs err {err} > "
+              f"{rel:.1e} x {scale:.3e}")
+        return err
+
     got = {}
-    for dtype, kind, rel, peak in (
-            (torch.bfloat16, "mma_sync", 2.0 ** -7, BF16_FLOPS_PER_S),
-            (torch.float32, "simt", 1e-5, F32_FLOPS_PER_S)):
+    for dtype, rel, peak in ((torch.bfloat16, 2.0 ** -7, BF16_FLOPS_PER_S),
+                             (torch.float32, 1e-5, F32_FLOPS_PER_S)):
         a = [t.to(dtype) for t in args]
+        kind = kernel.bwd_route(name, *a)
+        check(kind == (want_route if dtype == torch.bfloat16 else "simt"),
+              f"{label}: {str(dtype)[6:]} route {kind}")
 
         def fn():
             return getattr(kernel, name)(*a, rows=rows)
+
+        def parent():
+            return kernel._launch_bwd("mma_sync", name, *a, rows=rows)
         routes = dict(kernel.ROUTES)
         out = as_tuple(fn())
         check(kernel.ROUTES == dict(routes, **{kind: routes[kind] + 1}),
@@ -4389,33 +4422,48 @@ def check_gmm_bwd(torch, label, name, args, rows):
         check(all(torch.equal(x, y) for x, y in zip(out, as_tuple(fn()))),
               f"{label} {kind}: differs between launches")
         want = as_tuple(plain[name](*a))
-        err = max(float((x.float() - w.float()).abs().max())
-                  for x, w in zip(out, want))
         scale = max(float(w.float().abs().max()) for w in want)
-        check(all(bool(torch.isfinite(x).all()) for x in out),
-              f"{label} {kind}: non-finite")
-        check(err <= rel * scale, f"{label} {kind}: max abs err {err} > "
-              f"{rel:.1e} x {scale:.3e}")
+        err = held(out, want, kind, rel, scale)
         weights = GMM_BWD_WEIGHTS[name]
         b_ms, b_by = _gmm_bwd_bound(
             torch, [t for i, t in enumerate(a) if i not in weights],
             [a[i] for i in weights if i < len(a)], out, rows, n_products,
             peak)
         r = {"route": kind, "max_abs_err": err, "bound_ms": b_ms,
-             "bound_by": b_by, "ms": cuda_ms(torch, fn),
-             "plain_ms": cuda_ms(torch, lambda: plain[name](*a))}
+             "bound_by": b_by, "parent_ms": None}
+        if kind == "tensor_core":
+            was = as_tuple(parent())
+            check(all(torch.equal(x, y) for x, y in zip(was,
+                                                        as_tuple(parent()))),
+                  f"{label} mma_sync parent: differs between launches")
+            r["parent_err"] = held(was, want, "mma_sync parent", rel, scale)
+            r["change_vs_parent"] = max(
+                float((x.float() - y.float()).abs().max())
+                for x, y in zip(out, was))
+            del was
+            p0 = cuda_ms(torch, parent)
+            r["ms"] = cuda_ms(torch, fn)
+            r["parent_ms"] = [p0, cuda_ms(torch, parent)]
+        else:
+            r["ms"] = cuda_ms(torch, fn)
+        r["plain_ms"] = cuda_ms(torch, lambda: plain[name](*a))
         r["library_ms"] = cuda_ms(torch, lambda: library(a)) \
             if dtype == torch.bfloat16 else None
         del out, want
-        got[kind] = r
+        got["bf16" if dtype == torch.bfloat16 else "simt"] = r
         R, occ_e = _occupied(torch, rows, a[0].shape[1])
+        was_txt = "" if r["parent_ms"] is None else (
+            f"  mma_sync parent ms {r['parent_ms'][0]:.4f}, "
+            f"{r['parent_ms'][1]:.4f} (before, after; max abs err "
+            f"{r['parent_err']:.3e}, {r['change_vs_parent']:.3e} from the "
+            f"change)")
         log(f"[14 kernels] {name} {label} {str(dtype)[6:]}: "
             f"{' '.join(str(tuple(t.shape)) for t in a)}  rows {R} of "
             f"{rows.shape[0] * a[0].shape[1]} occupied, {occ_e} of "
             f"{rows.shape[0]} experts  route {kind}  "
             f"max_abs_err {err:.3e} (tol {rel:.1e} x max |plain| "
-            f"{scale:.3e})  bit-identical relaunch True  ms {r['ms']:.4f}  "
-            f"plain_ms {r['plain_ms']:.4f}  library_ms "
+            f"{scale:.3e})  bit-identical relaunch True  ms {r['ms']:.4f}"
+            f"{was_txt}  plain_ms {r['plain_ms']:.4f}  library_ms "
             + (f"{r['library_ms']:.4f} (torch.bmm x{n_products})"
                if r["library_ms"] is not None else "n/a")
             + f"  bound_ms {b_ms:.4f} ({b_by}; {b_ms / r['ms']:.1%} of it)")
@@ -4432,7 +4480,8 @@ def gmm_bwd_readings(torch, point, layers):
     products (one call a product: dx's and dw's function, summed over a
     launch's pairs); the gated backward's epilogue has no PyTorch call,
     so its `library_ms` is null and the bmm of its two products stands
-    beside it as `bmm_ms`."""
+    beside it as `bmm_ms`. `mma_sync_ms`: dx's and dw's parent kernel on
+    the same inputs, timed before and after the change (sums)."""
     per = {}
     for layer, calls_of in layers:
         calls = calls_of()
@@ -4445,24 +4494,31 @@ def gmm_bwd_readings(torch, point, layers):
         torch.cuda.empty_cache()
     out = {}
     for name, rs in per.items():
-        bf = [r["mma_sync"] for r in rs]
+        bf = [r["bf16"] for r in rs]
+        route = bf[0]["route"]
         out[name] = {
             **{k: sum(r[k] for r in bf)
                for k in ("ms", "plain_ms", "library_ms", "bound_ms")},
             "bmm_ms": sum(r["library_ms"] for r in bf),
             "simt_ms": sum(r["simt"]["ms"] for r in rs),
+            "mma_sync_ms": None if route != "tensor_core" else [
+                sum(r["parent_ms"][i] for r in bf) for i in (0, 1)],
             "max_abs_err": max(r[k]["max_abs_err"] for r in rs
                                for k in r),
             "bound_by": "/".join(sorted({r["bound_by"] for r in bf})),
-            "route": "mma_sync",
+            "route": route,
             "shapes": {f"launch {j}": r for j, r in enumerate(rs)}}
         if name == "moe_gmm_gated_bwd":
             out[name]["library_ms"] = None
+        was = out[name]["mma_sync_ms"]
         log(f"[14 kernels] {name} {point}, the sum of its {len(rs)} "
             f"launches over {', '.join(lb for lb, _ in layers)}, each timed "
-            f"at its own inputs: ms {out[name]['ms']:.3f}  plain_ms "
-            f"{out[name]['plain_ms']:.3f}  torch.bmm of its products "
-            f"{out[name]['bmm_ms']:.3f} (library_ms "
+            f"at its own inputs: route {route}  ms {out[name]['ms']:.3f}"
+            + ("" if was is None else
+               f"  mma_sync parent ms {was[0]:.3f}, {was[1]:.3f} (before, "
+               f"after)")
+            + f"  plain_ms {out[name]['plain_ms']:.3f}  torch.bmm of its "
+            f"products {out[name]['bmm_ms']:.3f} (library_ms "
             f"{out[name]['library_ms']})  bound_ms "
             f"{out[name]['bound_ms']:.3f}  (simt on float32 copies "
             f"{out[name]['simt_ms']:.3f})")
@@ -4520,7 +4576,8 @@ def moe_train_profile(torch, cfg, tcfg, step, params, opt, batch, med,
         log(f"[14 profile] {MOE_TRAIN} {point}: {t / 1e3:9.3f} ms  "
             f"{calls:5d} calls  {key[:100]}")
     groups = {"expert products forward": (GMM_TC, GMM_MMA, GMM_SIMT),
-              "expert products backward": (GMM_BWD, GMM_BWD_SIMT),
+              "expert products backward": (GMM_BWD_TC, GMM_BWD,
+                                           GMM_BWD_SIMT),
               "flash": ("flash_fwd", *BWD_TC, "delta_kernel"),
               "matmuls": ("nvjet", "gemm", "cutlass", "sm90_xmma"),
               "bwd_dx (embedding)": DX_KERNELS}
@@ -4553,6 +4610,10 @@ def moe_train_profile(torch, cfg, tcfg, step, params, opt, batch, med,
           f"{MOE_TRAIN}: a bf16 forward left the tensor-core route")
     check(not any(GMM_BWD_SIMT in k for k, _, _ in dev),
           f"{MOE_TRAIN}: a bf16 backward took the simt kernel")
+    check(any(GMM_BWD_TC in k for k, _, _ in dev) and not any(
+              f"{GMM_BWD}<{mode}," in k for k, _, _ in dev
+              for mode in (GMM_BWD_DX, GMM_BWD_DW)),
+          f"{MOE_TRAIN}: a bf16 dx or dw left the tensor-core route")
     return split
 
 
@@ -4664,9 +4725,13 @@ def phase_moe_train(torch, runs, readings):
     want.update({k: v * TRAIN_STEPS for k, v in MOE_TRAIN_LAUNCHES.items()})
     check(launches == want, f"{MOE_TRAIN}: launches {launches} != {want}")
     n_bwd = sum(MOE_TRAIN_LAUNCHES[k] for k in GMM_BWD_KERNELS)
-    check(routes == {"tensor_core": MOE_TRAIN_LAUNCHES["moe_gmm_fwd"]
-                     * TRAIN_STEPS, "mma_sync": n_bwd * TRAIN_STEPS,
-                     "simt": 0}, f"{MOE_TRAIN}: moe_gmm routes {routes}")
+    # the forward, dx and dw on tensor_core, the gated backward on
+    # mma_sync (its C entry refuses the tensor-core route), nothing on simt
+    n_gated = MOE_TRAIN_LAUNCHES["moe_gmm_gated_bwd"]
+    by_route = {"tensor_core": MOE_TRAIN_LAUNCHES["moe_gmm_fwd"] + n_bwd
+                - n_gated, "mma_sync": n_gated, "simt": 0}
+    check(routes == {k: v * TRAIN_STEPS for k, v in by_route.items()},
+          f"{MOE_TRAIN}: moe_gmm routes {routes}")
     check(flash_routes == {"tensor_core": MOE_TRAIN_LAYERS * TRAIN_STEPS,
                            "simt": 0},
           f"{MOE_TRAIN}: flash backward routes {flash_routes}")
@@ -4688,7 +4753,8 @@ def phase_moe_train(torch, runs, readings):
         f"{TRAIN_BATCH * TRAIN_SEQ / med * 1e3:.0f} tokens/s; peak "
         f"{peak:.2f} GiB; launches a step "
         f"{ {k: v / TRAIN_STEPS for k, v in launches.items() if v} }, "
-        f"others 0; moe_gmm routes {routes}")
+        f"others 0; moe_gmm routes {routes} (tensor_core: moe_gmm_fwd, "
+        f"moe_gmm_bwd_dx, moe_gmm_bwd_dw; mma_sync: moe_gmm_gated_bwd)")
     secs["training"] = time.perf_counter() - t0
 
     # (a) and the profile at two steps, each profiled step the one whose

@@ -8,15 +8,17 @@ reference differentiates the layer's einsums (`repro/models/lm/moe.py:
 
 Dispatch goes by the tensors' device: CPU tensors take the plain PyTorch
 versions (`ref.py`), CUDA tensors launch a kernel — or raise. On the card
-`route` picks the kernel: "tensor_core" (wgmma fed by TMA) for bf16 with
-16 < C <= 4096, E <= 256, d and f multiples of 8 and 16-byte aligned
-pointers; "mma_sync" for bf16 otherwise (decode, odd widths); "simt" for
-float32. The backward has two routes: "mma_sync" for bf16, "simt" for
-float32 (`bwd_route`); its bf16 kernel takes d and f that are multiples of
-8 and 16-byte aligned tensors, and a call with others raises ValueError. There is no fallback from a failed launch to
-another route or to the plain version. Each entry point counts its
-launches in its key of `LAUNCHES` (kernel launches only, never the plain
-path) and the kernel each took in `ROUTES`.
+`route` picks the forward's kernel: "tensor_core" (wgmma fed by TMA) for
+bf16 with 16 < C <= 4096, E <= 256, d and f multiples of 8 and 16-byte
+aligned pointers; "mma_sync" for bf16 otherwise (decode, odd widths);
+"simt" for float32. `bwd_route` picks the backward's by entry point:
+"tensor_core" for bf16 dx and dw within the same limits, "mma_sync" for
+the gated backward and for other bf16 calls (that kernel takes d and f
+that are multiples of 8 and 16-byte aligned tensors; a call with others
+raises ValueError), "simt" for float32. There is no fallback from a
+failed launch to another route or to the plain version. Each entry point
+counts its launches in its key of `LAUNCHES` (kernel launches only, never
+the plain path) and the kernel each took in `ROUTES`.
 
 `rows` (optional, int32 (E, G) on x's device): group g of expert e holds
 C / G rows of x, and its rows past rows[e, g] are zero. The kernels skip
@@ -49,6 +51,7 @@ MAX_GRID = 65535               # the kernels' grid: E in grid.z, C / 16
 # the tensor-core route's limits (one 32-bit row-tile mask per expert)
 TC_MAX_EXPERTS, TC_MAX_ROWS = 256, 32 * 128
 _ROUTE_CODE = {"tensor_core": 0, "mma_sync": 1, "simt": 2}
+_BWD_ENTRIES = ("moe_gmm_bwd_dx", "moe_gmm_bwd_dw", "moe_gmm_gated_bwd")
 _F32_OUT, _IN_DTYPE_OUT, _GATED = 0, 1, 2      # the epilogue codes
 
 _P = ctypes.c_void_p
@@ -78,10 +81,32 @@ def route(x: torch.Tensor, *ws: torch.Tensor) -> str:
     return "mma_sync"
 
 
-def bwd_route(x: torch.Tensor) -> str:
-    """The backward kernels' route: "mma_sync" for bf16, "simt" for
-    float32."""
-    return "simt" if x.dtype == torch.float32 else "mma_sync"
+def bwd_route(name: str, *ts: Optional[torch.Tensor]) -> str:
+    """The kernel a CUDA call of the backward entry point `name` takes,
+    read from the shapes and pointers of its tensor arguments `ts` in the
+    entry point's order (dx: dy, w[, dy2, w2]; dw: x, dy[, dy2]; gated: x,
+    wg, wu, dh; None for an absent one): "simt" for float32; for bf16,
+    "mma_sync" for the gated backward, and for dx and dw "tensor_core"
+    when 16 < C <= TC_MAX_ROWS, E <= TC_MAX_EXPERTS, every width (each
+    tensor's last, and dx's output width) is a positive multiple of 8 and
+    every tensor starts 16-byte aligned, else "mma_sync"."""
+    if name not in _BWD_ENTRIES:
+        raise ValueError(f"no backward entry point {name!r}")
+    x = ts[0]
+    if x.dtype == torch.float32:
+        return "simt"
+    if name == "moe_gmm_gated_bwd":
+        return "mma_sync"
+    present = [t for t in ts if t is not None]
+    E, C = x.shape[:2]
+    widths = [t.shape[-1] for t in present]
+    if name == "moe_gmm_bwd_dx":
+        widths.append(ts[1].shape[1])
+    if (16 < C <= TC_MAX_ROWS and E <= TC_MAX_EXPERTS
+            and all(w > 0 and w % 8 == 0 for w in widths)
+            and all(t.data_ptr() % 16 == 0 for t in present)):
+        return "tensor_core"
+    return "mma_sync"
 
 
 def _lib() -> ctypes.CDLL:
@@ -208,23 +233,58 @@ def _check_same(dev: torch.device, dtype: torch.dtype, **ts) -> None:
         _check(name, t, dtype, 3, dev)
 
 
-def _bwd_launch(name: str, ts, widths, *args) -> None:
-    """Launch `name` on the route of ts[0]'s dtype; the bf16 kernel's
-    16-byte loads need every one of `widths` a multiple of 8 and every
-    tensor of `ts` (None for an absent one) 16-byte aligned."""
+def _launch_bwd(kind: str, name: str, *ts: Optional[torch.Tensor],
+                rows: Optional[torch.Tensor] = None):
+    """One C call of the backward entry point `name` on route `kind`, on
+    inputs that entry point has checked (`ts` in its order, None for an
+    absent one); returns what it returns. "mma_sync" takes every bf16
+    call, so `chip_smoke.py` times the parent kernel on the tensor-core
+    route's inputs through it. The mma_sync kernel's 16-byte loads need d
+    and f multiples of 8 and every tensor 16-byte aligned: ValueError
+    otherwise."""
     x = ts[0]
-    kind = bwd_route(x)
-    if kind == "mma_sync" and (any(w % 8 for w in widths) or any(
-            t.data_ptr() % 16 for t in ts if t is not None)):
-        raise ValueError(f"{name}: the bf16 kernel takes widths {widths} "
-                         f"that are multiples of 8 and 16-byte aligned "
-                         f"tensors")
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = getattr(_bwd_lib(), name)(*args, 1 if kind == "mma_sync" else 2,
-                                   stream)
-    _raise_on(rc, f"{name} ({kind})")
-    LAUNCHES[name] += 1
-    ROUTES[kind] += 1
+    dev, dt = x.device, x.dtype
+    G = 1 if rows is None else rows.shape[1]
+    if name == "moe_gmm_bwd_dx":
+        dy, w, dy2, w2 = (*ts, None, None)[:4]
+        E, C, n = dy.shape
+        m = w.shape[1]
+        outs = [torch.empty((E, C, m), dtype=dt, device=dev)]
+        widths = (n, m)
+        args = (dy.data_ptr(), w.data_ptr(), _ptr(dy2), _ptr(w2),
+                outs[0].data_ptr(), _ptr(rows), E, C, n, m, G)
+    elif name == "moe_gmm_bwd_dw":
+        x, dy, dy2 = (*ts, None)[:3]
+        E, C, m = x.shape
+        n = dy.shape[2]
+        outs = [torch.empty((E, m, n), dtype=dt, device=dev)
+                for _ in range(1 if dy2 is None else 2)]
+        widths = (m, n)
+        args = (x.data_ptr(), dy.data_ptr(), _ptr(dy2), outs[0].data_ptr(),
+                _ptr(outs[1]) if dy2 is not None else None, _ptr(rows), E, C,
+                m, n, G)
+    else:
+        x, wg, wu, dh = ts
+        E, C, d = x.shape
+        f = wg.shape[2]
+        outs = [torch.empty((E, C, f), dtype=dt, device=dev)
+                for _ in range(2)]
+        widths = (d, f)
+        args = (x.data_ptr(), wg.data_ptr(), wu.data_ptr(), dh.data_ptr(),
+                outs[0].data_ptr(), outs[1].data_ptr(), _ptr(rows), E, C, d,
+                f, G)
+    if outs[0].numel():
+        if kind == "mma_sync" and (any(w % 8 for w in widths) or any(
+                t.data_ptr() % 16 for t in ts if t is not None)):
+            raise ValueError(f"{name}: the bf16 kernel takes widths {widths} "
+                             f"that are multiples of 8 and 16-byte aligned "
+                             f"tensors")
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rc = getattr(_bwd_lib(), name)(*args, _ROUTE_CODE[kind], stream)
+        _raise_on(rc, f"{name} ({kind})")
+        LAUNCHES[name] += 1
+        ROUTES[kind] += 1
+    return outs[0] if len(outs) == 1 else tuple(outs)
 
 
 def _ptr(t: Optional[torch.Tensor]):
@@ -247,7 +307,7 @@ def moe_gmm_bwd_dx(dy: torch.Tensor, w: torch.Tensor,
     (w = wd) and, with both pairs, of the gated one's buffer."""
     if (dy2 is None) != (w2 is None):
         raise ValueError("dy2 and w2 come together")
-    G = _groups(rows, dy)
+    _groups(rows, dy)
     if _device_of(dy).type == "cpu":
         return moe_gmm_bwd_dx_ref(dy, w, dy2, w2, rows)
     dev = dy.device
@@ -261,13 +321,9 @@ def moe_gmm_bwd_dx(dy: torch.Tensor, w: torch.Tensor,
         raise ValueError(f"shapes dy {tuple(dy.shape)} and w "
                          f"{tuple(w.shape)} (and the second pair) disagree")
     _grid_ok(E, C, n, m)
-    out = torch.empty((E, C, m), dtype=dy.dtype, device=dev)
-    if out.numel() == 0:
-        return out
-    _bwd_launch("moe_gmm_bwd_dx", (dy, w, dy2, w2), (n, m), dy.data_ptr(),
-                w.data_ptr(), _ptr(dy2), _ptr(w2), out.data_ptr(),
-                _ptr(rows), E, C, n, m, G)
-    return out
+    ts = (dy, w, dy2, w2)
+    return _launch_bwd(bwd_route("moe_gmm_bwd_dx", *ts), "moe_gmm_bwd_dx",
+                       *ts, rows=rows)
 
 
 def moe_gmm_bwd_dw(x: torch.Tensor, dy: torch.Tensor,
@@ -279,7 +335,7 @@ def moe_gmm_bwd_dw(x: torch.Tensor, dy: torch.Tensor,
     over the same x tile. x: (E, C, m); dy, dy2: (E, C, n). The weight
     gradient of `moe_gmm_fwd` (x = h, dy = the output's gradient) and of
     the gated one (x, dg, du)."""
-    G = _groups(rows, x)
+    _groups(rows, x)
     if _device_of(x).type == "cpu":
         dw = moe_gmm_bwd_dw_ref(x, dy, rows)
         return dw if dy2 is None else (dw, moe_gmm_bwd_dw_ref(x, dy2, rows))
@@ -292,14 +348,9 @@ def moe_gmm_bwd_dw(x: torch.Tensor, dy: torch.Tensor,
         raise ValueError(f"shapes x {tuple(x.shape)} and dy "
                          f"{tuple(dy.shape)} disagree")
     _grid_ok(E, m, n, C)
-    outs = [torch.empty((E, m, n), dtype=x.dtype, device=dev)
-            for _ in range(1 if dy2 is None else 2)]
-    if outs[0].numel():
-        _bwd_launch("moe_gmm_bwd_dw", (x, dy, dy2), (m, n), x.data_ptr(),
-                    dy.data_ptr(), _ptr(dy2), outs[0].data_ptr(),
-                    outs[1].data_ptr() if dy2 is not None else None,
-                    _ptr(rows), E, C, m, n, G)
-    return outs[0] if dy2 is None else tuple(outs)
+    ts = (x, dy, dy2)
+    return _launch_bwd(bwd_route("moe_gmm_bwd_dw", *ts), "moe_gmm_bwd_dw",
+                       *ts, rows=rows)
 
 
 def moe_gmm_gated_bwd(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
@@ -310,7 +361,7 @@ def moe_gmm_gated_bwd(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     = dh silu(g) and dg = dh u silu'(g) each rounded once (the formulas of
     `moe_gmm_gated_bwd_ref`); the rows past `rows` are zero. Shapes as
     `moe_gmm_gated_fwd`, dh as its output."""
-    G = _groups(rows, x)
+    _groups(rows, x)
     if _device_of(x).type == "cpu":
         return moe_gmm_gated_bwd_ref(x, wg, wu, dh, rows)
     dev = _check_inputs(x, wg, wu)
@@ -319,11 +370,6 @@ def moe_gmm_gated_bwd(x: torch.Tensor, wg: torch.Tensor, wu: torch.Tensor,
     _check("dh", dh, x.dtype, 3, dev)
     if dh.shape != (E, C, f):
         raise ValueError(f"dh {tuple(dh.shape)} != {(E, C, f)}")
-    dg, du = (torch.empty((E, C, f), dtype=x.dtype, device=dev)
-              for _ in range(2))
-    if dg.numel():
-        _bwd_launch("moe_gmm_gated_bwd", (x, wg, wu, dh), (d, f),
-                    x.data_ptr(), wg.data_ptr(), wu.data_ptr(),
-                    dh.data_ptr(), dg.data_ptr(), du.data_ptr(), _ptr(rows),
-                    E, C, d, f, G)
-    return dg, du
+    ts = (x, wg, wu, dh)
+    return _launch_bwd(bwd_route("moe_gmm_gated_bwd", *ts),
+                       "moe_gmm_gated_bwd", *ts, rows=rows)

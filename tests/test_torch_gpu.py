@@ -1137,11 +1137,12 @@ def test_moe_gmm_refuses_rows_it_cannot_read_on_the_card(cuda):
 
 # (E, C, G, d, f) of the backward kernels: a second row tile of 2 rows in
 # two groups, qwen2-moe's ragged prefill group (C 344, d 2040, f 1400:
-# multiples of 8 that no 128-wide tile divides) and its training step's
-# four groups of 344 at narrow widths, in both dtypes; odd widths in
-# float32 only (the bf16 kernel refuses them)
+# multiples of 8 that no 128-wide tile divides), its training step's four
+# groups of 344 at narrow widths and at full width (d 2048, f 1408; expert
+# 2's groups end mid-slab), in both dtypes; odd widths in float32 only (the
+# bf16 kernels refuse them)
 GMM_BWD_CASES = [(4, 130, 2, 128, 64), (4, 344, 1, 2040, 1400),
-                 (6, 1376, 4, 64, 96)]
+                 (6, 1376, 4, 64, 96), (6, 1376, 4, 2048, 1408)]
 GMM_BWD_ODD = (3, 130, 1, 77, 33)
 
 
@@ -1162,29 +1163,29 @@ def _bwd_inputs(case, dtype, device):
             draw(E, C, f), draw(E, C, d))
 
 
-def _bwd_calls(x, wg, wu, wd, dh, dog, rows):
+def _bwd_calls(x, wg, wu, wd, dh, dog):
     """Each backward entry point as the MoE layer calls it, beside its
-    plain version: (name, key of LAUNCHES, kernel call, plain call)."""
+    plain version: (name, key of LAUNCHES, its tensor arguments, plain
+    call of `rows`)."""
     from repro_torch.kernels.moe_gmm import ref as gref
     dg, du = (t.contiguous() for t in (dh, dh.flip(1)))
     h = dh.flip(2).contiguous()
     return [
-        ("gated_bwd", "moe_gmm_gated_bwd",
-         lambda r: gmm_kernel.moe_gmm_gated_bwd(x, wg, wu, dh, rows=r),
+        ("gated_bwd", "moe_gmm_gated_bwd", (x, wg, wu, dh),
          lambda r: gref.moe_gmm_gated_bwd_ref(x, wg, wu, dh, r)),
-        ("dx, one pair (dh)", "moe_gmm_bwd_dx",
-         lambda r: gmm_kernel.moe_gmm_bwd_dx(dog, wd, rows=r),
+        ("dx, one pair (dh)", "moe_gmm_bwd_dx", (dog, wd),
          lambda r: gref.moe_gmm_bwd_dx_ref(dog, wd, rows=r)),
-        ("dx, two pairs (dxe)", "moe_gmm_bwd_dx",
-         lambda r: gmm_kernel.moe_gmm_bwd_dx(dg, wg, du, wu, rows=r),
+        ("dx, two pairs (dxe)", "moe_gmm_bwd_dx", (dg, wg, du, wu),
          lambda r: gref.moe_gmm_bwd_dx_ref(dg, wg, du, wu, rows=r)),
-        ("dw, one dy (dwd)", "moe_gmm_bwd_dw",
-         lambda r: gmm_kernel.moe_gmm_bwd_dw(h, dog, rows=r),
+        ("dw, one dy (dwd)", "moe_gmm_bwd_dw", (h, dog),
          lambda r: gref.moe_gmm_bwd_dw_ref(h, dog, rows=r)),
-        ("dw, two dy (dwg, dwu)", "moe_gmm_bwd_dw",
-         lambda r: gmm_kernel.moe_gmm_bwd_dw(x, dg, du, rows=r),
+        ("dw, two dy (dwg, dwu)", "moe_gmm_bwd_dw", (x, dg, du),
          lambda r: (gref.moe_gmm_bwd_dw_ref(x, dg, rows=r),
                     gref.moe_gmm_bwd_dw_ref(x, du, rows=r)))]
+
+
+def _as_tuple(t):
+    return t if isinstance(t, tuple) else (t,)
 
 
 @pytest.mark.parametrize("case, dtype", [
@@ -1196,30 +1197,48 @@ def test_moe_gmm_backward_kernels_match_plain_versions(cuda, case, dtype):
     card, with and without `rows`: within 2^-7 x max |plain| in bf16 (each
     output rounded once; a float32 sum in another order may round an
     element the other way, and a recomputed g one bf16 ulp off moves
-    silu'(g)) and 1e-5 x max |plain| in float32; the route (mma_sync for
-    bf16, simt for float32); bit-identical relaunch; one count per launch
-    in its key and its route."""
+    silu'(g)) and 1e-5 x max |plain| in float32; the route (bf16:
+    tensor_core for dx and dw, mma_sync for the gated backward; simt for
+    float32); bit-identical relaunch; one count per launch in its key and
+    its route; in bf16, dx and dw also within the same tolerance of the
+    mma_sync kernel on the same inputs; with `rows`, dx's and the gated
+    backward's rows past it exact zeros."""
     rows, x, wg, wu, wd, dh, dog = _bwd_inputs(case, dtype, cuda)
-    kind = "simt" if dtype == "float32" else "mma_sync"
-    assert gmm_kernel.bwd_route(x) == kind
     rel = 2.0 ** -7 if dtype == "bfloat16" else 1e-5
-    for name, key, run, plain in _bwd_calls(x, wg, wu, wd, dh, dog, rows):
+    for name, key, args, plain in _bwd_calls(x, wg, wu, wd, dh, dog):
+        kind = "simt" if dtype == "float32" else (
+            "mma_sync" if key == "moe_gmm_gated_bwd" else "tensor_core")
+        assert gmm_kernel.bwd_route(key, *args) == kind, name
         for r in (None, rows):
             before = (gmm_kernel.LAUNCHES[key], gmm_kernel.ROUTES[kind])
-            got, again = run(r), run(r)
+            run = getattr(gmm_kernel, key)
+            got, again = run(*args, rows=r), run(*args, rows=r)
             assert (gmm_kernel.LAUNCHES[key], gmm_kernel.ROUTES[kind]) == (
                 before[0] + 2, before[1] + 2), name
-            want = plain(r)
-            got, again, want = (t if isinstance(t, tuple) else (t,)
-                                for t in (got, again, want))
+            want = _as_tuple(plain(r))
+            got, again = _as_tuple(got), _as_tuple(again)
+            scale = max(float(w.float().abs().max()) for w in want)
             for a, b, w in zip(got, again, want):
                 assert a.dtype == x.dtype and a.shape == w.shape, name
                 assert torch.equal(a, b), f"{name}: relaunch differs"
                 err = float((a.float() - w.float()).abs().max())
                 assert err <= rel * float(w.float().abs().max()), \
                     f"{name} rows={r is not None}: {err}"
+            if kind == "tensor_core":
+                parent = _as_tuple(gmm_kernel._launch_bwd(
+                    "mma_sync", key, *args, rows=r))
+                for a, p in zip(got, parent):
+                    err = float((a.float() - p.float()).abs().max())
+                    assert err <= rel * scale, \
+                        f"{name} rows={r is not None} vs mma_sync: {err}"
             if r is not None and key != "moe_gmm_bwd_dw":
-                assert all(bool(a[0].eq(0).all()) for a in got), name
+                # the rows past `rows` are exact zeros (expert 0 has none)
+                C = got[0].shape[1]
+                Cg = C // r.shape[1]
+                dead = (torch.arange(C, device=cuda) % Cg)[None, :] >= \
+                    r.repeat_interleave(Cg, dim=1)
+                assert bool(dead[0].all()), name
+                assert all(bool(a[dead].eq(0).all()) for a in got), name
 
 
 def test_moe_gmm_bwd_dw_at_the_training_shape_relaunches_bit_identically(

@@ -130,6 +130,87 @@ def test_plain_backward_versions_treat_rows_past_rows_as_zero():
 # ---------------------------------------------------------------------------
 # (b) moe_ffn's gradients against jax.vjp of the reference's moe_ffn
 # ---------------------------------------------------------------------------
+# ---------------------------------------------------------------------------
+# (a') the backward's route, read from shapes and pointers (so it answers
+# for CPU tensors too)
+# ---------------------------------------------------------------------------
+def _route_args(name, pairs, E, C, m, n, dtype, shift):
+    """The tensor arguments of backward entry point `name` (dx: dy (E, C,
+    n), w (E, m, n), a second pair with `pairs` 2; dw: x (E, C, m), dy
+    (E, C, n), a second dy; gated: x (E, C, m), wg, wu (E, m, n), dh (E,
+    C, n)) as broadcast views of one element, argument `shift` (an index,
+    or None) starting 2 bytes past a 16-byte boundary."""
+    def t(i, *shape):
+        base = torch.zeros(2, dtype=dtype)
+        return (base[1:] if i == shift else base[:1]).expand(shape)
+    if name == "moe_gmm_bwd_dx":
+        shapes = [(E, C, n), (E, m, n)] * pairs
+    elif name == "moe_gmm_bwd_dw":
+        shapes = [(E, C, m)] + [(E, C, n)] * pairs
+    else:
+        shapes = [(E, C, m), (E, m, n), (E, m, n), (E, C, n)]
+    return [t(i, *s) for i, s in enumerate(shapes)]
+
+
+_DX, _DW, _GB = "moe_gmm_bwd_dx", "moe_gmm_bwd_dw", "moe_gmm_gated_bwd"
+_BF, _FP = torch.bfloat16, torch.float32
+
+
+@pytest.mark.parametrize("name, pairs, E, C, m, n, dtype, shift, want", [
+    # qwen2-moe-a2.7b's training launches (dh, dxe, dwd, dwg + dwu)
+    (_DX, 1, 60, 1376, 1408, 2048, _BF, None, "tensor_core"),
+    (_DX, 2, 60, 1376, 2048, 1408, _BF, None, "tensor_core"),
+    (_DW, 1, 60, 1376, 1408, 2048, _BF, None, "tensor_core"),
+    (_DW, 2, 60, 1376, 2048, 1408, _BF, None, "tensor_core"),
+    # the edges of the limits: C 17 and 4096, E 256
+    (_DX, 1, 2, 17, 8, 16, _BF, None, "tensor_core"),
+    (_DW, 2, 2, 4096, 16, 8, _BF, None, "tensor_core"),
+    (_DX, 2, 256, 24, 8, 8, _BF, None, "tensor_core"),
+    # C <= 16, C > 4096, E > 256
+    (_DX, 1, 2, 16, 8, 16, _BF, None, "mma_sync"),
+    (_DW, 1, 2, 16, 8, 16, _BF, None, "mma_sync"),
+    (_DX, 1, 2, 4097, 8, 16, _BF, None, "mma_sync"),
+    (_DW, 2, 2, 4097, 8, 16, _BF, None, "mma_sync"),
+    (_DX, 2, 257, 24, 8, 8, _BF, None, "mma_sync"),
+    (_DW, 1, 257, 24, 8, 8, _BF, None, "mma_sync"),
+    # a width not a multiple of 8: dx's output (m) or reduction (n), dw's
+    # either side
+    (_DX, 1, 2, 24, 12, 16, _BF, None, "mma_sync"),
+    (_DX, 2, 2, 24, 16, 12, _BF, None, "mma_sync"),
+    (_DW, 1, 2, 24, 12, 16, _BF, None, "mma_sync"),
+    (_DW, 2, 2, 24, 16, 12, _BF, None, "mma_sync"),
+    # an unaligned tensor: dx's dy, its second w; dw's x, its second dy
+    (_DX, 1, 2, 24, 16, 16, _BF, 0, "mma_sync"),
+    (_DX, 2, 2, 24, 16, 16, _BF, 3, "mma_sync"),
+    (_DW, 1, 2, 24, 16, 16, _BF, 0, "mma_sync"),
+    (_DW, 2, 2, 24, 16, 16, _BF, 2, "mma_sync"),
+    # the gated backward stays on mma_sync at the training shape
+    (_GB, 1, 60, 1376, 2048, 1408, _BF, None, "mma_sync"),
+    # float32: simt, each entry point
+    (_DX, 2, 60, 1376, 2048, 1408, _FP, None, "simt"),
+    (_DW, 2, 60, 1376, 2048, 1408, _FP, None, "simt"),
+    (_GB, 1, 2, 24, 16, 8, _FP, None, "simt"),
+])
+def test_bwd_route_picks_by_entry_point_dtype_shape_and_alignment(
+        name, pairs, E, C, m, n, dtype, shift, want):
+    """`kernel.bwd_route(name, *tensors)`: float32 -> simt; bf16 dx and dw
+    -> tensor_core for 16 < C <= 4096, E <= 256, every width a multiple of
+    8 and every tensor 16-byte aligned, else mma_sync; the gated backward
+    -> mma_sync."""
+    args = _route_args(name, pairs, E, C, m, n, dtype, shift)
+    assert gmm_kernel.bwd_route(name, *args) == want
+
+
+def test_bwd_route_takes_absent_tensors_and_refuses_unknown_names():
+    """None in place of an absent second pair or dy is skipped, as the
+    entry points pass it; a name that is no backward entry point raises."""
+    dy, w = _route_args(_DX, 1, 2, 24, 16, 16, _BF, None)
+    assert gmm_kernel.bwd_route(_DX, dy, w, None, None) == "tensor_core"
+    assert gmm_kernel.bwd_route(_DW, dy, dy, None) == "tensor_core"
+    with pytest.raises(ValueError):
+        gmm_kernel.bwd_route("moe_gmm_fwd", dy, w)
+
+
 @pytest.mark.parametrize("T,cf", [(64, 1.25), (8192, 1.25), (8192, 0.5)])
 def test_moe_ffn_gradients_match_jax_vjp(T, cf):
     """float32, rtol 1e-5: the gradients of x and of every MoE leaf (the
