@@ -32,7 +32,10 @@ run, exit code != 0):
               any (fwd: `embedding_bag` and a CSR `torch.sparse.mm`, the
               faster counted; dw: `torch.sparse.sampled_addmm`;
               `index_select`; for bwd_dx `index_add_` of the pre-multiplied
-              rows, which is atomic and so not deterministic), and the
+              rows into a tensor zeroed inside the timed call, as the
+              kernel writes the whole dx (atomic, so not deterministic;
+              the time into a tensor zeroed beforehand stands beside it),
+              and the
               bound (compulsory bytes at 3.35 TB/s, flops at 67 TFLOP/s
               float32). At layer 0 of SAGE and GAT, `[3 reuse]` times fwd
               (and GAT's dw) at the real index, with no reuse (a distinct
@@ -323,8 +326,8 @@ run, exit code != 0):
               product and of both gated weights, dw of the down weight and
               of both gated weights) at its own inputs, then one layer's
               five at every one of the 65,536 assignments kept (synthetic,
-              from a seed): route (bf16 dx and dw tensor_core, the gated
-              backward mma_sync), max error against its plain version
+              from a seed): route (bf16: tensor_core for each), max
+              error against its plain version
               within 2^-7 x max |plain|, a bit-identical relaunch, ms
               beside the plain version, `torch.bmm` of the same products
               and the bound of the occupied rows; each tensor-core launch
@@ -337,14 +340,14 @@ run, exit code != 0):
               2^-7 x max |plain|); (b) 6 steps, then the same 6 from a
               second draw of the same seed, then with the plain backward:
               finite losses, the relaunch bit-identical, exact launches a
-              step (8 moe_gmm_fwd, 2 gated backward, 4 dx, 4 dw: 16 on
-              tensor_core, the 2 gated on mma_sync; 4 flash forwards, 2
+              step (8 moe_gmm_fwd, 2 gated backward, 4 dx, 4 dw: all 18
+              on tensor_core; 4 flash forwards, 2
               backwards, 1 bwd_dx; every other 0), step ms, tokens/s,
               peak GiB, the parameter count; a profiled step at each of
               (a)'s two steps (kernels by device time, the idle share,
               the time in expert products forward and backward, flash,
               matmuls, AdamW and the rest; the tensor-core backward kernel
-              present, no dx or dw mma_sync instance), with no
+              present, no mma_sync instance of the backward), with no
               `indexing_backward`, `index_add_` or accumulating scatter
               kernel (the gathers and non-accumulating scatters that run
               are logged); (c) reduced qwen2-moe in float32, 5 steps on
@@ -445,12 +448,10 @@ FLASH_TC, FLASH_SIMT = "flash_fwd_tc_kernel", "flash_fwd_kernel"
 # the tensor-core one only, its decode step the mma.sync one only
 GMM_TC, GMM_MMA, GMM_SIMT = "gmm_tc_kernel", "gmm_mma_kernel", \
     "gmm_f32_kernel"
-# ... and of its backward's routes (bf16 dx and dw on tensor_core, the
-# gated backward on mma_sync, float32 on simt), and the template
-# arguments of dx's and dw's mma_sync instances (their MODE)
+# ... and of its backward's routes (bf16 on tensor_core, mma_sync past
+# its limits, float32 on simt)
 GMM_BWD_TC, GMM_BWD, GMM_BWD_SIMT = "bwd_tc_kernel", "bwd_mma_kernel", \
     "bwd_f32_kernel"
-GMM_BWD_DX, GMM_BWD_DW = 0, 1
 # ... and of the flash backward's routes: the bf16 train step must spend
 # its backward time in the tensor-core kernels and never in the SIMT ones
 BWD_TC = ("dkdv_tc_kernel", "dq_tc_kernel")
@@ -870,7 +871,9 @@ def check_dx(torch, L):
                                                           else 8)
                            + n_src * F * 4, 2.0 * n_dst * r * F)
     # the library call: one index_add_ of the rows w g, multiplied
-    # beforehand (atomics: neither deterministic nor ordered)
+    # beforehand (atomics: neither deterministic nor ordered), into a
+    # tensor zeroed inside the call, as the kernel writes the whole dx; the
+    # same into a tensor zeroed beforehand stands beside it
     contrib = (g if w is None else
                (w[..., None] * g[:, None, :])).reshape(-1, F)
     flat, acc = idx.reshape(-1).long(), torch.zeros_like(dx)
@@ -879,7 +882,9 @@ def check_dx(torch, L):
             "ms": k_ms + plan_ms, "kernel_ms": k_ms, "plan_ms": plan_ms,
             "plain_ms": cuda_ms(torch, lambda: ref.gather_agg_bwd_dx_ref(
                 idx, w, g, n_src)),
-            "library_ms": cuda_ms(torch, lambda: acc.index_add_(
+            "library_ms": cuda_ms(torch, lambda: torch.zeros_like(
+                dx).index_add_(0, flat, contrib)),
+            "library_prezeroed_ms": cuda_ms(torch, lambda: acc.index_add_(
                 0, flat, contrib)),
             "note": f"dx {n_src}x{F} edges {n_dst}x{r}, {how} (at most "
                     f"{terms} weighted edges on a row, "
@@ -887,7 +892,8 @@ def check_dx(torch, L):
                     f"bit-equal to the CPU on the {int(short.sum())} others;"
                     f" tol {tol:.1e}); kernel_ms {k_ms:.4f} plan_ms "
                     f"{plan_ms:.4f}; library: index_add_ of the "
-                    f"pre-multiplied rows, atomic, not deterministic"}
+                    f"pre-multiplied rows into zeros made in the call, "
+                    f"atomic, not deterministic"}
 
 
 def check_dw(torch, L):
@@ -1191,17 +1197,29 @@ def phase_paired(torch, make_trainer, plan, steps: int = 10):
         f"{[round(t, 2) for t in ms['cached']]}")
 
 
+# seconds between each edge of a profiler window and the calls inside it
+PROFILE_PAD_S = 0.25
+
+
 def profile_kernels(torch, fn):
     """(CUDA kernels by self device time as (name, us, calls), wall ms) of
-    one call of `fn` under torch.profiler."""
+    one call of `fn` under torch.profiler. The profiler drops a device
+    event stamped, on the card's clock, outside the window the host's
+    clock opened and closed, and a kernel has been stamped over a
+    millisecond before the host read its launch
+    (`tools/profiler_window_probe.py`): `fn` runs PROFILE_PAD_S seconds
+    inside each edge of the window, as `analysis/op_audit.py` `_profiled`
+    runs its calls."""
     from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        time.sleep(PROFILE_PAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        time.sleep(PROFILE_PAD_S)
     dev = [(e.key, e.self_device_time_total, e.count)
            for e in prof.key_averages() if e.self_device_time_total > 0
            and e.device_type == torch.autograd.DeviceType.CUDA]
@@ -3263,9 +3281,10 @@ def phase_serve_card_vs_cpu(torch, arch, tag, steps: int = 8):
 
 class TopkReplay:
     """Stands in for `torch` inside `models/lm/moe.py`: its first run
-    records each layer's top-k expert choices, a later run takes the same
-    choices (its own probabilities gathered at them) and counts the tokens
-    whose own choice differs. Routing is discontinuous: two devices whose
+    records each layer's top-k expert choices (`moe.top_k` selects on
+    keys; it gathers its own probabilities at the indices), a later run
+    takes the same choices and counts the tokens whose own choice
+    differs. Routing is discontinuous: two devices whose
     hidden states differ by bf16 rounding pick other experts for
     near-ties, so the logits are held on the same choices."""
 
@@ -4194,7 +4213,9 @@ def phase_lm_train(torch, cfg):
                  "n_src": params["embed"].shape[0], "heads": 1}})
     log(f"[12 kernels] gather_agg_bwd_dx (the token embedding's backward): "
         f"ms {embed_rows['ms']:.4f} plain_ms {embed_rows['plain_ms']:.4f} "
-        f"library_ms {embed_rows['library_ms']:.4f} bound_ms "
+        f"library_ms {embed_rows['library_ms']:.4f} (zeros made in the "
+        f"call; into zeros made beforehand "
+        f"{embed_rows['library_prezeroed_ms']:.4f}) bound_ms "
         f"{embed_rows['bound_ms']:.4f} ({embed_rows['bound_by']}) "
         f"max_abs_err {embed_rows['max_abs_err']:.3e}; {embed_rows['note']}")
     del params, opt
@@ -4366,12 +4387,13 @@ def plain_gmm_bwd():
 
 def check_gmm_bwd(torch, label, name, args, rows):
     """One backward launch at its real inputs: the bf16 launch on its route
-    (`bwd_route`: tensor_core for dx and dw, mma_sync for the gated
-    backward) and the same inputs in float32 (simt) against the plain
-    version, relaunched, timed beside the plain version, `torch.bmm` of
-    the same products and the bound; a bf16 tensor-core launch also beside
-    its parent, the mma_sync kernel on the same inputs (held to the same
-    tolerance, relaunched, timed in turns: parent, change, parent)."""
+    (`bwd_route`: tensor_core for each entry point) and the same inputs in
+    float32 (simt) against the plain version, relaunched, timed beside the
+    plain version, `torch.bmm` of the same products and the bound; a bf16
+    tensor-core launch also beside its parent, the mma_sync kernel on the
+    same inputs (held to the same tolerance, relaunched, timed in turns:
+    parent, change, parent); the gated backward's rows past `rows` exact
+    zeros on each route."""
     from repro_torch.kernels.moe_gmm import kernel, ref
     plain = {"moe_gmm_gated_bwd": lambda *a: ref.moe_gmm_gated_bwd_ref(
                  *a, rows=rows),
@@ -4381,7 +4403,7 @@ def check_gmm_bwd(torch, label, name, args, rows):
                  ref.moe_gmm_bwd_dw_ref(a[0], dy, rows) for dy in a[1:])}
     n_products = {"moe_gmm_gated_bwd": 2, "moe_gmm_bwd_dx": len(args) // 2,
                   "moe_gmm_bwd_dw": len(args) - 1}[name]
-    want_route = "mma_sync" if name == "moe_gmm_gated_bwd" else "tensor_core"
+    want_route = "tensor_core"
 
     def library(a):
         if name == "moe_gmm_bwd_dx":        # dy w^T per pair
@@ -4402,6 +4424,13 @@ def check_gmm_bwd(torch, label, name, args, rows):
               f"{rel:.1e} x {scale:.3e}")
         return err
 
+    def zeros_past_rows(out, what):
+        if name == "moe_gmm_bwd_dw":
+            return
+        live = ref.row_mask(rows, *out[0].shape[:2])
+        check(all(bool(torch.where(live, 0, x).eq(0).all()) for x in out),
+              f"{label} {what}: non-zero past rows")
+
     got = {}
     for dtype, rel, peak in ((torch.bfloat16, 2.0 ** -7, BF16_FLOPS_PER_S),
                              (torch.float32, 1e-5, F32_FLOPS_PER_S)):
@@ -4421,6 +4450,7 @@ def check_gmm_bwd(torch, label, name, args, rows):
               f"{label}: routes {kernel.ROUTES} (was {routes})")
         check(all(torch.equal(x, y) for x, y in zip(out, as_tuple(fn()))),
               f"{label} {kind}: differs between launches")
+        zeros_past_rows(out, kind)
         want = as_tuple(plain[name](*a))
         scale = max(float(w.float().abs().max()) for w in want)
         err = held(out, want, kind, rel, scale)
@@ -4436,6 +4466,7 @@ def check_gmm_bwd(torch, label, name, args, rows):
             check(all(torch.equal(x, y) for x, y in zip(was,
                                                         as_tuple(parent()))),
                   f"{label} mma_sync parent: differs between launches")
+            zeros_past_rows(was, "mma_sync parent")
             r["parent_err"] = held(was, want, "mma_sync parent", rel, scale)
             r["change_vs_parent"] = max(
                 float((x.float() - y.float()).abs().max())
@@ -4462,7 +4493,10 @@ def check_gmm_bwd(torch, label, name, args, rows):
             f"{rows.shape[0] * a[0].shape[1]} occupied, {occ_e} of "
             f"{rows.shape[0]} experts  route {kind}  "
             f"max_abs_err {err:.3e} (tol {rel:.1e} x max |plain| "
-            f"{scale:.3e})  bit-identical relaunch True  ms {r['ms']:.4f}"
+            f"{scale:.3e})  bit-identical relaunch True"
+            + ("" if name == "moe_gmm_bwd_dw" else
+               "  exact zeros past rows True")
+            + f"  ms {r['ms']:.4f}"
             f"{was_txt}  plain_ms {r['plain_ms']:.4f}  library_ms "
             + (f"{r['library_ms']:.4f} (torch.bmm x{n_products})"
                if r["library_ms"] is not None else "n/a")
@@ -4480,8 +4514,9 @@ def gmm_bwd_readings(torch, point, layers):
     products (one call a product: dx's and dw's function, summed over a
     launch's pairs); the gated backward's epilogue has no PyTorch call,
     so its `library_ms` is null and the bmm of its two products stands
-    beside it as `bmm_ms`. `mma_sync_ms`: dx's and dw's parent kernel on
-    the same inputs, timed before and after the change (sums)."""
+    beside it as `bmm_ms`. `mma_sync_ms`: each kernel's parent, the
+    mma_sync kernel, on the same inputs, timed before and after the change
+    (sums)."""
     per = {}
     for layer, calls_of in layers:
         calls = calls_of()
@@ -4611,9 +4646,8 @@ def moe_train_profile(torch, cfg, tcfg, step, params, opt, batch, med,
     check(not any(GMM_BWD_SIMT in k for k, _, _ in dev),
           f"{MOE_TRAIN}: a bf16 backward took the simt kernel")
     check(any(GMM_BWD_TC in k for k, _, _ in dev) and not any(
-              f"{GMM_BWD}<{mode}," in k for k, _, _ in dev
-              for mode in (GMM_BWD_DX, GMM_BWD_DW)),
-          f"{MOE_TRAIN}: a bf16 dx or dw left the tensor-core route")
+              GMM_BWD in k for k, _, _ in dev),
+          f"{MOE_TRAIN}: a bf16 backward left the tensor-core route")
     return split
 
 
@@ -4725,11 +4759,10 @@ def phase_moe_train(torch, runs, readings):
     want.update({k: v * TRAIN_STEPS for k, v in MOE_TRAIN_LAUNCHES.items()})
     check(launches == want, f"{MOE_TRAIN}: launches {launches} != {want}")
     n_bwd = sum(MOE_TRAIN_LAUNCHES[k] for k in GMM_BWD_KERNELS)
-    # the forward, dx and dw on tensor_core, the gated backward on
-    # mma_sync (its C entry refuses the tensor-core route), nothing on simt
-    n_gated = MOE_TRAIN_LAUNCHES["moe_gmm_gated_bwd"]
-    by_route = {"tensor_core": MOE_TRAIN_LAUNCHES["moe_gmm_fwd"] + n_bwd
-                - n_gated, "mma_sync": n_gated, "simt": 0}
+    # the forward and the whole backward on tensor_core, nothing on
+    # mma_sync or simt
+    by_route = {"tensor_core": MOE_TRAIN_LAUNCHES["moe_gmm_fwd"] + n_bwd,
+                "mma_sync": 0, "simt": 0}
     check(routes == {k: v * TRAIN_STEPS for k, v in by_route.items()},
           f"{MOE_TRAIN}: moe_gmm routes {routes}")
     check(flash_routes == {"tensor_core": MOE_TRAIN_LAYERS * TRAIN_STEPS,
@@ -4754,7 +4787,7 @@ def phase_moe_train(torch, runs, readings):
         f"{peak:.2f} GiB; launches a step "
         f"{ {k: v / TRAIN_STEPS for k, v in launches.items() if v} }, "
         f"others 0; moe_gmm routes {routes} (tensor_core: moe_gmm_fwd, "
-        f"moe_gmm_bwd_dx, moe_gmm_bwd_dw; mma_sync: moe_gmm_gated_bwd)")
+        f"moe_gmm_bwd_dx, moe_gmm_bwd_dw, moe_gmm_gated_bwd)")
     secs["training"] = time.perf_counter() - t0
 
     # (a) and the profile at two steps, each profiled step the one whose

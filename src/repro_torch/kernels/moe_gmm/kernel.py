@@ -11,11 +11,11 @@ versions (`ref.py`), CUDA tensors launch a kernel — or raise. On the card
 `route` picks the forward's kernel: "tensor_core" (wgmma fed by TMA) for
 bf16 with 16 < C <= 4096, E <= 256, d and f multiples of 8 and 16-byte
 aligned pointers; "mma_sync" for bf16 otherwise (decode, odd widths);
-"simt" for float32. `bwd_route` picks the backward's by entry point:
-"tensor_core" for bf16 dx and dw within the same limits, "mma_sync" for
-the gated backward and for other bf16 calls (that kernel takes d and f
-that are multiples of 8 and 16-byte aligned tensors; a call with others
-raises ValueError), "simt" for float32. There is no fallback from a
+"simt" for float32. `bwd_route` picks the backward's: "tensor_core" for
+bf16 dx, dw and the gated backward within the same limits, "mma_sync"
+for other bf16 calls (that kernel takes d and f that are multiples of 8
+and 16-byte aligned tensors; a call with others raises ValueError),
+"simt" for float32. There is no fallback from a
 failed launch to another route or to the plain version. Each entry point
 counts its launches in its key of `LAUNCHES` (kernel launches only, never
 the plain path) and the kernel each took in `ROUTES`.
@@ -85,18 +85,16 @@ def bwd_route(name: str, *ts: Optional[torch.Tensor]) -> str:
     """The kernel a CUDA call of the backward entry point `name` takes,
     read from the shapes and pointers of its tensor arguments `ts` in the
     entry point's order (dx: dy, w[, dy2, w2]; dw: x, dy[, dy2]; gated: x,
-    wg, wu, dh; None for an absent one): "simt" for float32; for bf16,
-    "mma_sync" for the gated backward, and for dx and dw "tensor_core"
-    when 16 < C <= TC_MAX_ROWS, E <= TC_MAX_EXPERTS, every width (each
-    tensor's last, and dx's output width) is a positive multiple of 8 and
-    every tensor starts 16-byte aligned, else "mma_sync"."""
+    wg, wu, dh; None for an absent one): "simt" for float32; for bf16
+    "tensor_core" when 16 < C <= TC_MAX_ROWS, E <= TC_MAX_EXPERTS, every
+    width (each tensor's last, and dx's output width) is a positive
+    multiple of 8 and every tensor starts 16-byte aligned, else
+    "mma_sync"."""
     if name not in _BWD_ENTRIES:
         raise ValueError(f"no backward entry point {name!r}")
     x = ts[0]
     if x.dtype == torch.float32:
         return "simt"
-    if name == "moe_gmm_gated_bwd":
-        return "mma_sync"
     present = [t for t in ts if t is not None]
     E, C = x.shape[:2]
     widths = [t.shape[-1] for t in present]

@@ -36,8 +36,9 @@ its one assignment's weight times its token's gradient, each weight the
 dot product of its token's gradient and its row. A token's weights in
 ascending expert order are a permutation of its top-k weights
 (`_PermuteLast`), whose backward is the inverse permutation. Nothing in
-the layer's backward scatters with accumulation; the router's top-k keeps
-PyTorch's own backward (one write per selected position). The expert
+the layer's backward scatters with accumulation; the router's top-k
+(`top_k`, in `jax.lax.top_k`'s order among ties) writes each selected
+position's gradient once. The expert
 products' backward is the grouped matmul's (`kernels/moe_gmm/ops.py`).
 """
 from __future__ import annotations
@@ -165,6 +166,41 @@ class _Combine(torch.autograd.Function):
         return dog, dw.to(w_k.dtype), None, None, None
 
 
+class _Select(torch.autograd.Function):
+    """t gathered along its last axis at `idx` (distinct per row); the
+    backward writes each gradient to its one position, zeros elsewhere
+    (a scatter with no accumulation, as `torch.topk`'s own backward)."""
+
+    @staticmethod
+    def forward(ctx, t, idx):
+        ctx.save_for_backward(idx)
+        ctx.shape = t.shape
+        return torch.gather(t, -1, idx)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, = ctx.saved_tensors
+        return g.new_zeros(ctx.shape).scatter(-1, idx, g), None
+
+
+def top_k(probs: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(values, indices) of the k largest entries of each row of `probs`
+    (float32, >= 0) along its last axis: values descending, the lower
+    index first among equal values, as `jax.lax.top_k` returns them.
+    `torch.topk` promises no order among ties, and a tie across the k-th
+    place changes a token's expert set, so it selects on keys made
+    distinct: each value's bits (monotone for non-negative floats) above
+    E - 1 - its index. The values are `probs` gathered at the indices, bit
+    for bit."""
+    E = probs.shape[-1]
+    shift = max(E - 1, 1).bit_length()
+    rank = torch.arange(E - 1, -1, -1, dtype=torch.int64,
+                        device=probs.device)
+    keys = (probs.view(torch.int32).to(torch.int64) << shift) | rank
+    idx = torch.topk(keys, k, dim=-1)[1]
+    return _Select.apply(probs, idx), idx
+
+
 class _PermuteLast(torch.autograd.Function):
     """t gathered along its last axis by `perm` (a permutation of it per
     row); the backward gathers by the inverse permutation."""
@@ -195,7 +231,7 @@ def moe_ffn(x: torch.Tensor, p, cfg) -> Tuple[torch.Tensor, torch.Tensor]:
     xr = x.reshape(G, Tg, d)
     logits = xr.to(torch.float32) @ p["router"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)                       # (G,Tg,E)
-    topv, topi = torch.topk(probs, K, dim=-1)                   # (G,Tg,K)
+    topv, topi = top_k(probs, K)                                # (G,Tg,K)
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
 
     # ---- load-balancing aux (Switch-style), per group; exact counts ----
@@ -258,7 +294,7 @@ def moe_ref(x, p, cfg):
     (`moe.py:155-174`)."""
     logits = x.to(torch.float32) @ p["router"].to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
-    topv, topi = torch.topk(probs, cfg.top_k, dim=-1)
+    topv, topi = top_k(probs, cfg.top_k)
     topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
     y = torch.zeros(x.shape, dtype=torch.float32, device=x.device)
     for e in range(cfg.num_experts):

@@ -1198,16 +1198,15 @@ def test_moe_gmm_backward_kernels_match_plain_versions(cuda, case, dtype):
     output rounded once; a float32 sum in another order may round an
     element the other way, and a recomputed g one bf16 ulp off moves
     silu'(g)) and 1e-5 x max |plain| in float32; the route (bf16:
-    tensor_core for dx and dw, mma_sync for the gated backward; simt for
-    float32); bit-identical relaunch; one count per launch in its key and
-    its route; in bf16, dx and dw also within the same tolerance of the
-    mma_sync kernel on the same inputs; with `rows`, dx's and the gated
-    backward's rows past it exact zeros."""
+    tensor_core for each entry point; simt for float32); bit-identical
+    relaunch; one count per launch in its key and its route; in bf16, each
+    also within the same tolerance of the mma_sync kernel on the same
+    inputs; with `rows`, dx's and the gated backward's rows past it exact
+    zeros."""
     rows, x, wg, wu, wd, dh, dog = _bwd_inputs(case, dtype, cuda)
     rel = 2.0 ** -7 if dtype == "bfloat16" else 1e-5
     for name, key, args, plain in _bwd_calls(x, wg, wu, wd, dh, dog):
-        kind = "simt" if dtype == "float32" else (
-            "mma_sync" if key == "moe_gmm_gated_bwd" else "tensor_core")
+        kind = "simt" if dtype == "float32" else "tensor_core"
         assert gmm_kernel.bwd_route(key, *args) == kind, name
         for r in (None, rows):
             before = (gmm_kernel.LAUNCHES[key], gmm_kernel.ROUTES[kind])
@@ -1239,6 +1238,33 @@ def test_moe_gmm_backward_kernels_match_plain_versions(cuda, case, dtype):
                     r.repeat_interleave(Cg, dim=1)
                 assert bool(dead[0].all()), name
                 assert all(bool(a[dead].eq(0).all()) for a in got), name
+
+
+def test_gated_backward_element_math_equals_the_mma_sync_kernels(cuda):
+    """The tensor-core gated backward's epilogue (branch-free
+    `gated_grad_nobranch` in its window, `gated_grad` outside it) gives the
+    mma_sync kernel's dg and du exactly when g and u are exact in both
+    (x the identity, so g = wg and u = wu): g takes every finite bf16
+    value that is not subnormal (subnormal inputs may be flushed in the
+    tensor cores) across one 256 x 256 weight, zeros of both signs, the
+    window's edges and the huge and very negative values included; u and
+    dh unit normal."""
+    E, C, d, f = 1, 256, 256, 256
+    wg = torch.arange(-32768, 32768, dtype=torch.int16).view(
+        torch.bfloat16).reshape(E, d, f)
+    w = wg.float()
+    keep = torch.isfinite(w) & ((w == 0) | (w.abs() >= 2.0 ** -126))
+    wg = torch.where(keep, wg, torch.zeros_like(wg)).to(cuda)
+    gen = torch.Generator().manual_seed(256)
+    wu, dh = (torch.randn((E, n, f), generator=gen).to(torch.bfloat16)
+              .to(cuda) for n in (d, C))
+    x = torch.eye(C, d, dtype=torch.bfloat16, device=cuda)[None]
+    args = (x, wg, wu, dh)
+    assert gmm_kernel.bwd_route("moe_gmm_gated_bwd", *args) == "tensor_core"
+    got = gmm_kernel.moe_gmm_gated_bwd(*args)
+    want = gmm_kernel._launch_bwd("mma_sync", "moe_gmm_gated_bwd", *args)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b), int((a != b).sum())
 
 
 def test_moe_gmm_bwd_dw_at_the_training_shape_relaunches_bit_identically(
@@ -1376,11 +1402,53 @@ def test_moe_generate_on_the_card_matches_the_cpu(cuda):
     assert torch.equal(gpu.ids.cpu(), cpu.ids)
 
 
+def test_router_top_k_picks_the_cpus_experts_on_the_card(cuda):
+    """`moe.top_k` (the router's top-k in `jax.lax.top_k`'s order among
+    equal values) at qwen2-moe-a2.7b's E 60, top-4: on the card the same
+    indices and values as on the CPU for probabilities that tie
+    everywhere (quantised to eighths, 2 groups x 4096 tokens), an
+    all-equal row giving experts 0-3; and `moe_ffn` of reduced qwen2-moe
+    with two equal router columns routes every token to the CPU's
+    experts."""
+    E, K = 60, 4
+    rng = np.random.default_rng(60)
+    probs = torch.as_tensor(rng.integers(0, 8, (2, 4096, E)) / 8.0,
+                            dtype=torch.float32)
+    probs[0, 0] = 1.0 / E
+    want_v, want_i = moe_module.top_k(probs, K)
+    got_v, got_i = moe_module.top_k(probs.to(cuda), K)
+    assert torch.equal(got_i.cpu(), want_i)
+    assert torch.equal(got_v.cpu(), want_v)
+    assert torch.equal(want_i[0, 0], torch.arange(K))
+    cfg = LM_CONFIGS["qwen2-moe-a2.7b"].reduced().scaled(dtype="float32")
+    p = moe_module.init_moe(torch.Generator().manual_seed(3), cfg)
+    p["router"][:, 5] = p["router"][:, 2]
+    x = torch.randn((256, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(4))
+    seen, real = [], moe_module.route
+
+    def spy(topi, *args):
+        seen.append(topi.cpu())
+        return real(topi, *args)
+    moe_module.route = spy
+    try:
+        with torch.no_grad():
+            moe_module.moe_ffn(x, p, cfg)
+            moe_module.moe_ffn(x.to(cuda), {k: v.to(cuda)
+                                            for k, v in p.items()}, cfg)
+    finally:
+        moe_module.route = real
+    split = (seen[0] == 2).any(-1) != (seen[0] == 5).any(-1)
+    assert bool(split.any())          # ties across the K-th place occur
+    assert torch.equal(seen[1], seen[0])
+
+
 class _TopkReplay:
     """Stands in for `torch` inside `models/lm/moe.py`: its first run
-    records each layer's top-k expert choices, a later run takes the same
-    choices (its own probabilities gathered at them) and counts the tokens
-    whose own choice differs. Routing is discontinuous: two devices whose
+    records each layer's top-k expert choices (`moe.top_k` selects on
+    keys; it gathers its own probabilities at the indices), a later run
+    takes the same choices and counts the tokens whose own choice
+    differs. Routing is discontinuous: two devices whose
     hidden states differ by bf16 rounding pick other experts for
     near-ties, so the logits are held on the same choices."""
 

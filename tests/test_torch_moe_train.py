@@ -184,8 +184,23 @@ _BF, _FP = torch.bfloat16, torch.float32
     (_DX, 2, 2, 24, 16, 16, _BF, 3, "mma_sync"),
     (_DW, 1, 2, 24, 16, 16, _BF, 0, "mma_sync"),
     (_DW, 2, 2, 24, 16, 16, _BF, 2, "mma_sync"),
-    # the gated backward stays on mma_sync at the training shape
-    (_GB, 1, 60, 1376, 2048, 1408, _BF, None, "mma_sync"),
+    # the gated backward (x (E, C, d), wg, wu (E, d, f), dh (E, C, f)):
+    # tensor_core at the training shape and the edges of the limits
+    (_GB, 1, 60, 1376, 2048, 1408, _BF, None, "tensor_core"),
+    (_GB, 1, 2, 17, 8, 16, _BF, None, "tensor_core"),
+    (_GB, 1, 2, 4096, 16, 8, _BF, None, "tensor_core"),
+    (_GB, 1, 256, 24, 8, 8, _BF, None, "tensor_core"),
+    # ... mma_sync past them: C 16, C 4097, E 257, d or f not a multiple
+    # of 8, an unaligned x, wg, wu or dh
+    (_GB, 1, 2, 16, 8, 16, _BF, None, "mma_sync"),
+    (_GB, 1, 2, 4097, 8, 16, _BF, None, "mma_sync"),
+    (_GB, 1, 257, 24, 8, 8, _BF, None, "mma_sync"),
+    (_GB, 1, 2, 24, 12, 16, _BF, None, "mma_sync"),
+    (_GB, 1, 2, 24, 16, 12, _BF, None, "mma_sync"),
+    (_GB, 1, 2, 24, 16, 16, _BF, 0, "mma_sync"),
+    (_GB, 1, 2, 24, 16, 16, _BF, 1, "mma_sync"),
+    (_GB, 1, 2, 24, 16, 16, _BF, 2, "mma_sync"),
+    (_GB, 1, 2, 24, 16, 16, _BF, 3, "mma_sync"),
     # float32: simt, each entry point
     (_DX, 2, 60, 1376, 2048, 1408, _FP, None, "simt"),
     (_DW, 2, 60, 1376, 2048, 1408, _FP, None, "simt"),
@@ -193,10 +208,10 @@ _BF, _FP = torch.bfloat16, torch.float32
 ])
 def test_bwd_route_picks_by_entry_point_dtype_shape_and_alignment(
         name, pairs, E, C, m, n, dtype, shift, want):
-    """`kernel.bwd_route(name, *tensors)`: float32 -> simt; bf16 dx and dw
-    -> tensor_core for 16 < C <= 4096, E <= 256, every width a multiple of
-    8 and every tensor 16-byte aligned, else mma_sync; the gated backward
-    -> mma_sync."""
+    """`kernel.bwd_route(name, *tensors)`: float32 -> simt; bf16 (dx, dw
+    and the gated backward alike) -> tensor_core for 16 < C <= 4096, E <=
+    256, every width a multiple of 8 and every tensor 16-byte aligned,
+    else mma_sync."""
     args = _route_args(name, pairs, E, C, m, n, dtype, shift)
     assert gmm_kernel.bwd_route(name, *args) == want
 
@@ -250,8 +265,8 @@ def test_moe_ffn_gradients_match_jax_vjp(T, cf):
 # ---------------------------------------------------------------------------
 ACCUMULATING = ("aten.index_add", "aten.scatter_add", "aten.index_put",
                 "aten._index_put_impl")
-# PyTorch's own backward of the router's top-k (one write per selected
-# position: `value_selecting_reduction_backward`)
+# the backward of the router's top-k (`moe.top_k`'s `_Select`: one write
+# per selected position, as `torch.topk`'s own backward writes them)
 TOPK_BACKWARD = "aten.scatter.src"
 
 
